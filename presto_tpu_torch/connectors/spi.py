@@ -1,0 +1,184 @@
+"""Connector SPI: the plugin boundary between the engine and data sources.
+
+Conceptual parity with Presto's SPI (reference presto-spi/src/main/java/io/
+prestosql/spi/connector/: ConnectorMetadata, ConnectorSplitManager,
+ConnectorPageSource(Provider), and spi/Plugin.java:33-78), reshaped for the
+device engine (a copy of presto_tpu/connectors/spi.py for the PyTorch
+port): a PageSource yields device Batches (struct-of-arrays) instead of
+Pages, declares which string columns have *stable dictionaries* (safe to
+compile against), and accepts column pruning + conjunctive predicate
+pushdown at split-source creation (the LazyBlock + TupleDomain roles).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+from ..batch import Batch, Schema
+from ..types import Type
+
+
+@dataclasses.dataclass(frozen=True)
+class TableHandle:
+    catalog: str
+    schema: str
+    table: str
+
+    def __str__(self) -> str:
+        return f"{self.catalog}.{self.schema}.{self.table}"
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnStats:
+    """Per-column statistics for the cost-based optimizer (reference
+    presto-spi/.../statistics/ColumnStatistics.java)."""
+
+    distinct_count: Optional[float] = None
+    null_fraction: float = 0.0
+    min_value: Optional[Any] = None
+    max_value: Optional[Any] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TableStats:
+    row_count: Optional[float] = None
+    columns: Dict[str, ColumnStats] = dataclasses.field(default_factory=dict)
+    #: columns forming a unique key, if any — drives join build-side choice
+    #: (reference spi/statistics/TableStatistics.java has no PK notion;
+    #: Presto infers uniqueness from distinct counts, we declare it)
+    primary_key: Tuple[str, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A unit of scan parallelism (reference spi/connector/ConnectorSplit).
+    ``info`` is connector-opaque."""
+
+    table: TableHandle
+    info: Tuple = ()
+
+
+class PageSource:
+    """Produces device batches for one split (reference
+    spi/connector/ConnectorPageSource.java)."""
+
+    def batches(self) -> Iterator[Batch]:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+
+class ConnectorMetadata:
+    """Catalog surface (reference spi/connector/ConnectorMetadata.java)."""
+
+    def list_schemas(self) -> List[str]:
+        """Schemas this catalog exposes. Most connectors here flatten
+        schemas into one namespace; the default advertises just
+        "default". The planner consults this to resolve two-part names
+        the reference way (``x.y`` = schema ``x`` in the session catalog
+        when that schema exists, catalog-first only as a fallback)."""
+        return ["default"]
+
+    def list_tables(self, schema: Optional[str] = None) -> List[str]:
+        raise NotImplementedError
+
+    def table_schema(self, table: TableHandle) -> Schema:
+        raise NotImplementedError
+
+    def table_stats(self, table: TableHandle) -> TableStats:
+        return TableStats()
+
+
+class ConnectorSplitManager:
+    """Split enumeration (reference spi/connector/ConnectorSplitManager)."""
+
+    def splits(self, table: TableHandle, desired: int = 1) -> List[Split]:
+        raise NotImplementedError
+
+
+class Connector:
+    """One mounted catalog (reference spi/connector/Connector.java)."""
+
+    name: str = "connector"
+
+    @property
+    def metadata(self) -> ConnectorMetadata:
+        raise NotImplementedError
+
+    @property
+    def split_manager(self) -> ConnectorSplitManager:
+        raise NotImplementedError
+
+    def data_version(self, table: str) -> Optional[Any]:
+        """Data-version token for one table, or None when the connector
+        cannot attest one. The engine's cross-query device scan cache
+        (exec/scancache.py) keys cached split data by this token:
+
+        - None (the default) disables caching for the table — correct
+          for live/views-of-state sources (system.runtime) and for
+          connectors whose underlying data can change without the
+          connector seeing the write;
+        - immutable generators (tpch/tpcds) return a constant;
+        - writable connectors return a counter bumped on every write,
+          through the same code path that invalidates their own stats
+          caches (and that calls :func:`notify_data_change`).
+        """
+        return None
+
+    def page_source(
+        self,
+        split: Split,
+        columns: Sequence[str],
+        pushdown: Optional[object] = None,
+        rows_per_batch: int = 1 << 17,
+        *,
+        device=None,
+    ) -> PageSource:
+        """Batches of one split, placed on ``device``."""
+        raise NotImplementedError
+
+
+# -- data-change notification -------------------------------------------------
+# The engine-side hook connector writes flow through so cross-connector
+# caches (the device scan cache, exec/scancache.py) invalidate on the
+# SAME path that invalidates a connector's own stats/schema caches.
+# Listener registration is process-wide and append-only (like the
+# reference's event-listener plumbing, but synchronous and in-process).
+
+_DATA_CHANGE_LISTENERS: List[Any] = []
+
+
+def on_data_change(listener) -> None:
+    """Register ``listener(connector, table_name)`` to run after every
+    connector write (append / create / drop / transaction restore)."""
+    _DATA_CHANGE_LISTENERS.append(listener)
+
+
+def notify_data_change(connector: "Connector", table: str) -> None:
+    """Connectors call this from their write paths, right where they
+    invalidate their own caches."""
+    for listener in list(_DATA_CHANGE_LISTENERS):
+        listener(connector, table)
+
+
+class CatalogManager:
+    """catalog name -> Connector registry (reference
+    presto-main/.../metadata/CatalogManager.java + ConnectorManager)."""
+
+    def __init__(self):
+        self._catalogs: Dict[str, Connector] = {}
+
+    def register(self, name: str, connector: Connector) -> None:
+        self._catalogs[name] = connector
+
+    def get(self, name: str) -> Connector:
+        if name not in self._catalogs:
+            raise KeyError(f"unknown catalog {name!r}")
+        return self._catalogs[name]
+
+    def exists(self, name: str) -> bool:
+        return name in self._catalogs
+
+    def names(self) -> List[str]:
+        return sorted(self._catalogs)

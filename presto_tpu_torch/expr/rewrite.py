@@ -1,0 +1,81 @@
+"""IR rewriting utilities used by the optimizer.
+
+The positional-column analogue of the reference's symbol rewriters
+(reference sql/planner/plan/SimplePlanRewriter.java +
+ExpressionSymbolInliner): remapping input indices is how plan
+transformations keep expressions consistent when children change shape.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Sequence, Set
+
+from . import ir
+
+
+def rewrite(e: ir.Expr, fn: Callable[[ir.Expr], ir.Expr]) -> ir.Expr:
+    """Bottom-up rewrite: fn sees each node after its children rewrote."""
+    if isinstance(e, ir.Call):
+        e = ir.Call(type=e.type, name=e.name,
+                    args=tuple(rewrite(a, fn) for a in e.args))
+    elif isinstance(e, ir.Cast):
+        e = ir.Cast(type=e.type, arg=rewrite(e.arg, fn))
+    elif isinstance(e, ir.SpecialForm):
+        e = ir.SpecialForm(type=e.type, form=e.form,
+                           args=tuple(rewrite(a, fn) for a in e.args))
+    elif isinstance(e, ir.LambdaExpr):
+        # lambda bodies capture outer InputRefs: rewrite through them
+        # (LambdaRefs are leaves and pass through fn untouched)
+        e = ir.LambdaExpr(type=e.type, body=rewrite(e.body, fn),
+                          n_params=e.n_params)
+    return fn(e)
+
+
+def remap_inputs(e: ir.Expr, mapping: Dict[int, int]) -> ir.Expr:
+    def fn(n: ir.Expr) -> ir.Expr:
+        if isinstance(n, ir.InputRef):
+            return ir.InputRef(type=n.type, index=mapping[n.index])
+        return n
+    return rewrite(e, fn)
+
+
+def referenced_inputs(e: ir.Expr) -> Set[int]:
+    out: Set[int] = set()
+
+    def walk(n: ir.Expr):
+        if isinstance(n, ir.InputRef):
+            out.add(n.index)
+        for c in n.children():
+            walk(c)
+    walk(e)
+    return out
+
+
+def substitute_literals(e: ir.Expr,
+                        resolve: Callable[[object], object]) -> ir.Expr:
+    """Replace placeholder literal values (init-plan results)."""
+    def fn(n: ir.Expr) -> ir.Expr:
+        if isinstance(n, ir.Literal):
+            v = resolve(n.value)
+            if v is not n.value:
+                return ir.Literal(type=n.type, value=v)
+        return n
+    return rewrite(e, fn)
+
+
+def conjuncts(e: ir.Expr) -> Sequence[ir.Expr]:
+    if isinstance(e, ir.SpecialForm) and e.form == ir.Form.AND:
+        out = []
+        for a in e.args:
+            out.extend(conjuncts(a))
+        return out
+    return [e]
+
+
+def combine_conjuncts(parts: Sequence[ir.Expr]):
+    from .. import types as T
+    parts = list(parts)
+    if not parts:
+        return None
+    if len(parts) == 1:
+        return parts[0]
+    return ir.special(ir.Form.AND, T.BOOLEAN, *parts)

@@ -1,0 +1,386 @@
+"""Logical plan nodes.
+
+Conceptual parity with the reference's PlanNode tree (reference
+presto-main/.../sql/planner/plan/ — 39 node types; this is the load-bearing
+subset per SURVEY.md §7 step 5). Columns are positional: every node exposes
+``fields`` (name, type) and expressions inside a node index its child's
+fields — the Symbol allocator is replaced by positions, which is also what
+the batch kernels consume.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+from .. import types as T
+from ..expr import ir
+from ..sql.analyzer import Field
+from ..connectors.spi import TableHandle
+
+
+class PlanNode:
+    fields: Tuple[Field, ...]
+
+    @property
+    def children(self) -> Tuple["PlanNode", ...]:
+        return ()
+
+    def with_children(self, children: Sequence["PlanNode"]) -> "PlanNode":
+        assert not children
+        return self
+
+    @property
+    def names(self) -> List[str]:
+        return [f.name for f in self.fields]
+
+    @property
+    def types(self) -> List[T.Type]:
+        return [f.type for f in self.fields]
+
+
+def _one_child(cls):
+    """Mixin-free helper: single-child with_children via dataclasses.replace."""
+    def children(self):
+        return (self.child,)
+
+    def with_children(self, ch):
+        (c,) = ch
+        return dataclasses.replace(self, child=c)
+    cls.children = property(children)
+    cls.with_children = with_children
+    return cls
+
+
+@dataclasses.dataclass(frozen=True)
+class TableScanNode(PlanNode):
+    """Scan of a connector table (reference plan/TableScanNode.java).
+    ``columns`` are the connector column names actually read; predicate
+    pushdown attaches later (TupleDomain analogue)."""
+
+    catalog: str
+    table: TableHandle
+    columns: Tuple[str, ...]
+    fields: Tuple[Field, ...] = ()
+    # advisory per-column [lo, hi] bounds in storage domain for connector
+    # pruning (TupleDomain-lite): ((column_name, lo, hi), ...)
+    pushdown: Tuple[Tuple[str, Optional[int], Optional[int]], ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class ValuesNode(PlanNode):
+    fields: Tuple[Field, ...]
+    rows: Tuple[Tuple[object, ...], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class RemoteSourceNode(PlanNode):
+    """Leaf of a plan fragment: pages pulled from every task of an
+    upstream fragment (reference plan/RemoteSourceNode.java +
+    operator/ExchangeOperator.java). ``fragment_ids`` lists the upstream
+    fragments feeding this exchange (several for UNION)."""
+
+    fragment_ids: Tuple[int, ...]
+    fields: Tuple[Field, ...]
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class FilterNode(PlanNode):
+    child: PlanNode
+    predicate: ir.Expr
+    fields: Tuple[Field, ...] = ()
+
+    def __post_init__(self):
+        if not self.fields:
+            object.__setattr__(self, "fields", self.child.fields)
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class ProjectNode(PlanNode):
+    child: PlanNode
+    exprs: Tuple[ir.Expr, ...]
+    fields: Tuple[Field, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanAgg:
+    """One aggregate call: fn(input_index) with optional DISTINCT
+    (reference plan/AggregationNode.Aggregation)."""
+
+    fn: str
+    arg: Optional[int]            # child column index; None for count(*)
+    output_type: T.Type
+    name: str
+    distinct: bool = False
+    # mask channel produced by MarkDistinctNode (reference
+    # AggregationNode.Aggregation mask symbol)
+    mask: Optional[int] = None
+    # static scalar parameter (approx_percentile's p)
+    param: Optional[float] = None
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class AggregationNode(PlanNode):
+    """Group-by aggregation; output = [group keys..., agg outputs...]
+    (reference plan/AggregationNode.java). step is assigned during
+    fragmentation (SINGLE until exchanges split it)."""
+
+    child: PlanNode
+    group_indices: Tuple[int, ...]
+    aggs: Tuple[PlanAgg, ...]
+    fields: Tuple[Field, ...]
+    step: str = "single"
+    # stats-derived static [lo, hi] per group key (aligned with
+    # group_indices; None per key when unknown). When every key's domain
+    # is host-known and the composite product is small, the executor
+    # composes a dense i32 group code and takes the scatter path of
+    # ops/scatter_agg.py instead of the multi-operand lax.sort path —
+    # the planner side of the reference BigintGroupByHash dense-array
+    # mode. Attached by optimizer._attach_group_bounds.
+    key_bounds: Tuple[Optional[Tuple[int, int]], ...] = ()
+    # grouping-sets support (reference AggregationNode.groupIdSymbol +
+    # hasDefaultOutput): $group_id values — indexes into the feeding
+    # GroupIdNode's sets — that must still emit a default row (count=0,
+    # other aggs NULL, keys NULL) when the input is empty; these are the
+    # ROLLUP/CUBE empty sets, whose grand-total row exists even over
+    # empty input
+    default_gids: Tuple[int, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class JoinNode(PlanNode):
+    """Equi-join (reference plan/JoinNode.java). Output = left fields +
+    right fields. ``residual`` filters post-join rows (over the combined
+    schema)."""
+
+    join_type: str                # inner | left | cross
+    left: PlanNode
+    right: PlanNode
+    left_keys: Tuple[int, ...]
+    right_keys: Tuple[int, ...]
+    fields: Tuple[Field, ...]
+    residual: Optional[ir.Expr] = None
+    # execution hints (filled by the optimizer)
+    distribution: str = "partitioned"   # partitioned | replicated
+    build_unique: bool = False          # build keys known unique (PK)
+    # stats-derived hard [lo, hi] per BUILD key (aligned with
+    # right_keys; () = no planner bounds). When attached, every key's
+    # domain is statistics-proven and the mixed-radix composite product
+    # is small, so the executor builds a multi-key direct-address table
+    # (ops/join.prepare_direct_keyed) with plan-time-known capacity —
+    # the join-side twin of AggregationNode.key_bounds. The executor
+    # cross-checks every build batch through the row-error channel
+    # (STATS_BOUND_VIOLATION), so an overclaiming connector fails the
+    # query instead of dropping matches. Attached by
+    # optimizer._attach_join_strategy.
+    key_bounds: Tuple[Optional[Tuple[int, int]], ...] = ()
+
+    @property
+    def children(self) -> Tuple[PlanNode, ...]:
+        return (self.left, self.right)
+
+    def with_children(self, ch):
+        l, r = ch
+        return dataclasses.replace(self, left=l, right=r)
+
+
+@dataclasses.dataclass(frozen=True)
+class SemiJoinNode(PlanNode):
+    """Filters source rows by key membership in the filtering subplan
+    (reference plan/SemiJoinNode.java; executed like SetBuilder +
+    HashSemiJoin). Output = source fields.
+
+    ``residual`` (over source fields + filtering fields) restricts which
+    matches count — the decorrelated-EXISTS mark-join shape (reference
+    iterative/rule/TransformExistsApplyToCorrelatedJoin.java).
+    ``null_aware`` selects NOT IN semantics (NULL build key poisons the
+    anti side) vs NOT EXISTS semantics (NULLs simply never match)."""
+
+    source: PlanNode
+    filtering: PlanNode
+    source_keys: Tuple[int, ...]
+    filtering_keys: Tuple[int, ...]
+    fields: Tuple[Field, ...]
+    negated: bool = False
+    residual: Optional[ir.Expr] = None
+    null_aware: bool = True
+    # stats-driven distribution (optimizer._attach_join_strategy):
+    # "replicated" broadcasts the filtering set to every source task
+    # (membership-everywhere — mandatory for NULL-aware anti joins,
+    # whose build_has_null/build_empty facts are global); "partitioned"
+    # hashes BOTH sides by key so a huge filtering set never replicates
+    # (reference DetermineSemiJoinDistributionType.java).
+    distribution: str = "replicated"
+    # stats-derived hard [lo, hi] per FILTERING key (see
+    # JoinNode.key_bounds — enables the direct-address membership table)
+    key_bounds: Tuple[Optional[Tuple[int, int]], ...] = ()
+
+    @property
+    def children(self) -> Tuple[PlanNode, ...]:
+        return (self.source, self.filtering)
+
+    def with_children(self, ch):
+        s, f = ch
+        return dataclasses.replace(self, source=s, filtering=f)
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowFnSpec:
+    """One window function over the node's shared window
+    (reference plan/WindowNode.Function)."""
+
+    fn: str
+    args: Tuple[int, ...]          # child column indices
+    output_type: T.Type
+    name: str
+    offset: int = 1                # lag/lead/ntile/nth_value parameter
+    ignore_order: bool = False
+    frame: str = "range"           # frame unit: RANGE | ROWS
+    # frame bounds (kind, offset), reference operator/window/FrameInfo.java
+    frame_start: Tuple[str, int] = ("unbounded_preceding", 0)
+    frame_end: Tuple[str, int] = ("current_row", 0)
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class WindowNode(PlanNode):
+    """Window evaluation (reference plan/WindowNode.java). Output =
+    child fields + one column per function; rows re-ordered by
+    (partition, order)."""
+
+    child: PlanNode
+    partition_indices: Tuple[int, ...]
+    order_keys: Tuple["SortKeySpec", ...]
+    functions: Tuple[WindowFnSpec, ...]
+    fields: Tuple[Field, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class SortKeySpec:
+    index: int
+    ascending: bool = True
+    nulls_first: Optional[bool] = None
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class SortNode(PlanNode):
+    child: PlanNode
+    keys: Tuple[SortKeySpec, ...]
+    fields: Tuple[Field, ...] = ()
+
+    def __post_init__(self):
+        if not self.fields:
+            object.__setattr__(self, "fields", self.child.fields)
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class TopNNode(PlanNode):
+    child: PlanNode
+    keys: Tuple[SortKeySpec, ...]
+    count: int
+    fields: Tuple[Field, ...] = ()
+
+    def __post_init__(self):
+        if not self.fields:
+            object.__setattr__(self, "fields", self.child.fields)
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class LimitNode(PlanNode):
+    child: PlanNode
+    count: int
+    fields: Tuple[Field, ...] = ()
+
+    def __post_init__(self):
+        if not self.fields:
+            object.__setattr__(self, "fields", self.child.fields)
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class DistinctNode(PlanNode):
+    """SELECT DISTINCT — group by every output column
+    (reference rule SingleDistinctAggregationToGroupBy shape)."""
+
+    child: PlanNode
+    fields: Tuple[Field, ...] = ()
+    # stats-derived static [lo, hi] per output column (see
+    # AggregationNode.key_bounds — DISTINCT groups by every column)
+    key_bounds: Tuple[Optional[Tuple[int, int]], ...] = ()
+
+    def __post_init__(self):
+        if not self.fields:
+            object.__setattr__(self, "fields", self.child.fields)
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class UnnestNode(PlanNode):
+    """Lateral array expansion (reference plan/UnnestNode.java +
+    operator/unnest/UnnestOperator.java): output = child fields, then one
+    element column per array expression, then optional ordinality. Each
+    child row replicates once per element of its (longest) array."""
+
+    child: PlanNode
+    exprs: Tuple[object, ...]      # ir.Expr of ArrayType over child schema
+    ordinality: bool
+    fields: Tuple[Field, ...]
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class MarkDistinctNode(PlanNode):
+    """Appends one boolean column that is true at the first occurrence
+    of each distinct tuple of ``cols`` (reference plan/MarkDistinctNode
+    + operator/MarkDistinctOperator.java) — the mask-channel lowering of
+    mixed DISTINCT aggregates. ``partition_cols`` (the group keys) tell
+    distributed executors how to colocate rows so first-occurrence is
+    global, not per-shard."""
+
+    child: PlanNode
+    cols: Tuple[int, ...]
+    partition_cols: Tuple[int, ...]
+    fields: Tuple[Field, ...]
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class GroupIdNode(PlanNode):
+    """Replicates each input row once per grouping set, nulling out group
+    keys absent from that set and appending a $group_id column (reference
+    plan/GroupIdNode.java + operator/GroupIdOperator.java) — the
+    single-pass lowering of GROUP BY GROUPING SETS. Input layout =
+    [group keys..., agg args...]; output = input fields + $group_id."""
+
+    child: PlanNode
+    grouping_sets: Tuple[Tuple[int, ...], ...]
+    n_keys: int
+    fields: Tuple[Field, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class UnionNode(PlanNode):
+    children_: Tuple[PlanNode, ...]
+    fields: Tuple[Field, ...]
+    distinct: bool = False
+
+    @property
+    def children(self) -> Tuple[PlanNode, ...]:
+        return self.children_
+
+    def with_children(self, ch):
+        return dataclasses.replace(self, children_=tuple(ch))
+
+
+@_one_child
+@dataclasses.dataclass(frozen=True)
+class OutputNode(PlanNode):
+    """Final client-visible columns (reference plan/OutputNode.java)."""
+
+    child: PlanNode
+    fields: Tuple[Field, ...]
