@@ -13,11 +13,15 @@ result line):
    gives them, then builds every CUDA kernel of ``presto_tpu_torch/csrc``
    with nvcc for sm_90a (one nvcc process per source, all at once);
 2. kernels: runs each kernel's wrapper on the card at the sizes Q3 gives
-   it at SF1
-   and holds its result bit for bit against the kernel's plain PyTorch
-   version on the same inputs; times kernel, plain version and one
-   PyTorch library call computing the same function (CUDA events, median
-   of several runs after warm-up) and works out each kernel's bound;
+   it at SF1 (the probe with random keys, and with lineitem's clustered
+   key order) and on edge cases (tile edges, empty and dead inputs, the
+   largest descriptor set), and holds every result bit for bit against
+   the kernel's plain PyTorch version on the same inputs; times the
+   wrapper, the plain version and one PyTorch library call computing the
+   same function (CUDA events, median of several runs after warm-up),
+   takes each kernel's device-only time per call (torch.profiler's CUDA
+   records, or CUDA events over 20 back-to-back calls where the profiler
+   records none) and works out each kernel's bound;
 3. path: with every launch count set to 0, runs TPC-H Q6, Q1 and Q3 at
    SF1 through ``LocalRunner(tpch_sf=1, rows_per_batch=2**23)`` on
    ``cuda`` (cold, then warm; one batch holds all 6 M lineitem rows),
@@ -28,6 +32,11 @@ result line):
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or presto_tpu.
+
+``python3 chip_smoke.py --kernels-only`` runs phases 1 and 2 alone and
+prints the kernels line. It times the kernels of whichever
+``presto_tpu_torch`` sits beside the script, so a copy of the script
+placed in a checkout of another commit times that commit's kernels.
 """
 from __future__ import annotations
 
@@ -43,6 +52,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 SEED = 20261016
 ROWS_PER_BATCH = 1 << 23
+#: rows a block of csrc/scan.cu sums (ops/scan.py TILE_ROWS); a constant
+#: here so that the script also times kernels of commits that predate it
+SCAN_TILE_ROWS = 2048
 
 
 def fail(phase: str, msg: str) -> None:
@@ -66,6 +78,33 @@ def median_ms(fn, torch, warmup: int = 3, runs: int = 15) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, torch, calls: int = 20):
+    """(ms, source): device-only time of one ``fn()`` call, the sum of the
+    CUDA records (kernels, memsets, copies) torch.profiler takes over
+    ``calls`` calls divided by ``calls``; where the profiler records none,
+    CUDA events around ``calls`` back-to-back calls, divided likewise."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us > 0:
+        return us / 1e3 / calls, "profiler"
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls, "events"
 
 
 def phase_device(torch):
@@ -106,53 +145,188 @@ def _runs_case(torch, gen, n: int, live: int, groups: int):
     return values, starts, gid
 
 
+def _scan_edge_cases(torch, gen):
+    """(name, values, starts) cases around the kernel's tiles of
+    ``SCAN_TILE_ROWS`` rows; every case compares all segments, absent
+    ones included."""
+    dev = torch.device("cuda")
+    tile = SCAN_TILE_ROWS
+
+    def vals(n):
+        return torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen,
+                             device=dev, dtype=torch.int64)
+
+    def starts_of(points, cap, n):
+        s = torch.full((cap,), n, dtype=torch.int32, device=dev)
+        s[:len(points)] = torch.tensor(points, dtype=torch.int32, device=dev)
+        return s
+
+    n = 5 * tile + 3
+    edges = [0, tile - 1, tile, tile + 1, 2 * tile - 1, 3 * tile + 1,
+             4 * tile, 4 * tile + 2, 5 * tile]
+    ragged = 3 * tile + 1001
+    cuts = torch.sort(torch.randperm(ragged - 1, generator=gen, device=dev)
+                      [:300] + 1).values.tolist()
+    return [
+        ("tile_edges", vals(n), starts_of(edges, len(edges) + 4, n)),
+        ("one_run_all_rows", vals(n), starts_of([0], 8, n)),
+        ("all_groups_absent", vals(n), starts_of([], 16, n)),
+        ("ragged_n", vals(ragged), starts_of([0] + cuts, 400, ragged)),
+        ("one_row", vals(1), starts_of([0], 2, 1)),
+        ("empty_at_row_0", vals(n), starts_of([0, 0, 0, 7, 7, tile], 9, n)),
+    ]
+
+
 def check_scan(torch, gen):
     from presto_tpu_torch.ops import scan
     # bit-exactness at 2^23 lanes, with few long runs and with a million
-    # short ones; timing at the shape Q3's partial aggregation gives the
-    # kernel at SF1 (a 2^18-lane compacted join output, ~150 K live rows,
-    # ~56.5 K groups), and at 2^23 short runs
+    # short ones, at Q3's shape, and on the edge cases; timing at the
+    # shape Q3's partial aggregation gives the kernel at SF1 (a 2^18-lane
+    # compacted join output, ~150 K live rows, ~56.5 K groups), and at
+    # 2^23 short runs
     n = 1 << 23
     live = 6_000_000
     cases = {"few_long_runs": (n, _runs_case(torch, gen, n, live, 64)),
              "short_runs": (n, _runs_case(torch, gen, n, live, 1 << 20)),
              "q3_partial": (1 << 18, _runs_case(torch, gen, 1 << 18,
                                                 150_000, 56_552))}
+    checks = [(name, size, values, starts)
+              for name, (size, (values, starts, _)) in cases.items()]
+    checks += [(name, starts.shape[0], values, starts)
+               for name, values, starts in _scan_edge_cases(torch, gen)]
     errs = []
-    for name, (size, (values, starts, _)) in cases.items():
+    for name, size, values, starts in checks:
         got = scan.segment_sum_sorted_i64(values, starts, size)
         want = scan.segment_sum_sorted_plain(values, starts, size)
         torch.cuda.synchronize()
-        groups = int((starts < size).sum())
-        if not torch.equal(got[:groups], want[:groups]):
-            bad = int((got[:groups] != want[:groups]).sum())
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
             raise AssertionError(f"segment sum {name}: {bad} groups differ")
-        errs.append(int((got[:groups] - want[:groups]).abs().max()))
-        print(f"segment_sum_sorted_i64 {name}: n={size} groups={groups} "
-              "bit-exact", flush=True)
+        errs.append(int((got - want).abs().max()))
+        groups = int((starts < values.shape[0]).sum())
+        print(f"segment_sum_sorted_i64 {name}: n={values.shape[0]} "
+              f"segments={size} live={groups} bit-exact", flush=True)
 
     def timed(size, values, starts, gid):
-        ms = median_ms(lambda: scan.segment_sum_sorted_i64(
-            values, starts, size), torch)
+        call = lambda: scan.segment_sum_sorted_i64(values, starts, size)
+        ms = median_ms(call, torch)
+        dev_ms, dev_by = device_ms(call, torch)
         plain_ms = median_ms(lambda: scan.segment_sum_sorted_plain(
             values, starts, size), torch)
         lib_ms = median_ms(lambda: torch.zeros(
             size, dtype=torch.int64, device=values.device)
             .index_add_(0, gid, values), torch)
         bytes_moved = 8 * size + 4 * size + 8 * size  # values, starts, sums
-        return ms, plain_ms, lib_ms, bytes_moved / HBM_BYTES_PER_S * 1e3
+        return (ms, dev_ms, dev_by, plain_ms, lib_ms,
+                bytes_moved / HBM_BYTES_PER_S * 1e3)
 
     big = timed(n, *cases["short_runs"][1])
-    ms, plain_ms, lib_ms, bound_ms = timed(1 << 18, *cases["q3_partial"][1])
+    ms, dev_ms, dev_by, plain_ms, lib_ms, bound_ms = timed(
+        1 << 18, *cases["q3_partial"][1])
+    for label, t in (("2^23 lanes, 2^20 runs", big),
+                     ("2^18 lanes (Q3)", (ms, dev_ms, dev_by, plain_ms,
+                                          lib_ms, bound_ms))):
+        print(f"segment_sum_sorted_i64 {label}: wrapper {t[0]:.4f} ms, "
+              f"device {t[1]:.4f} ms ({t[2]}), plain {t[3]:.4f} ms, "
+              f"library {t[4]:.4f} ms, bound {t[5]:.4f} ms", flush=True)
     return {"name": "segment_sum_sorted_i64", "route": "cuda",
             "source": "presto_tpu_torch/csrc/scan.cu",
             "replaces": "presto_tpu/ops/pallas_scan.py:85",
             "max_abs_err": max(errs), "ms": ms, "kernel_ms": ms,
+            "device_ms": dev_ms, "device_ms_by": dev_by,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "ok": True,
             "shape": "n=262144 segments=262144 runs=56552",
-            "n2p23_ms": big[0], "n2p23_plain_ms": big[1],
-            "n2p23_library_ms": big[2], "n2p23_bound_ms": big[3]}
+            "edge_cases": len(checks) - len(cases),
+            "n2p23_ms": big[0], "n2p23_device_ms": big[1],
+            "n2p23_plain_ms": big[3], "n2p23_library_ms": big[4],
+            "n2p23_bound_ms": big[5]}
+
+
+def _probe_bits(torch, t):
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t.to(torch.int64) if t.dtype == torch.bool else t
+
+
+def _probe_equal(torch, name, got, want):
+    """Bit-exact comparison of (cnt, vb, payload outputs); returns the
+    largest float difference (0 when equal)."""
+    pairs = [(got[0], want[0]), (got[1], want[1])] + list(zip(got[2],
+                                                              want[2]))
+    err = 0.0
+    for i, (a, b) in enumerate(pairs):
+        if a.shape != b.shape or not torch.equal(_probe_bits(torch, a),
+                                                 _probe_bits(torch, b)):
+            raise AssertionError(f"probe {name}: output {i} differs")
+        if a.is_floating_point() and a.numel():
+            err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def _probe_table(torch, gen, size, n_build, live_build, key_span):
+    """lo/cnt tables of a unique build: ``live_build`` sorted keys below
+    ``key_span`` at build rows 0..live_build-1."""
+    dev = torch.device("cuda")
+    keys = torch.sort(torch.randperm(key_span, generator=gen, device=dev)
+                      [:live_build]).values
+    lo_table = torch.full((size,), n_build, dtype=torch.int32, device=dev)
+    lo_table[keys] = torch.arange(live_build, dtype=torch.int32, device=dev)
+    cnt_table = torch.zeros(size, dtype=torch.int32, device=dev)
+    cnt_table[keys] = 1
+    return lo_table, cnt_table
+
+
+def _probe_column(torch, gen, kind, rows):
+    dev = torch.device("cuda")
+    if kind == "bool":
+        return torch.rand(rows, generator=gen, device=dev) < 0.5
+    if kind == "int":
+        return torch.randint(-(1 << 30), 1 << 30, (rows,), generator=gen,
+                             device=dev, dtype=torch.int32)
+    i64 = torch.randint(-(1 << 62), 1 << 62, (rows,), generator=gen,
+                        device=dev, dtype=torch.int64)
+    if kind == "bigint":
+        return i64
+    if kind == "double":
+        return i64.to(torch.float64) * 1e-9
+    return torch.stack([i64 >> 3, i64], dim=1)                    # int128
+
+
+def _probe_edge_cases(torch, gen):
+    """(name, codes, lo, cnt, vbits, payload) edge cases: all lanes dead,
+    an empty build, exactly 31 payload columns (the largest by-value
+    descriptor set), and int128 and 1-byte columns at a lane count that
+    is no multiple of a block's lanes or of a thread's 4."""
+    dev = torch.device("cuda")
+    size, n_build = 4096, 3000
+    lo, cnt = _probe_table(torch, gen, size, n_build, 2500, 4000)
+
+    def codes(n, dead=0.3):
+        c = torch.randint(0, 4000, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        c[torch.rand(n, generator=gen, device=dev) < dead] = -1
+        return c
+
+    def vbits(rows, cols):
+        return torch.randint(0, 1 << min(cols, 30), (rows,), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    kinds = ["bool", "int", "bigint", "double", "int128"]
+    zoo = [_probe_column(torch, gen, k, n_build) for k in kinds]
+    wide = [_probe_column(torch, gen, kinds[c % len(kinds)], n_build)
+            for c in range(31)]
+    empty = [p[:0] for p in zoo]
+    return [
+        ("all_lanes_dead", torch.full((5000,), -1, dtype=torch.int32,
+                                      device=dev), lo, cnt,
+         vbits(n_build, 5), zoo),
+        ("empty_build", codes(5000), lo, torch.zeros_like(cnt),
+         vbits(0, 5), empty),
+        ("31_columns", codes(9000), lo, cnt, vbits(n_build, 31), wide),
+        ("int128_and_bool_ragged", codes(3 * 1024 + 517), lo, cnt,
+         vbits(n_build, 2), [zoo[0], zoo[4]]),
+    ]
 
 
 def check_probe(torch, gen):
@@ -164,74 +338,83 @@ def check_probe(torch, gen):
     # that pass the date filter in a 2^20-row compacted build
     n, size, n_build = 1 << 23, 1 << 21, 1 << 20
     key_span, live_build, rows = 1_500_000, 727_000, 6_000_000
-    keys = torch.sort(torch.randperm(key_span, generator=gen, device=dev)
-                      [:live_build]).values
-    lo_table = torch.full((size,), n_build, dtype=torch.int32, device=dev)
-    lo_table[keys] = torch.arange(live_build, dtype=torch.int32, device=dev)
-    cnt_table = torch.zeros(size, dtype=torch.int32, device=dev)
-    cnt_table[keys] = 1
+    lo_table, cnt_table = _probe_table(torch, gen, size, n_build,
+                                       live_build, key_span)
     codes = torch.randint(0, key_span, (n,), generator=gen, device=dev,
                           dtype=torch.int32)
     codes[rows:] = -1
     codes[torch.rand(n, generator=gen, device=dev) >= 0.54] = -1
     vbits = torch.randint(0, 1 << 6, (n_build,), generator=gen, device=dev,
                           dtype=torch.int32)
-    i64 = torch.randint(-(1 << 62), 1 << 62, (n_build,), generator=gen,
-                        device=dev, dtype=torch.int64)
-    payload = [
-        torch.rand(n_build, generator=gen, device=dev) < 0.5,        # bool
-        torch.randint(-(1 << 30), 1 << 30, (n_build,), generator=gen,
-                      device=dev, dtype=torch.int32),                 # int
-        torch.randint(0, 5, (n_build,), generator=gen, device=dev,
-                      dtype=torch.int32),                             # code
-        i64,                                                          # bigint
-        torch.randn(n_build, generator=gen, device=dev,
-                    dtype=torch.float64) * 1e9,                       # double
-        torch.stack([i64 >> 3, i64], dim=1),                          # int128
-    ]
-    got = probe.direct_probe(codes, lo_table, cnt_table, vbits, payload)
-    want = probe.direct_probe_plain(codes, lo_table, cnt_table, vbits,
-                                    payload)
-    torch.cuda.synchronize()
-
-    def bits(t):
-        if t.dtype == torch.float64:
-            return t.view(torch.int64)
-        return t.to(torch.int64) if t.dtype == torch.bool else t
-    pairs = [(got[0], want[0]), (got[1], want[1])] + list(zip(got[2],
-                                                              want[2]))
-    err = 0
-    for i, (a, b) in enumerate(pairs):
-        if not torch.equal(bits(a), bits(b)):
-            raise AssertionError(f"probe output {i} differs")
-        if a.is_floating_point():
-            err = max(err, float((a - b).abs().max()))
-    live = int((codes >= 0).sum())
-    hits = int((got[0] > 0).sum())
-    print(f"direct_probe: n={n} slots={size} build={n_build} live={live} "
-          f"hits={hits} bit-exact", flush=True)
-    ms = median_ms(lambda: probe.direct_probe(codes, lo_table, cnt_table,
-                                              vbits, payload), torch)
-    plain_ms = median_ms(lambda: probe.direct_probe_plain(
-        codes, lo_table, cnt_table, vbits, payload), torch)
-    pos = torch.where(want[0] > 0, lo_table[codes.clamp(min=0).long()],
-                      0).long()
-    lib_ms = median_ms(lambda: [p.index_select(0, pos) for p in payload],
-                       torch)
+    payload = [_probe_column(torch, gen, k, n_build) for k in
+               ("bool", "int", "int", "bigint", "double", "int128")]
+    payload[2] = payload[2] & 3                                   # code
+    # the same lanes with lineitem's key order: ascending order keys, about
+    # four lanes a key, the same dead lanes
+    clustered = (torch.arange(n, device=dev) * key_span // rows).to(
+        torch.int32)
+    clustered[codes < 0] = -1
+    cases = [("q3_shape", codes, lo_table, cnt_table, vbits, payload),
+             ("q3_shape_clustered_keys", clustered, lo_table, cnt_table,
+              vbits, payload)]
+    cases += _probe_edge_cases(torch, gen)
+    err = 0.0
+    for name, *inputs in cases:
+        got = probe.direct_probe(*inputs)
+        want = probe.direct_probe_plain(*inputs)
+        torch.cuda.synchronize()
+        err = max(err, _probe_equal(torch, name, got, want))
+        print(f"direct_probe {name}: n={inputs[0].shape[0]} "
+              f"build={inputs[3].shape[0]} cols={len(inputs[4])} "
+              f"hits={int((got[0] > 0).sum())} bit-exact", flush=True)
     widths = sum(p.element_size() * (p.shape[1] if p.ndim == 2 else 1)
                  for p in payload)
-    bytes_moved = (4 * n + 8 * live            # codes, lo/cnt of live lanes
-                   + hits * (4 + widths)       # vbits + payload gathered
-                   + n * (4 + 4 + widths))     # cnt, vb, payload written
+
+    def timed(codes, lib=True):
+        """(wrapper ms, device ms, its source, plain ms, library ms, bound
+        ms, live lanes, matched lanes) at the Q3 shape with ``codes``."""
+        want = probe.direct_probe_plain(codes, lo_table, cnt_table, vbits,
+                                        payload)
+        live = int((codes >= 0).sum())
+        hits = int((want[0] > 0).sum())
+        call = lambda: probe.direct_probe(codes, lo_table, cnt_table, vbits,
+                                          payload)
+        ms = median_ms(call, torch)
+        dev_ms, dev_by = device_ms(call, torch)
+        plain_ms = median_ms(lambda: probe.direct_probe_plain(
+            codes, lo_table, cnt_table, vbits, payload), torch)
+        lib_ms = None
+        if lib:
+            pos = torch.where(want[0] > 0,
+                              lo_table[codes.clamp(min=0).long()], 0).long()
+            lib_ms = median_ms(lambda: [p.index_select(0, pos)
+                                        for p in payload], torch)
+        bytes_moved = (4 * n + 8 * live        # codes, lo/cnt of live lanes
+                       + hits * (4 + widths)   # vbits + payload gathered
+                       + n * (4 + 4 + widths))  # cnt, vb, payload written
+        return (ms, dev_ms, dev_by, plain_ms, lib_ms,
+                bytes_moved / HBM_BYTES_PER_S * 1e3, live, hits)
+
+    ms, dev_ms, dev_by, plain_ms, lib_ms, bound_ms, live, hits = timed(codes)
+    print(f"direct_probe Q3 shape, random keys: wrapper {ms:.4f} ms, device "
+          f"{dev_ms:.4f} ms ({dev_by}), plain {plain_ms:.4f} ms, library "
+          f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms", flush=True)
+    cl = timed(clustered, lib=False)
+    print(f"direct_probe Q3 shape, clustered keys: wrapper {cl[0]:.4f} ms, "
+          f"device {cl[1]:.4f} ms ({cl[2]}), plain {cl[3]:.4f} ms, bound "
+          f"{cl[5]:.4f} ms", flush=True)
     return {"name": "direct_probe", "route": "cuda",
             "source": "presto_tpu_torch/csrc/probe.cu",
             "replaces": "presto_tpu/ops/pallas_join.py:218",
             "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+            "device_ms": dev_ms, "device_ms_by": dev_by,
             "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "ok": True,
+            "bound_ms": bound_ms, "bound_by": "bytes", "ok": True,
+            "edge_cases": len(cases) - 2,
             "shape": f"n={n} slots={size} build={n_build} live={live} "
-                     f"cols={len(payload)}"}
+                     f"hits={hits} cols={len(payload)}",
+            "clustered_ms": cl[0], "clustered_device_ms": cl[1],
+            "clustered_bound_ms": cl[5]}
 
 
 def _same_rows(gpu_rows, cpu_rows, rel: float) -> None:
@@ -342,6 +525,9 @@ def _queries():
 
 
 def main() -> None:
+    kernels_only = sys.argv[1:] == ["--kernels-only"]
+    if sys.argv[1:] and not kernels_only:
+        fail("device", f"unknown arguments {sys.argv[1:]}")
     try:
         import torch
     except ImportError as e:
@@ -362,6 +548,9 @@ def main() -> None:
         entries = [check_scan(torch, gen), check_probe(torch, gen)]
     except Exception as e:  # noqa: BLE001
         fail("kernels", f"{type(e).__name__}: {e}")
+    if kernels_only:
+        print(json.dumps({"kernels": entries}), flush=True)
+        return
     try:
         launches = phase_path(torch)
     except Exception as e:  # noqa: BLE001

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
@@ -27,6 +27,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 SOURCES = {"scan": "scan.cu", "probe": "probe.cu"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
 _LOCK = threading.Lock()
 #: kernel name -> nvcc's register/shared-memory report of the last build
 PTXAS_REPORT: Dict[str, str] = {}
@@ -88,16 +89,36 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(_target(name)))
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
 
 
-def check(lib: ctypes.CDLL, status: int, what: str) -> None:
-    """Raise on a nonzero ``cudaError_t`` returned by a C entry point
-    (every entry returns ``cudaGetLastError()`` after its launches)."""
+def entry(name: str, fn: str, argtypes: Sequence) -> Callable[..., int]:
+    """C entry point ``fn`` of kernel ``name``, bound to ``argtypes`` the
+    first time it is asked for; every entry returns a ``cudaError_t``."""
+    bound = _ENTRIES.get((name, fn))
+    if bound is None:
+        bound = getattr(library(name), fn)
+        bound.argtypes = list(argtypes)
+        bound.restype = ctypes.c_int
+        _ENTRIES[(name, fn)] = bound
+    return bound
+
+
+def aligned16(t):
+    """``t`` itself when its data starts on a 16-byte boundary, else a
+    contiguous copy, which the allocator places on one (the kernels read
+    and write 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def check(name: str, status: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point of
+    kernel ``name`` (every entry returns ``cudaGetLastError()`` after its
+    launches)."""
     if status != 0:
-        fn = lib.cuda_error_string
-        fn.argtypes = [ctypes.c_int]
-        fn.restype = ctypes.c_char_p
-        raise RuntimeError(
-            f"{what}: CUDA error {status} ({fn(status).decode()})")
+        msg = library(name).cuda_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({msg})")

@@ -8,7 +8,9 @@ kernel or raises; on a CPU tensor it runs the plain version. There is no
 fallback between the two and no breaker.
 
 Payload columns are gathered at their own element width (1, 4, 8 or 16
-bytes), so no 64-bit or int128 plane split is needed. Validity travels
+bytes), so no 64-bit or int128 plane split is needed. The launch's
+arguments, payload descriptors included, travel by value as one
+``ProbeArgs`` structure. Validity travels
 as one int32 bit-plane per group of at most 31 payload columns;
 ``lookup_join_direct`` launches once per group, so joins have no column
 limit.
@@ -83,6 +85,23 @@ def _check(codes, lo_table, cnt_table, vbits, payload) -> None:
             raise TypeError(f"payload element width {_width(p)} bytes")
 
 
+class ColDesc(ctypes.Structure):
+    """One payload column of a launch (``ColDesc`` in csrc/probe.cu)."""
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("width", ctypes.c_longlong)]
+
+
+class ProbeArgs(ctypes.Structure):
+    """The kernel's arguments, passed by value into the launch
+    (``ProbeArgs`` in csrc/probe.cu, whose static_asserts state the same
+    size and offsets)."""
+    _fields_ = [("codes", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("lo_table", ctypes.c_void_p), ("cnt_table", ctypes.c_void_p),
+                ("vbits", ctypes.c_void_p), ("n_build", ctypes.c_longlong),
+                ("cnt_out", ctypes.c_void_p), ("vb_out", ctypes.c_void_p),
+                ("ncols", ctypes.c_int), ("cols", ColDesc * VBITS_COLUMNS)]
+
+
 def direct_probe(codes: torch.Tensor, lo_table: torch.Tensor,
                  cnt_table: torch.Tensor, vbits: torch.Tensor,
                  payload: Sequence[torch.Tensor]):
@@ -97,31 +116,28 @@ def direct_probe(codes: torch.Tensor, lo_table: torch.Tensor,
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     global launches
-    lib = kernels.library("probe")
-    fn = lib.direct_probe
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernels.entry("probe", "direct_probe",
+                       (ctypes.c_void_p, ctypes.c_void_p))
     dev = codes.device
     n = codes.shape[0]
-    codes, lo_table, cnt_table, vbits = (
-        t.contiguous() for t in (codes, lo_table, cnt_table, vbits))
-    payload = [p.contiguous() for p in payload]
+    codes = kernels.aligned16(codes)
+    lo_table, cnt_table, vbits = (
+        t.contiguous() for t in (lo_table, cnt_table, vbits))
+    payload = [kernels.aligned16(p) for p in payload]
     with torch.cuda.device(dev):
         cnt = torch.empty(n, dtype=torch.int32, device=dev)
         vb = torch.empty(n, dtype=torch.int32, device=dev)
         outs = [torch.empty((n,) + tuple(p.shape[1:]), dtype=p.dtype,
                             device=dev) for p in payload]
-        desc_host = [v for p, o in zip(payload, outs)
-                     for v in (p.data_ptr(), o.data_ptr(), _width(p))]
-        desc = torch.tensor(desc_host or [0], dtype=torch.int64).to(dev)
+        args = ProbeArgs(codes.data_ptr(), n, lo_table.data_ptr(),
+                         cnt_table.data_ptr(), vbits.data_ptr(),
+                         vbits.shape[0], cnt.data_ptr(), vb.data_ptr(),
+                         len(payload))
+        for c, (p, o) in enumerate(zip(payload, outs)):
+            args.cols[c] = ColDesc(p.data_ptr(), o.data_ptr(), _width(p))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        status = fn(codes.data_ptr(), n, lo_table.data_ptr(),
-                    cnt_table.data_ptr(), vbits.data_ptr(), desc.data_ptr(),
-                    len(payload), cnt.data_ptr(), vb.data_ptr(), stream)
-    kernels.check(lib, status, "direct_probe")
+        status = fn(ctypes.addressof(args), stream)
+    kernels.check("probe", status, "direct_probe")
     launches += 1
     return cnt, vb, outs
 

@@ -8,9 +8,9 @@ kernel or raises; on a CPU tensor it runs the plain version, which
 computes the same bits with ``torch.cumsum`` and boundary gathers.
 
 Contract (as in the reference): group members are CONTIGUOUS RUNS, dead
-rows carry zero values, ``starts[g]`` is segment g's first row, and
-absent segments carry ``starts[g] == n`` (their results are garbage the
-caller masks).
+rows carry zero values, ``starts[g]`` is segment g's first row (so
+``starts`` is non-decreasing), and absent segments carry
+``starts[g] == n``. Both versions give absent segments 0.
 """
 from __future__ import annotations
 
@@ -22,6 +22,14 @@ from . import kernels
 
 #: launches of the CUDA kernel (plain integer; chip_smoke.py reads it)
 launches = 0
+
+#: rows a block of the CUDA kernel sums (kTile in csrc/scan.cu); the tests
+#: put run boundaries on and around its multiples
+TILE_ROWS = 2048
+
+# segment_sum_sorted_i64(values, n, starts, cap, out, stream)
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
 
 
 def _bounds(starts: torch.Tensor, n: int):
@@ -63,35 +71,25 @@ def _check(values: torch.Tensor, starts: torch.Tensor,
 def segment_sum_sorted_i64(values: torch.Tensor, starts: torch.Tensor,
                            num_segments: int) -> torch.Tensor:
     """Exact int64 per-segment sums over sorted runs (wrapping mod 2^64
-    like the reference's digit-plane sums)."""
+    like the reference's digit-plane sums). ``starts`` must be
+    non-decreasing within [0, n]: the CUDA kernel finds each tile's
+    segments by searching it."""
     _check(values, starts, num_segments)
     if values.device.type == "cpu":
         return segment_sum_sorted_plain(values, starts, num_segments)
     if values.device.type != "cuda":
         raise ValueError(f"unsupported device {values.device}")
     global launches
-    lib = kernels.library("scan")
-    lib.scan_tile_count.argtypes = [ctypes.c_longlong]
-    lib.scan_tile_count.restype = ctypes.c_longlong
-    fn = lib.segment_sum_sorted_i64
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    values = values.contiguous()
+    fn = kernels.entry("scan", "segment_sum_sorted_i64", _ARGTYPES)
+    values = kernels.aligned16(values)
     starts = starts.contiguous()
-    n = values.shape[0]
     with torch.cuda.device(values.device):
         out = torch.empty(num_segments, dtype=torch.int64,
                           device=values.device)
-        local = torch.empty(n, dtype=torch.int64, device=values.device)
-        tiles = torch.empty(int(lib.scan_tile_count(n)), dtype=torch.int64,
-                            device=values.device)
         stream = torch.cuda.current_stream(values.device).cuda_stream
-        status = fn(values.data_ptr(), n, starts.data_ptr(), num_segments,
-                    out.data_ptr(), local.data_ptr(), tiles.data_ptr(),
-                    stream)
-    kernels.check(lib, status, "segment_sum_sorted_i64")
+        status = fn(values.data_ptr(), values.shape[0], starts.data_ptr(),
+                    num_segments, out.data_ptr(), stream)
+    kernels.check("scan", status, "segment_sum_sorted_i64")
     launches += 1
     return out
 

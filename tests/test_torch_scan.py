@@ -3,7 +3,9 @@ against presto_tpu's Pallas scan kernels in interpret mode: the same
 seeded inputs, bit-exact int64 results (wraparound mod 2^64 included).
 
 On the CPU the port's wrapper runs its plain version; the ``cuda``-marked
-test holds the CUDA kernel against it on a GPU.
+tests hold the CUDA kernel against it on a GPU, on the same edge cases
+(runs around the kernel's row tiles, one run, no run, a ragged and a
+one-row input) that ``chip_smoke.py`` checks on the card.
 """
 import numpy as np
 import pytest
@@ -12,7 +14,7 @@ import torch
 import jax.numpy as jnp
 
 import presto_tpu.ops.pallas_scan as ps
-from presto_tpu_torch.ops import scan
+from presto_tpu_torch.ops import kernels, scan
 
 
 def _sorted_run_case(rng, n_groups, n_rows, lo=-10**17, hi=10**17):
@@ -77,6 +79,51 @@ def test_segment_sum_sorted_wraps_mod_2_64():
     assert any(not -(1 << 63) <= e < (1 << 63) for e in exact)
 
 
+def _edge_case(name):
+    """(values, starts) of one edge case around the CUDA kernel's tiles of
+    ``scan.TILE_ROWS`` rows; every segment is compared, absent ones
+    included."""
+    rng = np.random.default_rng(17)
+    tile = scan.TILE_ROWS
+    n = 5 * tile + 3
+
+    def vals(rows):
+        return rng.integers(-(1 << 62), 1 << 62, rows, dtype=np.int64)
+
+    def starts_of(points, cap, rows):
+        s = np.full(cap, rows, np.int32)
+        s[:len(points)] = points
+        return s
+
+    if name == "tile_edges":
+        edges = [0, tile - 1, tile, tile + 1, 2 * tile - 1, 3 * tile + 1,
+                 4 * tile, 4 * tile + 2, 5 * tile]
+        return vals(n), starts_of(edges, len(edges) + 4, n)
+    if name == "one_run_all_rows":
+        return vals(n), starts_of([0], 8, n)
+    if name == "all_groups_absent":
+        return vals(n), starts_of([], 16, n)
+    if name == "ragged_n":
+        rows = 3 * tile + 1001
+        cuts = np.sort(rng.choice(np.arange(1, rows), 300, replace=False))
+        return vals(rows), starts_of(np.concatenate([[0], cuts]), 400, rows)
+    if name == "one_row":
+        return vals(1), starts_of([0], 2, 1)
+    assert name == "empty_at_row_0"   # empty runs at row 0 give values[0]
+    return vals(n), starts_of([0, 0, 0, 7, 7, tile], 9, n)
+
+
+EDGE_CASES = ["tile_edges", "one_run_all_rows", "all_groups_absent",
+              "ragged_n", "one_row", "empty_at_row_0"]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_segment_sum_sorted_edge_cases(case):
+    vals, starts = _edge_case(case)
+    want, got = _both(vals, starts, len(starts), len(vals))
+    assert np.array_equal(got, want)
+
+
 def test_segment_count_sorted():
     live = np.asarray([True, True, False, True, False])
     starts = np.asarray([0, 2, 5], dtype=np.int32)
@@ -98,6 +145,17 @@ def test_wrapper_checks_its_inputs():
                                     2)
 
 
+def test_aligned16_copies_only_misaligned_tensors():
+    """The kernels read 16 bytes at a time: a tensor whose data starts off
+    a 16-byte boundary is copied, any other is passed as it is."""
+    base = torch.arange(9, dtype=torch.int64)
+    assert kernels.aligned16(base) is base
+    view = base[1:]
+    assert view.data_ptr() % 16 != 0
+    moved = kernels.aligned16(view)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, view)
+
+
 @pytest.fixture
 def gpu():
     if not torch.cuda.is_available():
@@ -117,3 +175,13 @@ def test_cuda_kernel_matches_plain(gpu):
     assert scan.launches == before + 1
     want = scan.segment_sum_sorted_plain(v, s, len(starts))
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_cuda_kernel_edge_cases(gpu, case):
+    vals, starts = _edge_case(case)
+    v, s = torch.from_numpy(vals).to(gpu), torch.from_numpy(starts).to(gpu)
+    got = scan.segment_sum_sorted_i64(v, s, len(starts))
+    torch.cuda.synchronize()
+    assert torch.equal(got, scan.segment_sum_sorted_plain(v, s, len(starts)))
