@@ -28,7 +28,14 @@ result line):
    reads the counts, fails if a kernel of the path never launched (both
    must launch during Q3), and compares each result with the port's own
    ``device="cpu"`` run: integers, dates and strings exactly, doubles
-   within rel 1e-9 (the GPU's atomic float adds sum in another order).
+   within rel 1e-9 (the GPU's atomic float adds sum in another order);
+4. tpch: with every launch count set to 0 again, runs the other 19
+   queries of ``tests/tpch_queries.py`` at SF1 on ``cuda`` (one cold run
+   each, same runner settings), compares each with the port's
+   ``device="cpu"`` run as above, prints per query the cuda and cpu
+   walls, the rows, the host time spent in LIKE and the launches of each
+   kernel, fails if the probe never launched in the phase, then breaks
+   down the slowest query's wall.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or presto_tpu.
@@ -52,6 +59,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 SEED = 20261016
 ROWS_PER_BATCH = 1 << 23
+#: the queries of the path phase; the tpch phase runs the others
+PATH_QUERIES = ("q6", "q1", "q3")
 #: rows a block of csrc/scan.cu sums (ops/scan.py TILE_ROWS); a constant
 #: here so that the script also times kernels of commits that predate it
 SCAN_TILE_ROWS = 2048
@@ -370,7 +379,7 @@ def check_probe(torch, gen):
     widths = sum(p.element_size() * (p.shape[1] if p.ndim == 2 else 1)
                  for p in payload)
 
-    def timed(codes, lib=True):
+    def timed(codes):
         """(wrapper ms, device ms, its source, plain ms, library ms, bound
         ms, live lanes, matched lanes) at the Q3 shape with ``codes``."""
         want = probe.direct_probe_plain(codes, lo_table, cnt_table, vbits,
@@ -383,12 +392,10 @@ def check_probe(torch, gen):
         dev_ms, dev_by = device_ms(call, torch)
         plain_ms = median_ms(lambda: probe.direct_probe_plain(
             codes, lo_table, cnt_table, vbits, payload), torch)
-        lib_ms = None
-        if lib:
-            pos = torch.where(want[0] > 0,
-                              lo_table[codes.clamp(min=0).long()], 0).long()
-            lib_ms = median_ms(lambda: [p.index_select(0, pos)
-                                        for p in payload], torch)
+        pos = torch.where(want[0] > 0,
+                          lo_table[codes.clamp(min=0).long()], 0).long()
+        lib_ms = median_ms(lambda: [p.index_select(0, pos)
+                                    for p in payload], torch)
         bytes_moved = (4 * n + 8 * live        # codes, lo/cnt of live lanes
                        + hits * (4 + widths)   # vbits + payload gathered
                        + n * (4 + 4 + widths))  # cnt, vb, payload written
@@ -399,10 +406,10 @@ def check_probe(torch, gen):
     print(f"direct_probe Q3 shape, random keys: wrapper {ms:.4f} ms, device "
           f"{dev_ms:.4f} ms ({dev_by}), plain {plain_ms:.4f} ms, library "
           f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms", flush=True)
-    cl = timed(clustered, lib=False)
+    cl = timed(clustered)
     print(f"direct_probe Q3 shape, clustered keys: wrapper {cl[0]:.4f} ms, "
-          f"device {cl[1]:.4f} ms ({cl[2]}), plain {cl[3]:.4f} ms, bound "
-          f"{cl[5]:.4f} ms", flush=True)
+          f"device {cl[1]:.4f} ms ({cl[2]}), plain {cl[3]:.4f} ms, library "
+          f"{cl[4]:.4f} ms, bound {cl[5]:.4f} ms", flush=True)
     return {"name": "direct_probe", "route": "cuda",
             "source": "presto_tpu_torch/csrc/probe.cu",
             "replaces": "presto_tpu/ops/pallas_join.py:218",
@@ -414,6 +421,7 @@ def check_probe(torch, gen):
             "shape": f"n={n} slots={size} build={n_build} live={live} "
                      f"hits={hits} cols={len(payload)}",
             "clustered_ms": cl[0], "clustered_device_ms": cl[1],
+            "clustered_plain_ms": cl[3], "clustered_library_ms": cl[4],
             "clustered_bound_ms": cl[5]}
 
 
@@ -441,7 +449,7 @@ def phase_path(torch):
     scan.launches = 0
     probe.launches = 0
     q3_launches = None
-    for name in ("q6", "q1", "q3"):
+    for name in PATH_QUERIES:
         before = (scan.launches, probe.launches)
         walls = []
         for _ in range(2):              # cold, then warm
@@ -470,7 +478,7 @@ def phase_path(torch):
     q3_all = queries["q3"].replace("limit 10", "")
     print(f"q3 groups before LIMIT 10 at SF1: "
           f"{len(gpu.execute(q3_all).rows)}", flush=True)
-    for name in ("q6", "q1", "q3"):
+    for name in PATH_QUERIES:
         _breakdown(torch, gpu, name, queries[name])
     return launches
 
@@ -516,15 +524,76 @@ def _breakdown(torch, runner, name, sql) -> None:
           flush=True)
 
 
+def phase_tpch(torch):
+    """The 19 TPC-H queries the path phase does not run, at SF1 on the
+    card, each against the port's CPU run."""
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.expr import functions
+    from presto_tpu_torch.ops import probe, scan
+    queries = {n: sql for n, sql in _queries().items()
+               if n not in PATH_QUERIES}
+    gpu = LocalRunner(tpch_sf=1, rows_per_batch=ROWS_PER_BATCH)
+    cpu = LocalRunner(tpch_sf=1, device="cpu", rows_per_batch=ROWS_PER_BATCH)
+    # host seconds inside LIKE (its regex runs over each batch's
+    # vocabulary on the host); the wrapper syncs so the time is whole
+    like, like_s = functions._REGISTRY["like"], [0.0]
+
+    def timed_like(args, out):
+        t0 = time.perf_counter()
+        res = like(args, out)
+        torch.cuda.synchronize()
+        like_s[0] += time.perf_counter() - t0
+        return res
+    functions._REGISTRY["like"] = timed_like
+    walls = {}
+    scan.launches = 0
+    probe.launches = 0
+    try:
+        for name, sql in queries.items():
+            before = (scan.launches, probe.launches)
+            like_s[0] = 0.0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = gpu.execute(sql)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 2**30
+            counts = (scan.launches - before[0], probe.launches - before[1])
+            t0 = time.perf_counter()
+            ref = cpu.execute(sql)
+            cpu_s = time.perf_counter() - t0
+            _same_rows(res.rows, ref.rows, 1e-9)
+            if not res.rows:
+                print(f"{name}: no rows on cuda, none on cpu either",
+                      flush=True)
+            print(f"{name}: cuda cold {walls[name]:.3f} s | cpu "
+                  f"{cpu_s:.3f} s | {len(res.rows)} rows match the cpu run "
+                  f"| like {like_s[0]:.3f} s | peak {peak_gb:.2f} GiB | "
+                  f"launches scan {counts[0]} probe {counts[1]}", flush=True)
+    finally:
+        functions._REGISTRY["like"] = like
+    launches = {"segment_sum_sorted_i64": scan.launches,
+                "direct_probe": probe.launches}
+    print(f"tpch launches: {json.dumps(launches)}", flush=True)
+    if launches["direct_probe"] <= 0:
+        raise AssertionError("the probe kernel never launched in the phase")
+    slowest = max(walls, key=walls.get)
+    print(f"slowest on cuda: {slowest} ({walls[slowest]:.3f} s cold)",
+          flush=True)
+    _breakdown(torch, gpu, slowest, queries[slowest])
+    return launches
+
+
 def _queries():
-    """TPC-H Q6, Q1 and Q3 as the test suite carries them."""
+    """Every TPC-H query as the test suite carries them, in its order."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tests"))
     from tpch_queries import Q
-    return {n: sql for n, sql, _ in Q if n in ("q1", "q3", "q6")}
+    return {n: sql for n, sql, _ in Q}
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     kernels_only = sys.argv[1:] == ["--kernels-only"]
     if sys.argv[1:] and not kernels_only:
         fail("device", f"unknown arguments {sys.argv[1:]}")
@@ -555,8 +624,16 @@ def main() -> None:
         launches = phase_path(torch)
     except Exception as e:  # noqa: BLE001
         fail("path", f"{type(e).__name__}: {e}")
+    try:
+        tpch_launches = phase_tpch(torch)
+    except Exception as e:  # noqa: BLE001
+        fail("tpch", f"{type(e).__name__}: {e}")
     for entry in entries:
-        entry["launches"] = launches[entry["name"]]
+        # launches over all 22 queries: the path phase's and the tpch
+        # phase's
+        entry["launches"] = (launches[entry["name"]]
+                             + tpch_launches[entry["name"]])
+    print(f"total wall {time.perf_counter() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

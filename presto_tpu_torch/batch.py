@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .types import ArrayType, MapType, Type
+from .types import ArrayType, CharType, MapType, Type
 
 #: torch storage dtype -> numpy dtype (host staging and decoding)
 NUMPY_DTYPE = {
@@ -178,6 +178,45 @@ class Batch:
         mask = np.zeros(cap, dtype=bool)
         mask[:n] = True
         return Batch(schema, cols, torch.from_numpy(mask).to(device))
+
+    @staticmethod
+    def from_pydict(data: Dict[str, Tuple[Type, Sequence[Any]]],
+                    capacity: Optional[int] = None, *,
+                    device: torch.device) -> "Batch":
+        """Build a batch on ``device`` from python values:
+        {name: (type, [values... (None = null)])}."""
+        fields, arrays, validities, dictionaries = [], [], [], []
+        n = None
+        for name, (typ, values) in data.items():
+            values = list(values)
+            if n is None:
+                n = len(values)
+            elif len(values) != n:
+                raise ValueError(
+                    f"column {name!r} has {len(values)} values, expected {n}")
+            _check_storable(typ)
+            fields.append((name, typ))
+            validities.append(np.array([v is not None for v in values],
+                                       dtype=bool))
+            if typ.is_string:
+                vocab: Dict[str, int] = {}
+                codes = np.full(len(values), -1, dtype=np.int32)
+                for i, v in enumerate(values):
+                    if v is None:
+                        continue
+                    if isinstance(typ, CharType):
+                        v = str(v).ljust(typ.length)
+                    codes[i] = vocab.setdefault(v, len(vocab))
+                arrays.append(codes)
+                dictionaries.append(tuple(vocab))
+            else:
+                arrays.append(np.asarray(
+                    [typ.to_storage(v) if v is not None
+                     else typ.null_storage() for v in values]))
+                dictionaries.append(None)
+        return Batch.from_arrays(Schema(fields), arrays, validities,
+                                 dictionaries, capacity=capacity,
+                                 num_rows=n, device=device)
 
     @staticmethod
     def from_numpy(

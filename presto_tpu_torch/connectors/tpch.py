@@ -28,6 +28,7 @@ import numpy as np
 
 from .. import types as T
 from ..batch import Batch, Schema
+from ..device import resolve_device
 from .spi import (
     ColumnStats, Connector, ConnectorMetadata, ConnectorSplitManager,
     PageSource, Split, TableHandle, TableStats,
@@ -680,6 +681,8 @@ class TpchConnector(Connector):
 
     def page_source(self, split: Split, columns: Sequence[str],
                     pushdown=None, rows_per_batch: int = 1 << 17, *,
-                    device) -> PageSource:
+                    device=None) -> PageSource:
+        """Batches of one split on ``device``: the GPU when none is named
+        (an error without one)."""
         return TpchPageSource(self._gen, split, columns, rows_per_batch,
-                              device)
+                              resolve_device(device))

@@ -13,27 +13,14 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
 from ..connectors.spi import CatalogManager
 from ..connectors.tpch import TpchConnector
+from ..device import resolve_device
 from ..planner.optimizer import optimize
 from ..planner.planner import LogicalPlan, Session, plan_query
 from ..sql import ast as A
 from ..sql.parser import parse_statement
 from .local import QueryResult, execute_plan
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device a caller asked for; no device means the GPU, which must
-    then exist."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on "
-                "the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class LocalRunner:

@@ -7,11 +7,11 @@ expression means binding it to a schema once; each call interprets the
 IR over the batch's tensors on the batch's device. No program cache is
 needed.
 
-Three-valued logic (AND/OR/NOT, BETWEEN, IS NULL) follows ANSI SQL
-semantics, mirroring Presto's SpecialForm handling in
-sql/gen/AndCodeGenerator etc.; the other special forms (IF, CASE,
-COALESCE, IN, NULLIF, TRY) are not ported yet and raise
-NotImplementedError.
+Three-valued logic (AND/OR/NOT, BETWEEN, IS NULL, IF, CASE, COALESCE,
+IN, NULLIF, TRY) follows ANSI SQL semantics, mirroring Presto's
+SpecialForm handling in sql/gen/AndCodeGenerator etc. Row errors of a
+conditional follow the branch taken, as the row-at-a-time reference
+never evaluates the other one.
 Row errors ride the int32 per-row error channel of ``functions.Val`` and
 reduce to one device scalar per batch (``_err_scalar``).
 """
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import types as T
@@ -74,6 +75,48 @@ def _eval_special(expr: SpecialForm, inputs: List[Val]) -> Val:
         out = _logical([ge, le], is_and=True)
         out.err = merge_err(out.err, v.err, lo.err, hi.err)
         return out
+    if form == Form.IF:
+        cond = eval_expr(expr.args[0], inputs)
+        then = eval_expr(expr.args[1], inputs)
+        els = eval_expr(expr.args[2], inputs)
+        out = _merge_branch(cond.valid & cond.data, then, els, expr.type)
+        out.err = merge_err(out.err, cond.err)
+        return out
+    if form == Form.SWITCH:
+        # SWITCH(c1, v1, c2, v2, ..., default), folded right to left so
+        # earlier WHENs win; an earlier match also masks later branches'
+        # and conditions' errors
+        out = eval_expr(expr.args[-1], inputs)
+        pairs = list(zip(expr.args[:-1:2], expr.args[1::2]))
+        for cond_e, val_e in reversed(pairs):
+            cond = eval_expr(cond_e, inputs)
+            val = eval_expr(val_e, inputs)
+            out = _merge_branch(cond.valid & cond.data, val, out, expr.type)
+            out.err = merge_err(out.err, cond.err)
+        return out
+    if form == Form.COALESCE:
+        vals = [eval_expr(a, inputs) for a in expr.args]
+        out = vals[-1]
+        for v in reversed(vals[:-1]):
+            nxt = _merge_branch(v.valid, v, out, expr.type)
+            # v's own errors always surface (v made itself NULL by
+            # erroring); later args' errors only where v was NULL
+            nxt.err = merge_err(v.err, _masked_err(~v.valid, out.err))
+            out = nxt
+        return out
+    if form == Form.IN:
+        return _eval_in(expr, inputs)
+    if form == Form.NULL_IF:
+        a = eval_expr(expr.args[0], inputs)
+        b = eval_expr(expr.args[1], inputs)
+        eq = F.lookup("eq")([a, b], T.BOOLEAN)
+        return Val(a.data, a.valid & ~(eq.valid & eq.data), a.type,
+                   a.dictionary, err=merge_err(a.err, b.err))
+    if form == Form.TRY:
+        v = eval_expr(expr.args[0], inputs)
+        if v.err is None:
+            return v
+        return Val(v.data, v.valid & (v.err == 0), v.type, v.dictionary)
     raise NotImplementedError(f"special form {form} is not ported")
 
 
@@ -103,6 +146,70 @@ def _logical(vals: List[Val], is_and: bool) -> Val:
     for v in vals:
         known_true = known_true | (v.valid & v.data)
     return Val(known_true, all_valid | known_true, T.BOOLEAN, err=err)
+
+
+def _merge_branch(take_a: torch.Tensor, a: Val, b: Val,
+                  out_type: T.Type) -> Val:
+    """where(take_a, a, b) with validity merge and dictionary unification.
+    Row errors follow the taken branch."""
+    if a.err is None and b.err is None:
+        err = None
+    else:
+        zeros = torch.zeros(take_a.shape, dtype=torch.int32,
+                            device=take_a.device)
+        err = torch.where(take_a,
+                          a.err if a.err is not None else zeros,
+                          b.err if b.err is not None else zeros)
+    if out_type.is_string:
+        da, db = a.dictionary or (), b.dictionary or ()
+        if da == db:
+            vocab = da
+            data = torch.where(take_a, a.data, b.data)
+        else:
+            # b's codes move into a vocabulary that extends a's
+            vocab_list = list(da)
+            lookup = {s: i for i, s in enumerate(vocab_list)}
+            remap_b = np.empty(len(db) + 1, dtype=np.int32)
+            remap_b[-1] = -1
+            for i, s in enumerate(db):
+                if s not in lookup:
+                    lookup[s] = len(vocab_list)
+                    vocab_list.append(s)
+                remap_b[i] = lookup[s]
+            vocab = tuple(vocab_list)
+            tbl = torch.from_numpy(remap_b).to(take_a.device)
+            b_codes = tbl[torch.where(b.data >= 0, b.data,
+                                      len(db)).to(torch.int64)]
+            data = torch.where(take_a, a.data, b_codes)
+        valid = torch.where(take_a, a.valid, b.valid)
+        return Val(data, valid, out_type, vocab, err=err)
+    a = cast_val(a, out_type)
+    b = cast_val(b, out_type)
+    cond = take_a[:, None] if a.data.ndim == 2 else take_a
+    return Val(torch.where(cond, a.data, b.data),
+               torch.where(take_a, a.valid, b.valid), out_type, err=err)
+
+
+def _eval_in(expr: SpecialForm, inputs: List[Val]) -> Val:
+    v = eval_expr(expr.args[0], inputs)
+    items = [eval_expr(a, inputs) for a in expr.args[1:]]
+    if v.type.is_string and v.dictionary is not None:
+        # constant items only: one vocabulary table, one gather
+        targets = set()
+        for it in items:
+            s = F._string_literal_of(it)
+            if s is None:
+                raise NotImplementedError("IN with non-constant string items")
+            targets.add(F._str_padded(v, s))
+        table = F.vocab_table(v.dictionary, lambda s: s in targets, np.bool_,
+                              v.data.device)
+        return Val(F._code_gather(table, v.data), v.valid, T.BOOLEAN,
+                   err=v.err)
+    # numeric: an OR of equalities (ANSI null semantics come along)
+    eqs = [F.lookup("eq")([v, it], T.BOOLEAN) for it in items]
+    out = _logical(eqs, is_and=False)
+    out.err = merge_err(out.err, v.err, *[it.err for it in items])
+    return out
 
 
 def _inputs(batch: Batch) -> List[Val]:

@@ -14,13 +14,16 @@ DIVISION_BY_ZERO, double division follows IEEE. The executor raises
 QueryError once per query.
 
 Ported so far: arithmetic (short decimals, integers, doubles), compares
-(numeric, date, dictionary strings), NOT, casts and date plus
-day/month/year intervals. Every other builtin the analyzer knows raises
-NotImplementedError naming itself when evaluated.
+(numeric, date, dictionary strings), NOT, casts, date plus
+day/month/year intervals, the date parts year/month/day/quarter, LIKE
+(with an escape), and the vocabulary string functions lower, upper,
+trim, substr, length and concat. Every other builtin the analyzer knows
+raises NotImplementedError naming itself when evaluated.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -450,6 +453,131 @@ def _date_add_months(args, out):
 def _date_add_years(args, out):
     a, n = args
     return _date_add_months([a, Val(n.data * 12, n.valid, n.type)], out)
+
+
+def _date_part(part):
+    def impl(args, out):
+        (a,) = args
+        days = (a.data if isinstance(a.type, T.DateType)
+                else a.data // 86_400_000_000)
+        y, m, d = _civil_from_days(days)
+        val = {"year": y, "month": m, "day": d,
+               "quarter": (m + 2) // 3}[part]
+        return Val(val.to(torch.int64), a.valid, out)
+    return impl
+
+
+for _p in ["year", "month", "day", "quarter"]:
+    register(_p)(_date_part(_p))
+
+
+# -- strings (host tables over the vocabulary, one device gather) ------------
+
+def _like_to_regex(pattern: str, escape: Optional[str] = None) -> str:
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if escape is not None and c == escape and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if c == "%":
+            out.append(".*")
+        elif c == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(c))
+        i += 1
+    return "".join(out)
+
+
+@register("like")
+def _like(args, out):
+    a, pat = args[0], args[1]
+    pattern = _string_literal_of(pat)
+    if pattern is None:
+        raise NotImplementedError("LIKE with non-constant pattern")
+    escape = _string_literal_of(args[2]) if len(args) > 2 else None
+    if a.dictionary is None:
+        raise NotImplementedError("LIKE on non-dictionary column")
+    rx = re.compile(_like_to_regex(pattern, escape), re.DOTALL)
+    table = vocab_table(a.dictionary, lambda s: rx.fullmatch(s) is not None,
+                        np.bool_, a.data.device)
+    return Val(_code_gather(table, a.data), a.valid, T.BOOLEAN)
+
+
+def _vocab_transform(fn):
+    """String -> string function: transform the vocabulary, keep the codes
+    (remapped where distinct inputs map to one output: equal strings must
+    share one code, since grouping and joins compare codes)."""
+    def impl(args, out):
+        a = args[0]
+        if a.dictionary is None:
+            raise NotImplementedError("string fn on non-dictionary column")
+        extra = []
+        for x in args[1:]:
+            if x.type.is_string:
+                extra.append(_string_literal_of(x))
+            elif x.literal is not None:
+                extra.append(int(x.literal))
+            else:
+                raise NotImplementedError(
+                    "string function positional args must be constants")
+        entries = [fn(s, *extra) for s in a.dictionary]
+        lookup: Dict[str, int] = {}
+        vocab: List[str] = []
+        remap = np.empty(len(entries) + 1, dtype=np.int32)
+        for i, s in enumerate(entries):
+            code = lookup.get(s)
+            if code is None:
+                code = lookup[s] = len(vocab)
+                vocab.append(s)
+            remap[i] = code
+        remap[-1] = -1
+        if len(vocab) == len(entries):
+            return Val(a.data, a.valid, out, dictionary=tuple(entries))
+        table = torch.from_numpy(remap).to(a.data.device)
+        return Val(_code_gather(table, a.data), a.valid, out,
+                   dictionary=tuple(vocab))
+    return impl
+
+
+register("lower")(_vocab_transform(lambda s: s.lower()))
+register("upper")(_vocab_transform(lambda s: s.upper()))
+register("trim")(_vocab_transform(lambda s: s.strip()))
+# SQL substr is 1-based
+register("substr")(_vocab_transform(
+    lambda s, start, length=None: s[start - 1: start - 1 + length]
+    if length is not None else s[start - 1:]))
+
+
+@register("length")
+def _length(args, out):
+    (a,) = args
+    if a.dictionary is None:
+        raise NotImplementedError("length on non-dictionary column")
+    table = vocab_table(a.dictionary, len, np.int64, a.data.device)
+    return Val(_code_gather(table, a.data), a.valid, out)
+
+
+@register("concat")
+def _concat(args, out):
+    lits = [_string_literal_of(v) for v in args]
+    dyn = [i for i, s in enumerate(lits) if s is None]
+    if not dyn:
+        return Val.constant("".join(lits), out, args[0].data.shape[0],
+                            args[0].data.device)
+    if len(dyn) > 1:
+        raise NotImplementedError("concat of multiple non-constant strings")
+    i = dyn[0]
+    a = args[i]
+    if a.dictionary is None:
+        raise NotImplementedError("concat on non-dictionary column")
+    prefix, suffix = "".join(lits[:i]), "".join(lits[i + 1:])
+    vocab = tuple(prefix + s + suffix for s in a.dictionary)
+    valid = torch.stack([v.valid for v in args]).all(0)
+    return Val(a.data, valid, out, vocab)
 
 
 def infer_call_type(name: str, arg_types: List[Type]) -> Type:

@@ -1,4 +1,5 @@
-"""Join kernels: unique-build lookup joins (sorted or direct-address).
+"""Join kernels: lookup, expanding and membership joins over a sorted or
+direct-address build.
 
 The counterpart of ``presto_tpu/ops/join.py`` (reference
 presto-main/.../operator/HashBuilderOperator.java:51,
@@ -7,7 +8,11 @@ once; each probe lane finds its match by binary search over the sorted
 keys, or — for an integer key with a bounded span — by two lookups in a
 direct-address table (``prepare_direct`` / ``prepare_direct_keyed``). The
 output has the probe's capacity, with the row mask narrowed for misses
-(inner) or payload validity cleared (left outer).
+(inner) or payload validity cleared (left outer). ``expand_join`` serves
+non-unique builds with a static expansion factor; ``semi_join_mask``
+and the build-side match masks serve semi, anti and FULL OUTER joins.
+Every scatter here is an integer add or max, so CPU and CUDA give the
+same result in any order.
 
 SQL semantics: NULL keys never match (either side).
 """
@@ -210,11 +215,13 @@ def direct_slot_codes(q_ops, prepared):
 
 
 def _lex_searchsorted(s_ops: Sequence[torch.Tensor],
-                      q_ops: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Leftmost insertion point of each query tuple among lexicographically
-    sorted operand arrays (searchsorted over composite keys)."""
+                      q_ops: Sequence[torch.Tensor],
+                      right: bool = False) -> torch.Tensor:
+    """Leftmost (or, with ``right``, rightmost) insertion point of each
+    query tuple among lexicographically sorted operand arrays
+    (searchsorted over composite keys)."""
     if len(s_ops) == 1:
-        return torch.searchsorted(s_ops[0], q_ops[0])
+        return torch.searchsorted(s_ops[0], q_ops[0], right=right)
     n = s_ops[0].shape[0]
     lo = torch.zeros(q_ops[0].shape, dtype=torch.int64,
                      device=q_ops[0].device)
@@ -229,10 +236,25 @@ def _lex_searchsorted(s_ops: Sequence[torch.Tensor],
             less = less | (eq & (sv < q))
             eq = eq & (sv == q)
         active = lo < hi
-        go = less & active
+        go = (less | eq if right else less) & active
         lo = torch.where(go, mid + 1, lo)
         hi = torch.where(active & ~go, mid, hi)
     return lo
+
+
+def _range_lookup(q_ops, prepared):
+    """Per-probe-lane [lo, hi) of its key's run in the SORTED build: two
+    direct-table reads, or two composite binary searches."""
+    s_ops = split_prepared(prepared)[0]
+    if is_direct_prepared(prepared):
+        n = s_ops[0].shape[0]
+        lo_table, cnt_table = direct_tables(prepared)
+        idx, inr = direct_slot_codes(q_ops, prepared)
+        lo = torch.where(inr, lo_table[idx], n).to(torch.int64)
+        cnt = torch.where(inr, cnt_table[idx], 0).to(torch.int64)
+        return lo, lo + cnt
+    return (_lex_searchsorted(s_ops, q_ops),
+            _lex_searchsorted(s_ops, q_ops, right=True))
 
 
 def _point_lookup(q_ops, prepared):
@@ -240,11 +262,8 @@ def _point_lookup(q_ops, prepared):
     s_ops, slive, _ = split_prepared(prepared)
     n = s_ops[0].shape[0]
     if is_direct_prepared(prepared):
-        lo_table, cnt_table = direct_tables(prepared)
-        idx, inr = direct_slot_codes(q_ops, prepared)
-        lo = torch.where(inr, lo_table[idx], n)
-        cnt = torch.where(inr, cnt_table[idx], 0)
-        return lo.clamp(0, n - 1).to(torch.int64), cnt > 0
+        lo, hi = _range_lookup(q_ops, prepared)
+        return lo.clamp(0, n - 1), hi > lo
     pos = _lex_searchsorted(s_ops, q_ops).clamp(max=n - 1)
     hit = slive[pos]
     for s, q in zip(s_ops, q_ops):
@@ -277,3 +296,202 @@ def lookup_join(probe: Batch, build: Batch, probe_keys: Sequence[int],
                                c.validity[rows] & match, c.dictionary))
     mask = match if join_type == "inner" else probe.row_mask
     return Batch(Schema(out_fields), out_cols, mask)
+
+
+def match_count_max(probe: Batch, build: Batch, probe_keys: Sequence[int],
+                    build_keys: Sequence[int], prepared=None) -> torch.Tensor:
+    """Most build matches of any live probe key in this batch (device
+    scalar): the per-batch expansion factor of a skewed build (reference
+    operator/ArrayPositionLinks.java chain length)."""
+    prepared = prepared or build_sorted(build, build_keys)
+    q_ops, pvalid = _key_arrays(probe, probe_keys)
+    lo, hi = _range_lookup(q_ops, prepared)
+    cnt = torch.where(probe.row_mask & pvalid, hi - lo, 0)
+    return cnt.max() if cnt.shape[0] else torch.zeros(
+        (), dtype=torch.int64, device=cnt.device)
+
+
+def _run_starts(s_ops: Sequence[torch.Tensor]) -> torch.Tensor:
+    """For each sorted build row, the index of the first row of its key
+    run (a running max of the run-start positions)."""
+    n = s_ops[0].shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=s_ops[0].device)
+    diff = torch.zeros(n, dtype=torch.bool, device=idx.device)
+    diff[0] = True
+    for op in s_ops:
+        diff[1:] |= op[1:] != op[:-1]
+    return idx, torch.cummax(torch.where(diff, idx, -1), 0).values
+
+
+def max_multiplicity(prepared) -> torch.Tensor:
+    """Largest live-key multiplicity of a prepared build (device int64
+    scalar): a bound on ``match_count_max`` for every probe batch, read
+    back once per build."""
+    if is_direct_prepared(prepared):
+        cnt_table = direct_tables(prepared)[1]
+        if cnt_table.shape[0] == 0:
+            return torch.zeros((), dtype=torch.int64,
+                               device=cnt_table.device)
+        return cnt_table.max().to(torch.int64)
+    s_ops, slive, _ = prepared
+    if s_ops[0].shape[0] == 0:
+        return torch.zeros((), dtype=torch.int64, device=slive.device)
+    idx, start = _run_starts(s_ops)
+    # dead rows share one sentinel run; slive excludes them
+    return torch.where(slive, idx - start + 1, 0).max()
+
+
+def _expand_slots(probe: Batch, probe_keys, prepared, k: int):
+    """(pos, matched, slot-major [k, C] grids) of the first ``k`` matches
+    of every probe lane, as positions in the sorted build."""
+    s_ops, slive, _ = split_prepared(prepared)
+    q_ops, pvalid = _key_arrays(probe, probe_keys)
+    lo, hi = _range_lookup(q_ops, prepared)
+    cnt = torch.where(probe.row_mask & pvalid, hi - lo, 0)
+    slot = torch.arange(k, device=lo.device)[:, None]
+    pos = torch.clamp(lo[None, :] + slot, max=s_ops[0].shape[0] - 1)
+    # slive guards the sentinel edge (a probe key equal to int64 max would
+    # otherwise "match" dead build rows)
+    matched = (slot < cnt[None, :]) & slive[pos]
+    return pos, matched, cnt
+
+
+def _tile(t: torch.Tensor, k: int) -> torch.Tensor:
+    """k copies of a column along the row axis (slot-major)."""
+    return t.repeat((k,) + (1,) * (t.ndim - 1))
+
+
+def expand_join(probe: Batch, build: Batch, probe_keys: Sequence[int],
+                build_keys: Sequence[int], payload: Sequence[int],
+                payload_names: Sequence[str], join_type: str = "inner",
+                max_matches: int = 1, prepared=None) -> Batch:
+    """Many-to-many equi-join with a static expansion factor: output
+    capacity = probe capacity x ``max_matches``; lane ``s * C + i`` holds
+    probe row i's s-th match (masked off past its match count). A left
+    join keeps an unmatched probe row in slot 0 with NULL payload."""
+    assert join_type in ("inner", "left")
+    k = max(1, max_matches)
+    prepared = prepared or build_sorted(build, build_keys)
+    perm = split_prepared(prepared)[2]
+    pos, matched, cnt = _expand_slots(probe, probe_keys, prepared, k)
+    rows = perm[pos].reshape(-1)
+    flat = matched.reshape(-1)
+    out_fields = list(zip(probe.schema.names, probe.schema.types))
+    out_cols: List[Column] = [
+        Column(c.type, _tile(c.data, k), _tile(c.validity, k), c.dictionary)
+        for c in probe.columns]
+    for ci, name in zip(payload, payload_names):
+        c = build.columns[ci]
+        out_fields.append((name, c.type))
+        out_cols.append(Column(c.type, c.data[rows],
+                               c.validity[rows] & flat, c.dictionary))
+    if join_type == "inner":
+        mask = flat
+    else:
+        first = torch.zeros_like(matched)
+        first[0] = (cnt == 0) & probe.row_mask
+        mask = flat | first.reshape(-1)
+    return Batch(Schema(out_fields), out_cols, mask)
+
+
+def build_key_ranks(build: Batch, key_cols: Sequence[int],
+                    prepared=None) -> torch.Tensor:
+    """0-based occurrence rank of each build row within its key tuple, in
+    ORIGINAL row order (dead and null-key rows get 0): slices a skewed
+    build into bounded-multiplicity chunks."""
+    s_ops, slive, perm = split_prepared(
+        prepared or build_sorted(build, key_cols))
+    idx, start = _run_starts(s_ops)
+    out = torch.zeros(idx.shape[0], dtype=torch.int64, device=idx.device)
+    out[perm] = torch.where(slive, idx - start, 0)
+    return out
+
+
+def build_match_mask(probe: Batch, build: Batch, probe_keys: Sequence[int],
+                     build_keys: Sequence[int],
+                     prepared=None) -> torch.Tensor:
+    """bool[build.capacity] in ORIGINAL build order: the build rows with at
+    least one live match in this probe batch (a FULL OUTER join's
+    visited-positions bitmap; reference LookupOuterOperator)."""
+    prepared = prepared or build_sorted(build, build_keys)
+    s_ops, slive, perm = split_prepared(prepared)
+    q_ops, pvalid = _key_arrays(probe, probe_keys)
+    live = probe.row_mask & pvalid
+    lo, hi = _range_lookup(q_ops, prepared)
+    n = s_ops[0].shape[0]
+    # difference-array coverage of every [lo, hi): integer adds, exact in
+    # any order
+    inc = live.to(torch.int32)
+    add = torch.zeros(n + 1, dtype=torch.int32, device=lo.device)
+    add.index_add_(0, torch.where(live, lo, n), inc)
+    add.index_add_(0, torch.where(live, hi, n), -inc)
+    covered = (torch.cumsum(add[:n], 0) > 0) & slive
+    out = torch.zeros(n, dtype=torch.bool, device=lo.device)
+    out[perm] = covered
+    return out
+
+
+def semi_join_mask(probe: Batch, build: Batch, probe_keys: Sequence[int],
+                   build_keys: Sequence[int], negated: bool = False,
+                   null_aware: bool = True, prepared=None) -> torch.Tensor:
+    """Membership mask of a semi or anti join (IN / NOT IN / [NOT] EXISTS;
+    reference HashSemiJoinOperator.java + SetBuilderOperator.java).
+
+    null_aware=True (IN / NOT IN): a NULL probe key never matches; for NOT
+    IN, any NULL build key makes a non-matching row UNKNOWN (nothing
+    passes), while an EMPTY build makes NOT IN true for every probe row,
+    NULL keys included. null_aware=False (decorrelated [NOT] EXISTS): NULL
+    keys simply never match, so NOT EXISTS keeps every row without a live
+    match."""
+    prepared = prepared or build_sorted(build, build_keys)
+    q_ops, pvalid = _key_arrays(probe, probe_keys)
+    _, hit = _point_lookup(q_ops, prepared)
+    if not negated:
+        return probe.row_mask & pvalid & hit
+    if not null_aware:
+        return probe.row_mask & ~(pvalid & hit)
+    _, bvalid = _key_arrays(build, build_keys)
+    build_has_null = (build.row_mask & ~bvalid).any()
+    build_empty = ~build.row_mask.any()
+    anti = probe.row_mask & pvalid & ~hit & ~build_has_null
+    return torch.where(build_empty, probe.row_mask, anti)
+
+
+def mark_rows(rows: torch.Tensor, ok: torch.Tensor, n: int) -> torch.Tensor:
+    """bool[n]: which of rows[ok] occur (a max-scatter into an overflow
+    slot that takes the lanes not ok; exact in any order)."""
+    out = torch.zeros(n + 1, dtype=torch.int32, device=rows.device)
+    out.scatter_reduce_(0, torch.where(ok, rows, n), ok.to(torch.int32),
+                        reduce="amax")
+    return out[:n] > 0
+
+
+def unique_match_build_mask(probe: Batch, build: Batch,
+                            probe_keys: Sequence[int],
+                            build_keys: Sequence[int],
+                            survived: torch.Tensor,
+                            prepared=None) -> torch.Tensor:
+    """bool[build.capacity] in ORIGINAL build order: build rows whose
+    unique-key match in this probe batch SURVIVED a residual predicate
+    (reference LookupJoinOperator's OuterPositionTracker with a join
+    filter: a filtered-out match leaves the build row unmatched)."""
+    prepared = prepared or build_sorted(build, build_keys)
+    s_ops, _, perm = split_prepared(prepared)
+    q_ops, pvalid = _key_arrays(probe, probe_keys)
+    pos, hit = _point_lookup(q_ops, prepared)
+    ok = survived & hit & probe.row_mask & pvalid
+    return mark_rows(perm[pos], ok, s_ops[0].shape[0])
+
+
+def expand_match_origins(probe: Batch, build: Batch,
+                         probe_keys: Sequence[int], build_keys: Sequence[int],
+                         max_matches: int, prepared=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(original build row, matched) of every ``expand_join`` output lane,
+    in its lane order: lets a residual-filtered FULL OUTER join mark the
+    build rows whose matches survived."""
+    prepared = prepared or build_sorted(build, build_keys)
+    perm = split_prepared(prepared)[2]
+    pos, matched, _ = _expand_slots(probe, probe_keys, prepared,
+                                    max(1, max_matches))
+    return perm[pos].reshape(-1), matched.reshape(-1)

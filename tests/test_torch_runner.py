@@ -10,7 +10,7 @@ from presto_tpu.exec.runner import LocalRunner
 from presto_tpu_torch.connectors.tpch import TpchConnector as TTpch
 from presto_tpu_torch.exec.runner import LocalRunner as TLocalRunner
 
-from torch_parity import assert_rows_match
+from torch_parity import assert_results_match
 from tpch_queries import Q
 
 _SQL = {name: sql for name, sql, _ in Q}
@@ -27,20 +27,30 @@ def test_tpch_query_matches_reference(runners, name):
     jax_runner, torch_runner = runners
     want = jax_runner.execute(_SQL[name])
     got = torch_runner.execute(_SQL[name])
-    assert got.names == want.names
-    assert [t.display() for t in got.types] == \
-        [t.display() for t in want.types]
     assert got.rows, name
-    assert_rows_match(got.rows, want.rows, 1e-12)
+    assert_results_match(got, want, 1e-12)
 
 
 @pytest.mark.parametrize("table,cols", [
     ("lineitem", ["l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
                   "l_discount", "l_tax", "l_returnflag", "l_linestatus",
                   "l_shipdate"]),
+    ("lineitem", ["l_suppkey", "l_linenumber", "l_commitdate",
+                  "l_receiptdate", "l_shipmode", "l_shipinstruct"]),
     ("orders", ["o_orderkey", "o_custkey", "o_orderdate",
                 "o_shippriority", "o_orderpriority"]),
+    ("orders", ["o_orderstatus", "o_totalprice", "o_comment"]),
     ("customer", ["c_custkey", "c_mktsegment", "c_nationkey"]),
+    ("customer", ["c_name", "c_phone", "c_acctbal", "c_address",
+                  "c_comment"]),
+    ("part", ["p_partkey", "p_name", "p_mfgr", "p_brand", "p_type",
+              "p_size", "p_container", "p_retailprice"]),
+    ("partsupp", ["ps_partkey", "ps_suppkey", "ps_availqty",
+                  "ps_supplycost"]),
+    ("supplier", ["s_suppkey", "s_name", "s_address", "s_nationkey",
+                  "s_phone", "s_acctbal", "s_comment"]),
+    ("nation", ["n_nationkey", "n_name", "n_regionkey"]),
+    ("region", ["r_regionkey", "r_name"]),
 ])
 def test_generators_make_identical_arrays(table, cols):
     jconn, tconn = TpchConnector(sf=SF), TTpch(sf=SF)
@@ -64,3 +74,15 @@ def test_generators_make_identical_arrays(table, cols):
 def _handle(table):
     from presto_tpu_torch.connectors.spi import TableHandle
     return TableHandle("tpch", "default", table)
+
+
+def test_page_source_without_device_wants_the_gpu():
+    """No device means the GPU; without one the connector raises instead
+    of building CPU batches."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    tconn = TTpch(sf=SF)
+    split = tconn.split_manager.splits(_handle("nation"), 1)[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tconn.page_source(split, ["n_nationkey"])

@@ -43,3 +43,12 @@ def sorted_rows(batch):
     def key(t):
         return tuple((v is None, str(type(v)), v) for v in t)
     return sorted([tuple(r) for r in batch.to_pylist()], key=key)
+
+
+def assert_results_match(got, want, rel: float = 1e-12):
+    """Two QueryResults agree: the same column names and type displays,
+    and the same rows in the same order (``assert_rows_match``)."""
+    assert got.names == want.names
+    assert [t.display() for t in got.types] == \
+        [t.display() for t in want.types]
+    assert_rows_match(got.rows, want.rows, rel)
