@@ -35,7 +35,18 @@ result line):
    ``device="cpu"`` run as above, prints per query the cuda and cpu
    walls, the rows, the host time spent in LIKE and the launches of each
    kernel, fails if the probe never launched in the phase, then breaks
-   down the slowest query's wall.
+   down the slowest query's wall;
+5. tpcds: with every launch count set to 0 again, runs q27 (ROLLUP and
+   GROUPING()) and the 22 queries of ``tests/tpcds_queries.py`` (star
+   joins, windows, correlated and scalar subqueries) at SF1 through
+   ``LocalRunner(tpch_sf=1, catalog="tpcds", rows_per_batch=2**23)`` on
+   ``cuda`` (one cold run each) against the port's ``device="cpu"`` run
+   as above, printing per query the cuda and cpu walls, the rows, the
+   peak device memory and the launches of each kernel; then q55 and q27
+   at SF10 (``store_sales`` 28.8 M rows, four batches), cold and warm
+   on ``cuda``, against the CPU run; fails if the probe never launched
+   in the phase, reports the segment sum's launches, and breaks down the
+   slowest SF1 query's wall.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or presto_tpu.
@@ -61,6 +72,25 @@ SEED = 20261016
 ROWS_PER_BATCH = 1 << 23
 #: the queries of the path phase; the tpch phase runs the others
 PATH_QUERIES = ("q6", "q1", "q3")
+#: the tpcds phase's scales: the battery, and q55 / q27 as the benchmark
+#: runs them
+TPCDS_SF, TPCDS_BIG_SF = 1, 10
+#: q27 as the benchmark runs it (bench.py); tests/tpcds_queries.py
+#: carries the other queries
+TPCDS_Q27 = """
+select i_item_id, s_state, grouping(s_state) g_state,
+       avg(ss_quantity) agg1, avg(ss_list_price) agg2,
+       avg(ss_coupon_amt) agg3, avg(ss_sales_price) agg4
+from store_sales, customer_demographics, date_dim, store, item
+where ss_sold_date_sk = d_date_sk and ss_item_sk = i_item_sk
+  and ss_store_sk = s_store_sk and ss_cdemo_sk = cd_demo_sk
+  and cd_gender = 'M' and cd_marital_status = 'S'
+  and cd_education_status = 'College' and d_year = 2002
+  and s_state in ('TN', 'TN', 'TN', 'TN', 'TN', 'TN')
+group by rollup (i_item_id, s_state)
+order by i_item_id nulls last, s_state nulls last
+limit 100
+"""
 #: rows a block of csrc/scan.cu sums (ops/scan.py TILE_ROWS); a constant
 #: here so that the script also times kernels of commits that predate it
 SCAN_TILE_ROWS = 2048
@@ -584,12 +614,94 @@ def phase_tpch(torch):
     return launches
 
 
+def _tests_on_path() -> None:
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+
+
 def _queries():
     """Every TPC-H query as the test suite carries them, in its order."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tests"))
+    _tests_on_path()
     from tpch_queries import Q
     return {n: sql for n, sql, _ in Q}
+
+
+def _tpcds_queries():
+    """q27, then the TPC-DS battery as the test suite carries it."""
+    _tests_on_path()
+    from tpcds_queries import Q
+    return {"q27": TPCDS_Q27, **{n: sql for n, sql, _ in Q}}
+
+
+def phase_tpcds(torch):
+    """q27 and the TPC-DS battery at SF1 on the card, each against the
+    port's CPU run; then q55 and q27 at SF10, cold and warm."""
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.ops import probe, scan
+    queries = _tpcds_queries()
+
+    def runners(sf):
+        return (LocalRunner(tpch_sf=sf, catalog="tpcds",
+                            rows_per_batch=ROWS_PER_BATCH),
+                LocalRunner(tpch_sf=sf, catalog="tpcds", device="cpu",
+                            rows_per_batch=ROWS_PER_BATCH))
+
+    def on_card(runner, sql):
+        before = (scan.launches, probe.launches)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = runner.execute(sql)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (res, wall, torch.cuda.max_memory_allocated() / 2**30,
+                (scan.launches - before[0], probe.launches - before[1]))
+
+    def on_cpu(runner, sql):
+        t0 = time.perf_counter()
+        res = runner.execute(sql)
+        return res, time.perf_counter() - t0
+
+    scan.launches = 0
+    probe.launches = 0
+    gpu, cpu = runners(TPCDS_SF)
+    walls = {}
+    for name, sql in queries.items():
+        res, walls[name], peak_gb, counts = on_card(gpu, sql)
+        ref, cpu_s = on_cpu(cpu, sql)
+        _same_rows(res.rows, ref.rows, 1e-9)
+        if not res.rows:
+            print(f"tpcds {name}: no rows on cuda, none on cpu either",
+                  flush=True)
+        print(f"tpcds sf{TPCDS_SF} {name}: cuda cold {walls[name]:.3f} s | "
+              f"cpu {cpu_s:.3f} s | {len(res.rows)} rows match the cpu run "
+              f"| peak {peak_gb:.2f} GiB | launches scan {counts[0]} probe "
+              f"{counts[1]}", flush=True)
+    slowest = max(walls, key=walls.get)
+    print(f"tpcds slowest on cuda: {slowest} ({walls[slowest]:.3f} s cold)",
+          flush=True)
+    _breakdown(torch, gpu, slowest, queries[slowest])
+    del gpu, cpu
+    gpu, cpu = runners(TPCDS_BIG_SF)
+    for name in ("q55", "q27"):
+        cold, cold_s, cold_gb, cold_n = on_card(gpu, queries[name])
+        warm, warm_s, warm_gb, warm_n = on_card(gpu, queries[name])
+        ref, cpu_s = on_cpu(cpu, queries[name])
+        _same_rows(cold.rows, ref.rows, 1e-9)
+        _same_rows(warm.rows, ref.rows, 1e-9)
+        if not ref.rows:
+            raise AssertionError(f"{name} at SF{TPCDS_BIG_SF} has no rows")
+        print(f"tpcds sf{TPCDS_BIG_SF} {name}: cuda cold {cold_s:.3f} s "
+              f"warm {warm_s:.3f} s | cpu {cpu_s:.3f} s | {len(ref.rows)} "
+              f"rows match the cpu run | peak {max(cold_gb, warm_gb):.2f} "
+              f"GiB | launches (cold+warm) scan {cold_n[0] + warm_n[0]} "
+              f"probe {cold_n[1] + warm_n[1]}", flush=True)
+    launches = {"segment_sum_sorted_i64": scan.launches,
+                "direct_probe": probe.launches}
+    print(f"tpcds launches: {json.dumps(launches)}", flush=True)
+    if launches["direct_probe"] <= 0:
+        raise AssertionError("the probe kernel never launched in the phase")
+    return launches
 
 
 def main() -> None:
@@ -628,11 +740,15 @@ def main() -> None:
         tpch_launches = phase_tpch(torch)
     except Exception as e:  # noqa: BLE001
         fail("tpch", f"{type(e).__name__}: {e}")
+    try:
+        tpcds_launches = phase_tpcds(torch)
+    except Exception as e:  # noqa: BLE001
+        fail("tpcds", f"{type(e).__name__}: {e}")
     for entry in entries:
-        # launches over all 22 queries: the path phase's and the tpch
-        # phase's
-        entry["launches"] = (launches[entry["name"]]
-                             + tpch_launches[entry["name"]])
+        # launches over every phase that drives the engine: the path
+        # phase's, the tpch phase's and the tpcds phase's
+        entry["launches"] = sum(p[entry["name"]] for p in (
+            launches, tpch_launches, tpcds_launches))
     print(f"total wall {time.perf_counter() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,13 +7,16 @@ operator/Driver.java): each plan node becomes a generator over device
 batches, so scan->filter->project->partial-agg chains stream without
 materializing, while join builds, sorts and aggregations drain their
 input. Ported node kinds: output, table scan, VALUES, filter, project,
-limit, sort, top-n, aggregation, DISTINCT, joins (inner, left, full and
-cross; unique or expanding builds; ON residuals) and semi joins (IN, NOT
-IN, [NOT] EXISTS, with or without a residual). Init plans (uncorrelated
-scalar subqueries) run before the main plan and their values substitute
-into its expressions; a subplan that occurs more than once runs once and
-replays its batches. Any other node kind raises NotImplementedError
-naming it; so do spilled builds.
+limit, sort, top-n, aggregation (with the default rows of grouping sets
+over empty input), DISTINCT, GroupId (ROLLUP, CUBE, GROUPING SETS),
+union (UNION [ALL], and INTERSECT / EXCEPT as the planner lowers them),
+window, joins (inner, left, full and cross; unique or expanding builds;
+ON residuals) and semi joins (IN, NOT IN, [NOT] EXISTS, with or without
+a residual). Init plans (uncorrelated scalar subqueries) run before the
+main plan and their values substitute into its expressions; a subplan
+that occurs more than once runs once and replays its batches. Any other
+node kind (MarkDistinct, Unnest) raises NotImplementedError naming it;
+so do spilled builds.
 
 Unique-build joins probe through the CUDA direct-address probe kernel
 (``ops/probe.py``) whenever the build gets a direct-address table, and
@@ -29,7 +32,8 @@ import torch
 
 from .. import types as T
 from ..batch import (
-    Batch, Column, Schema, bucket_capacity, concat_batches,
+    Batch, Column, Schema, bucket_capacity, concat_batches, remap_codes,
+    unify_dictionaries,
 )
 from ..errors import STATS_BOUND_VIOLATION, QueryError
 from ..expr import ir
@@ -47,10 +51,11 @@ from ..ops.join import (
 )
 from ..ops.probe import lookup_join_direct, sorted_payload
 from ..ops.sort import SortKey, limit as limit_kernel, sort_batch, top_n
+from ..ops.window import WindowSpec, evaluate_window
 from ..planner.plan import (
-    AggregationNode, DistinctNode, FilterNode, JoinNode, LimitNode,
-    OutputNode, PlanNode, ProjectNode, SemiJoinNode, SortNode,
-    TableScanNode, TopNNode, ValuesNode,
+    AggregationNode, DistinctNode, FilterNode, GroupIdNode, JoinNode,
+    LimitNode, OutputNode, PlanNode, ProjectNode, SemiJoinNode, SortNode,
+    TableScanNode, TopNNode, UnionNode, ValuesNode, WindowNode,
 )
 from ..planner.planner import (
     InitPlanRef, LogicalPlan, Session, bool_property,
@@ -65,6 +70,26 @@ class QueryResult:
     names: List[str]
     types: List[T.Type]
     rows: List[tuple]
+
+
+def _default_grouping_batch(node: AggregationNode, device) -> Batch:
+    """One default row per empty grouping set for an aggregation over
+    empty input (reference AggregationNode.hasDefaultOutput +
+    AggregationOperator's default output page): keys NULL, $group_id set,
+    count aggregates 0, everything else NULL."""
+    nk = len(node.group_indices)
+    n = len(node.default_gids)
+    data: Dict[str, tuple] = {}
+    for pos, f in enumerate(node.fields):
+        if pos < nk - 1:
+            vals = [None] * n
+        elif pos == nk - 1:                 # the $group_id column
+            vals = [int(g) for g in node.default_gids]
+        else:
+            zero = node.aggs[pos - nk].fn in ("count", "count_star")
+            vals = [0 if zero else None] * n
+        data[f.name] = (f.type, vals)
+    return Batch.from_pydict(data, device=device)
 
 
 def run_init_plans(ex: "_Executor", plan: LogicalPlan) -> None:
@@ -107,6 +132,22 @@ def _apply_dynamic_bounds(probe: Batch,
         c = probe.columns[pk]
         keep = keep & c.validity & (c.data >= lo) & (c.data <= hi)
     return Batch(probe.schema, probe.columns, keep)
+
+
+def keys_in_build_vocab(probe: Batch, build: Batch, probe_keys,
+                        build_keys) -> Batch:
+    """``probe`` with each string join key re-coded into the build key's
+    vocabulary, extended by the probe's strings the build lacks. The two
+    sides' dictionaries are built independently (per batch for free-text
+    columns), and the join kernels compare codes, so equal strings must
+    carry equal codes first; the build keeps its codes."""
+    cols = list(probe.columns)
+    for pk, bk in zip(probe_keys, build_keys):
+        pc, bc = probe.columns[pk], build.columns[bk]
+        if pc.type.is_string and pc.dictionary != bc.dictionary:
+            vocab, remaps = unify_dictionaries([bc, pc])
+            cols[pk] = remap_codes(pc, remaps[1], vocab)
+    return Batch(probe.schema, cols, probe.row_mask)
 
 
 def mark_exists_mask(probe: Batch, build: Batch, probe_keys, build_keys,
@@ -342,6 +383,45 @@ class _Executor:
             remaining -= out.host_count()
             yield out
 
+    def _UnionNode(self, node: UnionNode) -> Iterator[Batch]:
+        for c in node.children:
+            yield from self.run(c)
+
+    def _GroupIdNode(self, node: GroupIdNode) -> Iterator[Batch]:
+        """One replica batch per grouping set: absent keys get their
+        validity cleared (NULL), $group_id is a constant column
+        (reference operator/GroupIdOperator.java)."""
+        schema = _plan_schema(node)
+        for b in self.run(node.child):
+            dead = torch.zeros_like(b.row_mask)
+            alive = torch.ones_like(b.row_mask)
+            for g, s in enumerate(node.grouping_sets):
+                cols = []
+                for i, c in enumerate(b.columns):
+                    if i < node.n_keys and i not in s:
+                        # zero the data too: the sort path groups on
+                        # (null rank, data), so stale data under a cleared
+                        # validity would still split groups
+                        cols.append(Column(c.type, torch.zeros_like(c.data),
+                                           dead, c.dictionary))
+                    else:
+                        cols.append(c)
+                cols.append(Column(T.BIGINT, torch.full(
+                    (b.capacity,), g, dtype=torch.int64, device=b.device),
+                    alive))
+                yield Batch(schema, cols, b.row_mask)
+
+    def _WindowNode(self, node: WindowNode) -> Iterator[Batch]:
+        b = self._drain(node.child)
+        if b is None:
+            return
+        specs = [WindowSpec(f.fn, f.args, f.output_type, f.name, f.offset,
+                            f.ignore_order, f.frame, f.frame_start,
+                            f.frame_end) for f in node.functions]
+        out = evaluate_window(b, list(node.partition_indices),
+                              self._sort_keys(node.order_keys), specs)
+        yield Batch(_plan_schema(node), out.columns, out.row_mask)
+
     def _drain(self, node: PlanNode) -> Optional[Batch]:
         batches = list(self.run(node))
         if not batches:
@@ -349,17 +429,16 @@ class _Executor:
         return batches[0] if len(batches) == 1 else concat_batches(batches)
 
     @staticmethod
-    def _sort_keys(node) -> List[SortKey]:
-        return [SortKey(k.index, k.ascending, k.nulls_first)
-                for k in node.keys]
+    def _sort_keys(keys) -> List[SortKey]:
+        return [SortKey(k.index, k.ascending, k.nulls_first) for k in keys]
 
     def _SortNode(self, node: SortNode) -> Iterator[Batch]:
         b = self._drain(node.child)
         if b is not None:
-            yield sort_batch(b, self._sort_keys(node))
+            yield sort_batch(b, self._sort_keys(node.keys))
 
     def _TopNNode(self, node: TopNNode) -> Iterator[Batch]:
-        keys = self._sort_keys(node)
+        keys = self._sort_keys(node.keys)
         cap = bucket_capacity(node.count)
         state: Optional[Batch] = None
         for b in self.run(node.child):
@@ -374,8 +453,6 @@ class _Executor:
         if any(a.distinct for a in node.aggs):
             raise NotImplementedError(
                 "DISTINCT aggregates must be lowered by the planner")
-        if node.default_gids:
-            raise NotImplementedError("grouping sets are not ported")
         aggs = [AggSpec(a.fn, a.arg, a.output_type, a.name, mask=a.mask,
                         param=a.param) for a in node.aggs]
         group = list(node.group_indices)
@@ -384,7 +461,17 @@ class _Executor:
             yield from self._global_agg(node, aggs, step)
             return
         kb = tuple(node.key_bounds) if node.key_bounds else None
-        yield from self._grouped_agg(node.child, group, aggs, kb, step)
+        out = self._grouped_agg(node.child, group, aggs, kb, step)
+        if not (node.default_gids and step in ("single", "final")):
+            yield from out
+            return
+        # grouping sets over EMPTY input: the empty sets still owe their
+        # grand-total rows (reference AggregationNode.hasDefaultOutput);
+        # aggregated outputs are small, so the host count is cheap
+        outs = list(out)
+        yield from outs
+        if sum(b.host_count() for b in outs) == 0:
+            yield _default_grouping_batch(node, self.device)
 
     def _DistinctNode(self, node: DistinctNode) -> Iterator[Batch]:
         """A grouped aggregate with no aggregates under the node's key
@@ -529,6 +616,7 @@ class _Executor:
                 if node.join_type != "inner":
                     yield compact(self._null_extend(probe, node))
                 continue
+            probe = keys_in_build_vocab(probe, build, lkeys, rkeys)
             if dyn:
                 probe = _apply_dynamic_bounds(probe, dyn)
             if residual_outer is not None:
@@ -788,6 +876,7 @@ class _Executor:
                 yield b if node.negated else Batch(
                     b.schema, b.columns, torch.zeros_like(b.row_mask))
                 continue
+            b = keys_in_build_vocab(b, build, skeys, fkeys)
             if residual is None:
                 mask = semi_join_mask(b, build, skeys, fkeys, node.negated,
                                       node.null_aware, prep)

@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 from ..connectors.spi import CatalogManager
+from ..connectors.tpcds import TpcdsConnector
 from ..connectors.tpch import TpchConnector
 from ..device import resolve_device
 from ..planner.optimizer import optimize
@@ -32,6 +33,7 @@ class LocalRunner:
         if catalogs is None:
             catalogs = CatalogManager()
             catalogs.register("tpch", TpchConnector(sf=tpch_sf))
+            catalogs.register("tpcds", TpcdsConnector(sf=tpch_sf))
         self.session = Session(catalogs=catalogs, catalog=catalog,
                                schema=schema)
         self.rows_per_batch = rows_per_batch

@@ -402,6 +402,14 @@ def _negate(args, out):
     return Val(-a.data, a.valid, out)
 
 
+@register("abs")
+def _abs(args, out):
+    (a,) = args
+    if _is_long_dec(a.type):
+        raise _long_dec_unported("abs")
+    return Val(torch.abs(a.data), a.valid, out)
+
+
 def _cmp(op):
     def impl(args: List[Val], out: Type) -> Val:
         a, b = args

@@ -1193,7 +1193,7 @@ class _Planner:
 
     def _window_fn_spec(self, w: A.WindowFunction, col_of, name: str,
                         has_order: bool):
-        raise NotImplementedError("window functions are not ported")
+        from .plan import WindowFnSpec
         call = w.call
         fn = _FUNCTION_ALIASES.get(call.name, call.name)
         if fn in ("rank", "dense_rank", "row_number", "percent_rank",

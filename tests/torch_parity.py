@@ -1,11 +1,21 @@
 """Helpers shared by the tests that hold presto_tpu_torch against
-presto_tpu: carrying a JAX batch into the port, and comparing rows."""
+presto_tpu: carrying a JAX batch into the port, and comparing rows.
+
+Importing this module sets torch's CPU thread pool to one thread. The
+suite runs in several worker processes at once, and the port's tests
+call torch on small tensors: a full OpenMP pool in every worker spins
+between those calls and takes the cores the JAX side compiles on
+(measured on an 8-core host, five workers: the parity files took 149 s
+with the default pool and 83 s with one thread)."""
 import math
 
 import numpy as np
+import torch
 
 from presto_tpu_torch import types as PT
 from presto_tpu_torch.batch import Batch as TBatch, Schema as TSchema
+
+torch.set_num_threads(1)
 
 
 def port_type(t):
