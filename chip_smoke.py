@@ -24,7 +24,9 @@ result line):
    records none) and works out each kernel's bound;
 3. path: with every launch count set to 0, runs TPC-H Q6, Q1 and Q3 at
    SF1 through ``LocalRunner(tpch_sf=1, rows_per_batch=2**23)`` on
-   ``cuda`` (cold, then warm; one batch holds all 6 M lineitem rows),
+   ``cuda`` (cold, then warm; one batch holds all 6 M lineitem rows;
+   every cold run here and in the next two phases starts with the scan
+   cache cleared, so a warm run replays the query's own splits),
    reads the counts, fails if a kernel of the path never launched (both
    must launch during Q3), and compares each result with the port's own
    ``device="cpu"`` run: integers, dates and strings exactly, doubles
@@ -46,7 +48,25 @@ result line):
    at SF10 (``store_sales`` 28.8 M rows, four batches), cold and warm
    on ``cuda``, against the CPU run; fails if the probe never launched
    in the phase, reports the segment sum's launches, and breaks down the
-   slowest SF1 query's wall.
+   slowest SF1 query's wall;
+6. scan: the device scan cache and the prefetching scan pipeline. With
+   every launch count set to 0 and the scan cache cleared, runs Q1 and Q3
+   at SF1 and q55 and q27 at SF10 on ``cuda``, cold then warm, printing
+   per run the wall, the scan cache's hits, misses and inserts, its
+   resident bytes on the card, the prefetch stall seconds and the peak
+   device memory, and the card's busy share of a profiled warm run; runs
+   q55 cold again with ``scan_prefetch=false``; compares every result
+   with the port's ``device="cpu"`` run as above (the path and tpcds
+   phases' CPU rows) and fails if the warm q55 hits no split; then
+   the write path: CREATE TABLE memory.default.t AS a projection of SF1
+   lineitem, reads it twice (cold, warm), INSERTs more rows and reads it
+   again, which must miss and return the new rows from batches on the
+   card, each read against the same statements on the CPU. Fails if
+   either kernel never launched in the phase.
+
+Every breakdown line times the plan's table scans twice: with the scan
+cache cleared (host generation and the copy to the card) and as a warm
+replay of the cached splits.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or presto_tpu.
@@ -469,19 +489,23 @@ def _same_rows(gpu_rows, cpu_rows, rel: float) -> None:
 
 
 def phase_path(torch):
+    """Q6, Q1, Q3 at SF1 cold and warm on the card against the CPU run;
+    returns the launches and the CPU rows."""
     from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.scancache import CACHE
     from presto_tpu_torch.ops import probe, scan
     queries = _queries()
     # one 2^23-lane batch holds all of SF1's 6 M lineitem rows
     gpu = LocalRunner(tpch_sf=1, rows_per_batch=ROWS_PER_BATCH)
     cpu = LocalRunner(tpch_sf=1, device="cpu", rows_per_batch=ROWS_PER_BATCH)
-    results = {}
+    results, cpu_rows = {}, {}
     scan.launches = 0
     probe.launches = 0
     q3_launches = None
     for name in PATH_QUERIES:
         before = (scan.launches, probe.launches)
         walls = []
+        CACHE.clear()
         for _ in range(2):              # cold, then warm
             t0 = time.perf_counter()
             res = gpu.execute(queries[name])
@@ -501,6 +525,7 @@ def phase_path(torch):
         t0 = time.perf_counter()
         ref = cpu.execute(queries[name])
         cpu_s = time.perf_counter() - t0
+        cpu_rows[name] = ref.rows
         _same_rows(res.rows, ref.rows, 1e-9)
         print(f"{name}: cuda cold {walls[0]:.3f} s warm {walls[1]:.3f} s | "
               f"cpu {cpu_s:.3f} s | {len(res.rows)} rows match the cpu run",
@@ -510,15 +535,38 @@ def phase_path(torch):
           f"{len(gpu.execute(q3_all).rows)}", flush=True)
     for name in PATH_QUERIES:
         _breakdown(torch, gpu, name, queries[name])
-    return launches
+    return launches, cpu_rows
+
+
+def _card_busy(torch, fn) -> str:
+    """The card's busy time over one ``fn()`` call from torch.profiler's
+    CUDA records, against the call's wall. Informational: a profiler that
+    records nothing gives 'not measured' and fails no phase."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    except Exception as e:  # noqa: BLE001 - informational only
+        return f"not measured ({type(e).__name__}: {e})"
+    if dev_us <= 0:
+        return "not measured"
+    return (f"{dev_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms profiled wall "
+            f"({100 * dev_us / 1e6 / wall:.2f}% busy)")
 
 
 def _breakdown(torch, runner, name, sql) -> None:
-    """Where a warm query's time goes: the wall of its table scans alone
-    (host generation + copy to the card), and the card's busy time from
-    torch.profiler's CUDA kernel records. Informational: a profiler
-    that records nothing prints 'not measured' and fails no phase."""
+    """Where a warm query's time goes: the wall of its table scans alone,
+    with the scan cache cleared (host generation + copy to the card) and
+    as a warm replay of the cached splits, and the card's busy time over a
+    warm run."""
     from presto_tpu_torch.exec.local import _Executor
+    from presto_tpu_torch.exec.scancache import CACHE
     from presto_tpu_torch.planner.plan import TableScanNode
     plan = runner.plan(sql)
     scans, stack = [], [plan.root]
@@ -527,30 +575,23 @@ def _breakdown(torch, runner, name, sql) -> None:
         if isinstance(node, TableScanNode):
             scans.append(node)
         stack.extend(node.children)
-    ex = _Executor(runner.session, runner.rows_per_batch, runner.device)
-    t0 = time.perf_counter()
-    for node in scans:
-        for _ in ex.run(node):
-            pass
-    torch.cuda.synchronize()
-    scan_s = time.perf_counter() - t0
-    busy = "not measured"
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            runner.execute(sql)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-        if dev_us > 0:
-            busy = (f"{dev_us / 1e3:.3f} ms of {wall * 1e3:.3f} ms profiled "
-                    f"wall ({100 * dev_us / 1e6 / wall:.2f}% busy)")
-    except Exception as e:  # noqa: BLE001 - informational only
-        busy = f"not measured ({type(e).__name__}: {e})"
-    print(f"{name} breakdown: scans alone {scan_s:.3f} s; card busy {busy}",
+
+    def scans_alone() -> float:
+        ex = _Executor(runner.session, runner.rows_per_batch, runner.device)
+        t0 = time.perf_counter()
+        for node in scans:
+            for _ in ex.run(node):
+                pass
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    CACHE.clear()
+    cold_s = scans_alone()
+    warm_s = scans_alone()
+    runner.execute(sql)           # the query's own splits are resident
+    busy = _card_busy(torch, lambda: runner.execute(sql))
+    print(f"{name} breakdown: scans alone {cold_s:.3f} s (cache cleared), "
+          f"{warm_s:.3f} s warm replay; card busy (warm run) {busy}",
           flush=True)
 
 
@@ -558,6 +599,7 @@ def phase_tpch(torch):
     """The 19 TPC-H queries the path phase does not run, at SF1 on the
     card, each against the port's CPU run."""
     from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.scancache import CACHE
     from presto_tpu_torch.expr import functions
     from presto_tpu_torch.ops import probe, scan
     queries = {n: sql for n, sql in _queries().items()
@@ -582,6 +624,7 @@ def phase_tpch(torch):
         for name, sql in queries.items():
             before = (scan.launches, probe.launches)
             like_s[0] = 0.0
+            CACHE.clear()               # cold: no split of another query
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = gpu.execute(sql)
@@ -638,6 +681,7 @@ def phase_tpcds(torch):
     """q27 and the TPC-DS battery at SF1 on the card, each against the
     port's CPU run; then q55 and q27 at SF10, cold and warm."""
     from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.scancache import CACHE
     from presto_tpu_torch.ops import probe, scan
     queries = _tpcds_queries()
 
@@ -647,7 +691,9 @@ def phase_tpcds(torch):
                 LocalRunner(tpch_sf=sf, catalog="tpcds", device="cpu",
                             rows_per_batch=ROWS_PER_BATCH))
 
-    def on_card(runner, sql):
+    def on_card(runner, sql, cold=True):
+        if cold:
+            CACHE.clear()
         before = (scan.launches, probe.launches)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -683,10 +729,13 @@ def phase_tpcds(torch):
     _breakdown(torch, gpu, slowest, queries[slowest])
     del gpu, cpu
     gpu, cpu = runners(TPCDS_BIG_SF)
+    cpu_rows = {}
     for name in ("q55", "q27"):
         cold, cold_s, cold_gb, cold_n = on_card(gpu, queries[name])
-        warm, warm_s, warm_gb, warm_n = on_card(gpu, queries[name])
+        warm, warm_s, warm_gb, warm_n = on_card(gpu, queries[name],
+                                                cold=False)
         ref, cpu_s = on_cpu(cpu, queries[name])
+        cpu_rows[name] = ref.rows
         _same_rows(cold.rows, ref.rows, 1e-9)
         _same_rows(warm.rows, ref.rows, 1e-9)
         if not ref.rows:
@@ -701,6 +750,109 @@ def phase_tpcds(torch):
     print(f"tpcds launches: {json.dumps(launches)}", flush=True)
     if launches["direct_probe"] <= 0:
         raise AssertionError("the probe kernel never launched in the phase")
+    return launches, cpu_rows
+
+
+def phase_scan(torch, tpch_cpu_rows, tpcds_cpu_rows):
+    """The scan cache and the prefetching pipeline at full scale: cold and
+    warm runs, prefetch off, the write path; every result against the
+    port's CPU run."""
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.scancache import CACHE
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    from presto_tpu_torch.ops import probe, scan
+    card = torch.device("cuda")
+    inserts = REGISTRY.counter("scan_cache_insert_total")
+    tpch = _queries()
+    tpcds = _tpcds_queries()
+    gpu_h = LocalRunner(tpch_sf=1, rows_per_batch=ROWS_PER_BATCH)
+    cpu_h = LocalRunner(tpch_sf=1, device="cpu",
+                        rows_per_batch=ROWS_PER_BATCH)
+    gpu_ds = LocalRunner(tpch_sf=TPCDS_BIG_SF, catalog="tpcds",
+                         rows_per_batch=ROWS_PER_BATCH)
+
+    def run(runner, sql, label, properties=None):
+        """One run on the card, with its scan-cache line."""
+        i0 = inserts.value
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = runner.execute(sql, properties=properties)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = runner.last_stats
+        print(f"scan {label}: wall {wall:.3f} s | hits {st.cache_hits} "
+              f"misses {st.cache_misses} inserts {int(inserts.value - i0)} "
+              f"| resident {CACHE.resident_bytes(card) / 2**30:.3f} GiB | "
+              f"prefetch stall {st.prefetch_stall_s:.3f} s | peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        return res, st, wall
+
+    scan.launches = 0
+    probe.launches = 0
+    CACHE.clear()
+    cases = [(gpu_h, "q1", tpch["q1"], tpch_cpu_rows["q1"]),
+             (gpu_h, "q3", tpch["q3"], tpch_cpu_rows["q3"]),
+             (gpu_ds, "q55", tpcds["q55"], tpcds_cpu_rows["q55"]),
+             (gpu_ds, "q27", tpcds["q27"], tpcds_cpu_rows["q27"])]
+    warm_hits = {}
+    for runner, name, sql, ref_rows in cases:
+        sf = 1 if runner is gpu_h else TPCDS_BIG_SF
+        cold, _, _ = run(runner, sql, f"sf{sf} {name} cold")
+        warm, st, _ = run(runner, sql, f"sf{sf} {name} warm")
+        warm_hits[name] = st.cache_hits
+        busy = _card_busy(torch, lambda: runner.execute(sql))
+        _same_rows(cold.rows, ref_rows, 1e-9)
+        _same_rows(warm.rows, ref_rows, 1e-9)
+        print(f"scan sf{sf} {name}: {len(ref_rows)} rows match the cpu run "
+              f"cold and warm; card busy (warm run) {busy}", flush=True)
+    if warm_hits["q55"] <= 0:
+        raise AssertionError("the warm q55 hit no split of the scan cache")
+    CACHE.clear()
+    off, _, _ = run(gpu_ds, tpcds["q55"], f"sf{TPCDS_BIG_SF} q55 cold, "
+                    "scan_prefetch=false", properties={"scan_prefetch": False})
+    _same_rows(off.rows, tpcds_cpu_rows["q55"], 1e-9)
+    CACHE.clear()
+    run(gpu_ds, tpcds["q55"], f"sf{TPCDS_BIG_SF} q55 cold, prefetch on "
+        "(again)")
+    del gpu_ds
+
+    # the write path: CTAS, warm read, INSERT, read that must miss
+    table = "memory.default.t"
+    ctas = (f"create table {table} as select l_orderkey, l_partkey, "
+            "l_quantity, l_extendedprice, l_discount, l_shipdate "
+            "from lineitem")
+    insert = (f"insert into {table} select l_orderkey, l_partkey, "
+              "l_quantity, l_extendedprice, l_discount, l_shipdate "
+              "from lineitem where l_quantity < 5")
+    read = (f"select count(*), sum(l_quantity), sum(l_extendedprice), "
+            f"min(l_shipdate), max(l_orderkey) from {table}")
+    for runner in (gpu_h, cpu_h):
+        runner.execute(f"drop table if exists {table}")
+    steps = [("ctas", ctas), ("read cold", read), ("read warm", read),
+             ("insert", insert), ("read after insert", read)]
+    stored = {}
+    for step, sql in steps:
+        got, st, _ = run(gpu_h, sql, f"write path {step}")
+        stored[step] = list(gpu_h.session.catalogs.get("memory").tables["t"])
+        want = cpu_h.execute(sql).rows
+        _same_rows(got.rows, want, 1e-9)
+        print(f"scan write path {step}: {got.rows} match the cpu run",
+              flush=True)
+        if step == "read warm" and st.cache_hits != 1:
+            raise AssertionError("the warm read of the table did not hit")
+        if step == "read after insert" and (st.cache_misses != 1
+                                            or st.cache_hits):
+            raise AssertionError("the read after INSERT did not miss")
+    after = stored["insert"]
+    if len(after) <= len(stored["ctas"]) or any(
+            b.device.type != "cuda" for b in after):
+        raise AssertionError("the INSERT's batches are not on the card")
+    launches = {"segment_sum_sorted_i64": scan.launches,
+                "direct_probe": probe.launches}
+    print(f"scan launches: {json.dumps(launches)}", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError("a kernel never launched in the scan phase")
     return launches
 
 
@@ -733,7 +885,7 @@ def main() -> None:
         print(json.dumps({"kernels": entries}), flush=True)
         return
     try:
-        launches = phase_path(torch)
+        launches, tpch_cpu_rows = phase_path(torch)
     except Exception as e:  # noqa: BLE001
         fail("path", f"{type(e).__name__}: {e}")
     try:
@@ -741,14 +893,18 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail("tpch", f"{type(e).__name__}: {e}")
     try:
-        tpcds_launches = phase_tpcds(torch)
+        tpcds_launches, tpcds_cpu_rows = phase_tpcds(torch)
     except Exception as e:  # noqa: BLE001
         fail("tpcds", f"{type(e).__name__}: {e}")
+    try:
+        scan_launches = phase_scan(torch, tpch_cpu_rows, tpcds_cpu_rows)
+    except Exception as e:  # noqa: BLE001
+        fail("scan", f"{type(e).__name__}: {e}")
     for entry in entries:
-        # launches over every phase that drives the engine: the path
-        # phase's, the tpch phase's and the tpcds phase's
+        # launches over every phase that drives the engine: path, tpch,
+        # tpcds and scan
         entry["launches"] = sum(p[entry["name"]] for p in (
-            launches, tpch_launches, tpcds_launches))
+            launches, tpch_launches, tpcds_launches, scan_launches))
     print(f"total wall {time.perf_counter() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

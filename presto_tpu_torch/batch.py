@@ -301,6 +301,18 @@ class Batch:
                 for c in self.columns]
         return Batch(self.schema, cols, new_mask)
 
+    def pad(self, capacity: int) -> "Batch":
+        """Grow to a larger capacity with dead padding lanes (row mask and
+        validity False), the inverse of ``compact``. The scan pipeline
+        pads a split's ragged final chunk up to the stream's bucket, so
+        every batch of a scan has one capacity; results are unchanged."""
+        if capacity <= self.capacity:
+            return self
+        cols = [Column(c.type, _pad_rows(c.data, capacity),
+                       _pad_rows(c.validity, capacity), c.dictionary)
+                for c in self.columns]
+        return Batch(self.schema, cols, _pad_rows(self.row_mask, capacity))
+
     def __repr__(self) -> str:
         return f"Batch({self.schema!r}, capacity={self.capacity})"
 

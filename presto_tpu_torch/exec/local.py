@@ -18,6 +18,12 @@ that occurs more than once runs once and replays its batches. Any other
 node kind (MarkDistinct, Unnest) raises NotImplementedError naming it;
 so do spilled builds.
 
+Table scans go through the device scan cache and the prefetching split
+pipeline (``exec/scancache.py``); a join whose probe side a dynamic
+filter cannot prune runs that side on a producer thread while its build
+drains (``exec/local_exchange.py``). Shared subplans are memoized
+within a per-query ``memory.QueryMemoryPool``.
+
 Unique-build joins probe through the CUDA direct-address probe kernel
 (``ops/probe.py``) whenever the build gets a direct-address table, and
 through binary search over the sorted build otherwise.
@@ -25,6 +31,9 @@ through binary search over the sorted build otherwise.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import threading
+import time
 from collections import Counter
 from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
@@ -35,11 +44,12 @@ from ..batch import (
     Batch, Column, Schema, bucket_capacity, concat_batches, remap_codes,
     unify_dictionaries,
 )
-from ..errors import STATS_BOUND_VIOLATION, QueryError
+from ..errors import STATS_BOUND_VIOLATION, QueryCancelledError, QueryError
 from ..expr import ir
 from ..expr.compiler import compile_filter, compile_projection
 from ..expr.rewrite import referenced_inputs, remap_inputs
 from ..expr.rewrite import rewrite as ir_rewrite
+from ..memory import QueryMemoryPool, batch_device_bytes
 from ..ops.aggregation import (
     AggSpec, dense_path_selected, global_aggregate, grouped_aggregate,
 )
@@ -60,6 +70,8 @@ from ..planner.plan import (
 from ..planner.planner import (
     InitPlanRef, LogicalPlan, Session, bool_property,
 )
+from . import scancache
+from .local_exchange import exchange_source
 
 _DYN_TYPES = (T.BigintType, T.IntegerType, T.SmallintType, T.TinyintType,
               T.DateType)
@@ -107,12 +119,31 @@ def run_init_plans(ex: "_Executor", plan: LogicalPlan) -> None:
 
 
 def execute_plan(plan: LogicalPlan, session: Session, device,
-                 rows_per_batch: int = 1 << 17) -> QueryResult:
-    """Run a planned query on ``device`` and decode its rows."""
-    ex = _Executor(session, rows_per_batch, torch.device(device))
+                 rows_per_batch: int = 1 << 17, stats=None,
+                 collect_rows: bool = True,
+                 cancel_event=None) -> QueryResult:
+    """Run a planned query on ``device`` and decode its rows.
+    ``stats`` (a StatsCollector) records per-node and per-split stats;
+    ``collect_rows=False`` drains without decoding (EXPLAIN ANALYZE);
+    a set ``cancel_event`` stops the query between batches."""
+    ex = _Executor(session, rows_per_batch, torch.device(device),
+                   stats=stats)
+    ex.cancel_event = cancel_event
     run_init_plans(ex, plan)
     root = plan.root
-    out = list(ex.run(root.child))
+    out: List[Batch] = []
+    it = ex.run(root.child)
+    try:
+        for b in it:
+            ex._check_cancel()
+            if collect_rows:
+                out.append(b)
+    finally:
+        # closing the root generator runs every suspended finally below
+        # it (the threaded scan's stop and join) on error, cancel or LIMIT
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
     ex.check_errors()
     return QueryResult(names=[f.name for f in root.fields],
                        types=[f.type for f in root.fields],
@@ -235,7 +266,7 @@ class _Executor:
     SKEW_MATCH_LIMIT = 64
 
     def __init__(self, session: Session, rows_per_batch: int,
-                 device: torch.device):
+                 device: torch.device, stats=None):
         for prop in ("query_max_memory", "spill_partitions"):
             if prop in session.properties:
                 raise NotImplementedError(
@@ -243,6 +274,17 @@ class _Executor:
         self.session = session
         self.rows_per_batch = rows_per_batch
         self.device = device
+        self.stats = stats
+        #: set by execute_plan: checked per scan batch, so a cancel stops
+        #: a query mid-drain
+        self.cancel_event = None
+        #: the query's memory pool (memoized subplans reserve from it);
+        #: unlimited until spilled builds are ported
+        self.pool = QueryMemoryPool()
+        session.last_memory_stats = self.pool.stats
+        #: runtime (dynamic-filter) scan bounds: scan node ->
+        #: [(column, lo, hi)]
+        self.dynamic_pushdown: Dict[PlanNode, List[Tuple]] = {}
         # device int32 scalars from error-checking kernels; reduced to one
         # host sync by check_errors() after the plan drains
         self.error_flags: List[torch.Tensor] = []
@@ -251,7 +293,12 @@ class _Executor:
         #: subplans that occur more than once (mark_shared) and the
         #: batches of those already run
         self._shared: Set[PlanNode] = set()
+        self._ever_shared: Set[PlanNode] = set()
         self._materialized: Dict[PlanNode, List[Batch]] = {}
+        # one lock per shared subplan: with probe prefetch two threads can
+        # reach the same subplan, and it must still run once
+        self._memo_locks: Dict[PlanNode, threading.Lock] = {}
+        self._memo_locks_lock = threading.Lock()
 
     def mark_shared(self, roots: Sequence[PlanNode]) -> None:
         """Find the structurally repeated subplans (Q15's view, read by
@@ -270,6 +317,9 @@ class _Executor:
         for r in roots:
             walk(r)
         self._shared = {n for n, c in counts.items() if c > 1}
+        # never discarded: dynamic-filter pushdown must see a subtree as
+        # multi-consumer even after its memo was abandoned
+        self._ever_shared = set(self._shared)
 
     def _resolve(self, e: ir.Expr) -> ir.Expr:
         """Substitute init-plan values for their InitPlanRef literals."""
@@ -292,6 +342,11 @@ class _Executor:
             return out
         return run
 
+    def _check_cancel(self) -> None:
+        ev = self.cancel_event
+        if ev is not None and ev.is_set():
+            raise QueryCancelledError()
+
     def check_errors(self) -> None:
         """Raise the highest-coded row error seen this query (one sync)."""
         if not self.error_flags:
@@ -303,30 +358,98 @@ class _Executor:
 
     def run(self, node: PlanNode) -> Iterator[Batch]:
         if node in self._materialized:
+            # replay: the node's stats already hold its one execution
             return iter(self._materialized[node])
         m = getattr(self, "_" + type(node).__name__, None)
         if m is None:
             raise NotImplementedError(
                 f"{type(node).__name__} is not ported")
         if node in self._shared:
-            self._materialized[node] = out = list(m(node))
-            return iter(out)
-        return m(node)
+            with self._memo_locks_lock:
+                lock = self._memo_locks.setdefault(node, threading.Lock())
+            with lock:
+                if node in self._materialized:
+                    return iter(self._materialized[node])
+                return self._run_memoized(node, m)
+        it = m(node)
+        if self.stats is not None:
+            it = self.stats.wrap(node, it)
+        return it
+
+    def _run_memoized(self, node: PlanNode, m) -> Iterator[Batch]:
+        """Materialize a shared subplan's output once, within the memory
+        budget: each kept batch reserves from the query pool, and when the
+        pool cannot hold the next one the memo is abandoned (later
+        consumers run the subplan again instead of running out of device
+        memory)."""
+        ctx = self.pool.context(f"memo-{type(node).__name__}")
+        it = m(node)
+        if self.stats is not None:
+            it = self.stats.wrap(node, it)
+        out: List[Batch] = []
+        for b in it:
+            if not self.pool.try_reserve(batch_device_bytes(b), ctx):
+                # over budget: this consumer streams on, later ones re-run
+                ctx.release_all()
+                self._shared.discard(node)
+                return itertools.chain(out, [b], it)
+            out.append(b)
+        self._materialized[node] = out
+        return iter(out)
 
     def _OutputNode(self, node: OutputNode) -> Iterator[Batch]:
         return self.run(node.child)
 
+    def _scan_pushdown_fn(self, node: TableScanNode):
+        """Closure giving a scan's EFFECTIVE pushdown, evaluated per
+        split: dynamic (join build) bounds may arrive while earlier splits
+        already stream, and later splits still get them (the reference's
+        dynamic filters race the probe scan the same way)."""
+        def current_pushdown():
+            pushdown = node.pushdown or None
+            dyn = self.dynamic_pushdown.get(node)
+            if dyn:
+                # intersect per column: connectors keep one bound per name,
+                # so appending would let a wider dynamic bound shadow a
+                # tighter WHERE-derived one
+                merged: Dict[str, List] = {}
+                for name, lo, hi in list(pushdown or ()) + dyn:
+                    b = merged.setdefault(name, [lo, hi])
+                    if lo is not None:
+                        b[0] = lo if b[0] is None else max(b[0], lo)
+                    if hi is not None:
+                        b[1] = hi if b[1] is None else min(b[1], hi)
+                pushdown = tuple((n, lo, hi)
+                                 for n, (lo, hi) in merged.items())
+            return pushdown
+        return current_pushdown
+
     def _TableScanNode(self, node: TableScanNode) -> Iterator[Batch]:
+        """Split-parallel scan through the device scan cache and the
+        prefetching pipeline (exec/scancache.py): splits resident on the
+        device replay across queries; cold splits are generated and copied
+        on background threads ahead of the consumer (reference
+        execution/SqlTaskExecution.java:390, one driver per split, and
+        BufferingSplitSource prefetch). Delivery is in split order, so row
+        order does not change run to run."""
         conn = self.session.catalogs.get(node.catalog)
-        for split in conn.split_manager.splits(node.table, 1):
-            source = conn.page_source(split, list(node.columns),
-                                      node.pushdown or None,
-                                      self.rows_per_batch,
-                                      device=self.device)
-            try:
-                yield from source.batches()
-            finally:
-                source.close()
+        opts = scancache.options_from_session(self.session)
+        splits = conn.split_manager.splits(node.table, max(opts.threads, 1))
+        t_query0 = time.perf_counter()
+
+        def record_split(i: int, t0: float, batches: int) -> None:
+            # per-split completion record (reference event/SplitMonitor)
+            if self.stats is not None:
+                self.stats.record_split(
+                    node.table.table, i, t0 - t_query0,
+                    time.perf_counter() - t0, batches)
+
+        yield from scancache.scan_splits(
+            conn, node.catalog, list(node.columns), splits,
+            self._scan_pushdown_fn(node), self.rows_per_batch, opts,
+            self.device, record_split=record_split,
+            check_cancel=self._check_cancel, stats=self.stats,
+            static_pushdown=node.pushdown or None)
 
     def _ValuesNode(self, node: ValuesNode) -> Iterator[Batch]:
         if node.fields:
@@ -588,14 +711,39 @@ class _Executor:
                 residual_fn = fn
             else:
                 residual_outer = fn
+        dyn_on = node.join_type == "inner" and bool_property(
+            self.session, "enable_dynamic_filtering", True)
+        # inter-pipeline overlap: the probe side runs on a producer thread
+        # while the build drains (the reference's build and probe
+        # pipelines of one task). Not for a probe scan a dynamic filter
+        # could prune: its splits would be read before the bounds exist.
+        probe_ex = None
+        if bool_property(self.session, "probe_prefetch", True) and not (
+                dyn_on and self._dynamic_scan_target(node.left) is not None):
+            probe_ex = exchange_source(self.run(node.left), "single", 1,
+                                       buffer_batches=4)
+        try:
+            yield from self._join_probe(node, probe_ex, payload,
+                                        payload_names, residual_fn,
+                                        residual_outer, dyn_on)
+        finally:
+            if probe_ex is not None:
+                probe_ex.close()
+
+    def _join_probe(self, node: JoinNode, probe_ex, payload, payload_names,
+                    residual_fn, residual_outer,
+                    dyn_on: bool) -> Iterator[Batch]:
+        """Drain the build, then stream the probe side (from the producer
+        thread's exchange when prefetched) through the probe kernels."""
         lkeys, rkeys = list(node.left_keys), list(node.right_keys)
         build = self._drain(node.right)
         dyn = prep = sorted_cols = maxk = None
         if build is not None:
             summary = self._build_summary(build, rkeys)
-            if node.join_type == "inner" and bool_property(
-                    self.session, "enable_dynamic_filtering", True):
+            if dyn_on:
                 dyn = self._summary_bounds(summary, lkeys)
+                if dyn:
+                    self._push_dynamic_bounds(node.left, dyn)
             # compact a sparse build before sorting it
             scap = bucket_capacity(max(int(summary[0]), 1))
             if scap < build.capacity:
@@ -611,7 +759,9 @@ class _Executor:
         full_acc = ({"m": None} if track_full and residual_outer is not None
                     else None)
         compact = self._compactor()
-        for probe in self.run(node.left):
+        probes = probe_ex.consumer(0) if probe_ex is not None \
+            else self.run(node.left)
+        for probe in probes:
             if build is None:
                 if node.join_type != "inner":
                     yield compact(self._null_extend(probe, node))
@@ -641,6 +791,45 @@ class _Executor:
             if full_acc is not None:
                 build_matched = full_acc["m"]
             yield compact(self._null_extend_build(build, node, build_matched))
+
+    def _dynamic_scan_target(self, probe: PlanNode):
+        """(scan node, out-index -> scan-column mapping) when the probe
+        chain maps columns straight to a scan through filters and
+        identity projections; None otherwise."""
+        mapping = {i: i for i in range(len(probe.fields))}
+        node = probe
+        while True:
+            if node in self._ever_shared:
+                return None  # a replayed subtree feeds other consumers too
+            if isinstance(node, FilterNode):
+                node = node.child
+                continue
+            if isinstance(node, ProjectNode):
+                mapping = {out_i: node.exprs[in_i].index
+                           for out_i, in_i in mapping.items()
+                           if isinstance(node.exprs[in_i], ir.InputRef)}
+                node = node.child
+                continue
+            break
+        if not isinstance(node, TableScanNode) or not mapping:
+            return None
+        return node, mapping
+
+    def _push_dynamic_bounds(self, probe: PlanNode,
+                             dyn: List[Tuple[int, int, int]]) -> None:
+        """Runtime scan pushdown: when the probe chain maps the join keys
+        straight to scan columns, hand the build side's [lo, hi] to the
+        scan (reference sql/DynamicFilters.java:43). The TPC-H, TPC-DS
+        and memory connectors prune nothing with it; it enters the scan
+        cache's key."""
+        target = self._dynamic_scan_target(probe)
+        if target is None:
+            return
+        node, mapping = target
+        extra = [(node.columns[mapping[k]], lo, hi)
+                 for k, lo, hi in dyn if k in mapping]
+        if extra:
+            self.dynamic_pushdown.setdefault(node, []).extend(extra)
 
     def _build_summary(self, build: Batch, keys) -> List[int]:
         """Host copy of [live_count, lo_0, hi_0, ...] over the integer key

@@ -31,6 +31,10 @@ _ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}
 _LOCK = threading.Lock()
 #: kernel name -> nvcc's register/shared-memory report of the last build
 PTXAS_REPORT: Dict[str, str] = {}
+#: guards the wrappers' launch and plain-call counts: a join's probe side
+#: may run on a producer thread (exec/local_exchange.py), and an unlocked
+#: ``+=`` on a module integer can lose an update between threads
+COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:

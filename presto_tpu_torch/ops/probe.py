@@ -29,8 +29,11 @@ from .join import (
     split_prepared,
 )
 
-#: launches of the CUDA kernel (plain integer; chip_smoke.py reads it)
+#: launches of the CUDA kernel, and calls of its plain version on CPU
+#: tensors (plain integers, bumped under ``kernels.COUNT_LOCK``;
+#: chip_smoke.py reads ``launches``)
 launches = 0
+plain_calls = 0
 
 #: payload columns whose validity fits one int32 bit-plane
 VBITS_COLUMNS = 31
@@ -110,12 +113,14 @@ def direct_probe(codes: torch.Tensor, lo_table: torch.Tensor,
     ``codes``: int32[n] slot indices, -1 for lanes that must not match.
     ``lo_table``/``cnt_table``: int32[size]. ``vbits`` and ``payload``:
     per build row in SORTED build order. Lanes without a match get zeros."""
+    global launches, plain_calls
     _check(codes, lo_table, cnt_table, vbits, payload)
     if codes.device.type == "cpu":
+        with kernels.COUNT_LOCK:
+            plain_calls += 1
         return direct_probe_plain(codes, lo_table, cnt_table, vbits, payload)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
-    global launches
     fn = kernels.entry("probe", "direct_probe",
                        (ctypes.c_void_p, ctypes.c_void_p))
     dev = codes.device
@@ -138,7 +143,8 @@ def direct_probe(codes: torch.Tensor, lo_table: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(ctypes.addressof(args), stream)
     kernels.check("probe", status, "direct_probe")
-    launches += 1
+    with kernels.COUNT_LOCK:
+        launches += 1
     return cnt, vb, outs
 
 

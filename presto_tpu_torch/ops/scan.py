@@ -20,8 +20,11 @@ import torch
 
 from . import kernels
 
-#: launches of the CUDA kernel (plain integer; chip_smoke.py reads it)
+#: launches of the CUDA kernel, and calls of its plain version on CPU
+#: tensors (plain integers, bumped under ``kernels.COUNT_LOCK``;
+#: chip_smoke.py reads ``launches``)
 launches = 0
+plain_calls = 0
 
 #: rows a block of the CUDA kernel sums (kTile in csrc/scan.cu); the tests
 #: put run boundaries on and around its multiples
@@ -74,12 +77,14 @@ def segment_sum_sorted_i64(values: torch.Tensor, starts: torch.Tensor,
     like the reference's digit-plane sums). ``starts`` must be
     non-decreasing within [0, n]: the CUDA kernel finds each tile's
     segments by searching it."""
+    global launches, plain_calls
     _check(values, starts, num_segments)
     if values.device.type == "cpu":
+        with kernels.COUNT_LOCK:
+            plain_calls += 1
         return segment_sum_sorted_plain(values, starts, num_segments)
     if values.device.type != "cuda":
         raise ValueError(f"unsupported device {values.device}")
-    global launches
     fn = kernels.entry("scan", "segment_sum_sorted_i64", _ARGTYPES)
     values = kernels.aligned16(values)
     starts = starts.contiguous()
@@ -90,7 +95,8 @@ def segment_sum_sorted_i64(values: torch.Tensor, starts: torch.Tensor,
         status = fn(values.data_ptr(), values.shape[0], starts.data_ptr(),
                     num_segments, out.data_ptr(), stream)
     kernels.check("scan", status, "segment_sum_sorted_i64")
-    launches += 1
+    with kernels.COUNT_LOCK:
+        launches += 1
     return out
 
 

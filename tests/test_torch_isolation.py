@@ -33,6 +33,9 @@ def test_no_jax_or_reference_imports(path):
 def test_sources_found():
     names = {p.name for p in _SOURCES}
     assert {"runner.py", "probe.py", "scan.py", "chip_smoke.py"} <= names
+    # the scan-cache slice: its modules are held to the same rule
+    assert {"scancache.py", "local_exchange.py", "stats.py", "memory.py",
+            "metrics.py", "config.py", "printer.py"} <= names
 
 
 def test_runner_without_device_needs_a_gpu(monkeypatch):
