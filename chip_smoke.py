@@ -62,7 +62,19 @@ result line):
    lineitem, reads it twice (cold, warm), INSERTs more rows and reads it
    again, which must miss and return the new rows from batches on the
    card, each read against the same statements on the CPU. Fails if
-   either kernel never launched in the phase.
+   either kernel never launched in the phase;
+7. surface: with every launch count set to 0 and the scan cache cleared,
+   runs the statements of ``SURFACE_QUERIES`` at SF1 on ``cuda``, cold
+   then warm: DISTINCT aggregates beside others (MarkDistinct), variance,
+   boolean and sketch aggregates (HLL, the percentile histogram and its
+   drained grouped form), a sort-path grouping by ``l_orderkey``, long
+   decimals as sums, group and sort keys, join payload and join key, the
+   regex / date / math / JSON / URL functions, and UNNEST over orders
+   and over ``sequence``; compares each with the port's ``device="cpu"``
+   run (integers, decimals, dates and strings exactly, doubles within rel
+   1e-9), prints per statement the walls, the rows, the peak device
+   memory and the launches of each kernel, and fails unless both kernels
+   launched in the phase.
 
 Every breakdown line times the plan's table scans twice: with the scan
 cache cleared (host generation and the copy to the card) and as a warm
@@ -72,9 +84,10 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or presto_tpu.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1 and 2 alone and
-prints the kernels line. It times the kernels of whichever
-``presto_tpu_torch`` sits beside the script, so a copy of the script
-placed in a checkout of another commit times that commit's kernels.
+prints the kernels line; ``--surface-only`` runs phases 1 and 7 alone.
+Either times whichever ``presto_tpu_torch`` sits beside the script, so
+a copy of the script placed in a checkout of another commit measures
+that commit (turn by turn with this one, in one call, to compare them).
 """
 from __future__ import annotations
 
@@ -111,6 +124,82 @@ group by rollup (i_item_id, s_state)
 order by i_item_id nulls last, s_state nulls last
 limit 100
 """
+#: the surface phase's statements at SF1 (name, SQL): mixed DISTINCT,
+#: variance, boolean and sketch aggregates, long decimals as values, keys
+#: and join payloads, the scalar functions, and UNNEST
+SURFACE_QUERIES = (
+    ("aggs_drain", """
+select l_returnflag, l_linestatus, count(distinct l_suppkey),
+       sum(distinct l_linenumber), stddev(l_quantity), var_pop(l_discount),
+       var_samp(l_discount), bool_and(l_quantity > 1),
+       bool_or(l_quantity > 49), approx_distinct(l_orderkey),
+       approx_percentile(l_extendedprice, 0.5)
+from lineitem group by l_returnflag, l_linestatus order by 1, 2"""),
+    ("aggs_dense", """
+select l_returnflag, l_linestatus, count(distinct l_suppkey),
+       sum(distinct l_linenumber), stddev(l_quantity), var_pop(l_discount),
+       var_samp(l_discount), bool_and(l_quantity > 1),
+       bool_or(l_quantity > 49), count(*)
+from lineitem group by l_returnflag, l_linestatus order by 1, 2"""),
+    ("sketches", """
+select approx_distinct(l_orderkey), approx_distinct(l_partkey, 0.01),
+       approx_distinct(l_shipmode), approx_percentile(l_extendedprice, 0.5),
+       approx_percentile(l_quantity, 0.9), count(distinct l_suppkey),
+       sum(distinct l_linenumber), stddev_pop(l_extendedprice)
+from lineitem"""),
+    ("aggs_sort", """
+select count(*), sum(d), sum(s), sum(v), max(v), min(s)
+from (select l_orderkey, count(distinct l_suppkey) d,
+             variance(l_quantity) v, sum(l_linenumber) s
+      from lineitem group by l_orderkey)"""),
+    ("aggs_sort_top", """
+select l_orderkey, count(distinct l_suppkey), variance(l_quantity),
+       sum(l_linenumber)
+from lineitem group by l_orderkey order by 4 desc, 1 limit 20"""),
+    ("dec_sums", """
+select l_returnflag, sum(cast(l_extendedprice as decimal(38,2))),
+       avg(cast(l_extendedprice as decimal(38,2))),
+       sum(cast(l_quantity as decimal(20,2))
+           * cast(l_discount as decimal(20,2))),
+       min(cast(l_extendedprice as decimal(30,2))),
+       max(cast(l_extendedprice as decimal(30,2)))
+from lineitem group by l_returnflag order by 1"""),
+    ("dec_keys", """
+select cast(o_totalprice as decimal(30,2)) p, count(*)
+from orders group by 1 order by 2 desc, 1 limit 20"""),
+    ("dec_order", """
+select o_orderkey, cast(o_totalprice as decimal(30,2)) p
+from orders order by p desc, o_orderkey limit 20"""),
+    ("dec_payload_join", """
+select l_returnflag, sum(p), count(*)
+from lineitem join (select o_orderkey,
+                           cast(o_totalprice as decimal(30,2)) p
+                    from orders) o on l_orderkey = o.o_orderkey
+group by l_returnflag order by 1"""),
+    ("dec_key_join", """
+select count(*), sum(q)
+from (select cast(l_orderkey as decimal(25,0)) lk, l_quantity q
+      from lineitem) l
+  join (select cast(o_orderkey as decimal(25,0)) k, o_orderstatus
+        from orders) o on l.lk = o.k
+where o.o_orderstatus = 'F'"""),
+    ("functions", """
+select date_trunc('month', o_orderdate) m, count(*),
+       round(sum(o_totalprice), 1), sqrt(sum(o_totalprice)),
+       max(date_diff('day', o_orderdate, date '1998-12-31')),
+       min(ltrim(o_clerk)), json_extract_scalar('{"a": 1}', '$.a'),
+       url_extract_host('http://example.com:8080/x?y=1')
+from orders where regexp_like(o_comment, 'special')
+group by 1 order by 1"""),
+    ("unnest_group", """
+select u, count(*), sum(x)
+from orders cross join unnest(array[o_orderstatus, o_orderpriority],
+                              array[o_custkey, o_shippriority]) as t(u, x)
+group by u order by u"""),
+    ("unnest_sequence", """
+select count(*), sum(x), min(x), max(x), sum(o)
+from unnest(sequence(1, 100000)) with ordinality as t(x, o)"""),
+)
 #: rows a block of csrc/scan.cu sums (ops/scan.py TILE_ROWS); a constant
 #: here so that the script also times kernels of commits that predate it
 SCAN_TILE_ROWS = 2048
@@ -856,10 +945,55 @@ def phase_scan(torch, tpch_cpu_rows, tpcds_cpu_rows):
     return launches
 
 
+def phase_surface(torch):
+    """The SQL surface of the port's later slices at SF1: each statement
+    of SURFACE_QUERIES on the card, cold then warm, against the port's
+    CPU run."""
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.scancache import CACHE
+    from presto_tpu_torch.ops import probe, scan
+    gpu = LocalRunner(tpch_sf=1, rows_per_batch=ROWS_PER_BATCH)
+    cpu = LocalRunner(tpch_sf=1, device="cpu", rows_per_batch=ROWS_PER_BATCH)
+    scan.launches = 0
+    probe.launches = 0
+    CACHE.clear()
+    t_phase = time.perf_counter()
+    for name, sql in SURFACE_QUERIES:
+        before = (scan.launches, probe.launches)
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        CACHE.clear()
+        for _ in range(2):              # cold, then warm
+            t0 = time.perf_counter()
+            res = gpu.execute(sql)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        counts = (scan.launches - before[0], probe.launches - before[1])
+        t0 = time.perf_counter()
+        ref = cpu.execute(sql)
+        cpu_s = time.perf_counter() - t0
+        if not ref.rows:
+            raise AssertionError(f"surface {name} has no rows")
+        _same_rows(res.rows, ref.rows, 1e-9)
+        print(f"surface {name}: cuda cold {walls[0]:.3f} s warm "
+              f"{walls[1]:.3f} s | cpu {cpu_s:.3f} s | {len(res.rows)} rows "
+              f"match the cpu run | peak {peak_gb:.2f} GiB | launches "
+              f"(cold+warm) scan {counts[0]} probe {counts[1]}", flush=True)
+    launches = {"segment_sum_sorted_i64": scan.launches,
+                "direct_probe": probe.launches}
+    print(f"surface launches: {json.dumps(launches)} | phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError("a kernel never launched in the surface phase")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kernels_only = sys.argv[1:] == ["--kernels-only"]
-    if sys.argv[1:] and not kernels_only:
+    surface_only = sys.argv[1:] == ["--surface-only"]
+    if sys.argv[1:] and not (kernels_only or surface_only):
         fail("device", f"unknown arguments {sys.argv[1:]}")
     try:
         import torch
@@ -875,6 +1009,12 @@ def main() -> None:
         phase_device(torch)
     except Exception as e:  # noqa: BLE001 - report the phase, exit nonzero
         fail("device and build", f"{type(e).__name__}: {e}")
+    if surface_only:
+        try:
+            phase_surface(torch)
+        except Exception as e:  # noqa: BLE001
+            fail("surface", f"{type(e).__name__}: {e}")
+        return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     try:
@@ -900,11 +1040,16 @@ def main() -> None:
         scan_launches = phase_scan(torch, tpch_cpu_rows, tpcds_cpu_rows)
     except Exception as e:  # noqa: BLE001
         fail("scan", f"{type(e).__name__}: {e}")
+    try:
+        surface_launches = phase_surface(torch)
+    except Exception as e:  # noqa: BLE001
+        fail("surface", f"{type(e).__name__}: {e}")
     for entry in entries:
         # launches over every phase that drives the engine: path, tpch,
-        # tpcds and scan
+        # tpcds, scan and surface
         entry["launches"] = sum(p[entry["name"]] for p in (
-            launches, tpch_launches, tpcds_launches, scan_launches))
+            launches, tpch_launches, tpcds_launches, scan_launches,
+            surface_launches))
     print(f"total wall {time.perf_counter() - t_start:.3f} s", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -96,9 +96,16 @@ class Schema:
 
 
 class Column:
-    """One device column: data + validity, plus host dictionary for strings."""
+    """One device column: data + validity, plus host dictionary for strings.
 
-    def __init__(self, type: Type, data: torch.Tensor, validity: torch.Tensor,
+    ``data`` is one tensor with the rows on axis 0 ([cap] or, for long
+    decimals, [cap, 2]), or for composite types a tuple of such tensors:
+    ARRAY is (values [cap, L], lengths [cap] int32, elem_valid [cap, L]),
+    MAP is (keys [cap, L], values [cap, L], lengths [cap], val_valid
+    [cap, L]). A MAP column's dictionary is the (key vocabulary, value
+    vocabulary) pair."""
+
+    def __init__(self, type: Type, data, validity: torch.Tensor,
                  dictionary: Optional[Tuple[str, ...]] = None):
         self.type = type
         self.data = data
@@ -110,13 +117,29 @@ class Column:
         return self.validity.shape[0]
 
     def __repr__(self) -> str:
-        return f"Column({self.type.display()}, cap={tuple(self.data.shape)})"
+        return f"Column({self.type.display()}, cap={self.capacity})"
 
 
-def _check_storable(t: Type) -> None:
-    if isinstance(t, (ArrayType, MapType)):
-        raise NotImplementedError(
-            f"{t.display()} columns are not ported")
+def map_parts(data, fn):
+    """Apply ``fn`` to every tensor of a column's data (one tensor or the
+    tuple of a composite column)."""
+    if isinstance(data, tuple):
+        return tuple(fn(a) for a in data)
+    return fn(data)
+
+
+def gather_rows(data, idx: torch.Tensor):
+    """Rows ``idx`` of a column's data (every part of a composite)."""
+    return map_parts(data, lambda a: a[idx])
+
+
+def repeat_rows(data, k: int):
+    """Each row of a column's data repeated ``k`` times in place."""
+    return map_parts(data, lambda a: a.repeat_interleave(k, dim=0))
+
+
+def data_parts(data) -> Tuple[torch.Tensor, ...]:
+    return data if isinstance(data, tuple) else (data,)
 
 
 class Batch:
@@ -161,7 +184,10 @@ class Batch:
         cap = capacity or bucket_capacity(max(n, 1))
         cols = []
         for i, (f, arr) in enumerate(zip(schema.fields, arrays)):
-            _check_storable(f.type)
+            if isinstance(f.type, (ArrayType, MapType)):
+                # only empty composites arrive here (an empty scan)
+                cols.append(_empty_composite(f.type, cap, device))
+                continue
             dt = NUMPY_DTYPE[f.type.storage_dtype]
             width = getattr(f.type, "storage_width", None)
             shape = (cap,) if width is None else (cap, width)
@@ -186,6 +212,7 @@ class Batch:
         """Build a batch on ``device`` from python values:
         {name: (type, [values... (None = null)])}."""
         fields, arrays, validities, dictionaries = [], [], [], []
+        composite: Dict[int, Tuple[Type, List[Any]]] = {}
         n = None
         for name, (typ, values) in data.items():
             values = list(values)
@@ -194,11 +221,16 @@ class Batch:
             elif len(values) != n:
                 raise ValueError(
                     f"column {name!r} has {len(values)} values, expected {n}")
-            _check_storable(typ)
             fields.append((name, typ))
             validities.append(np.array([v is not None for v in values],
                                        dtype=bool))
-            if typ.is_string:
+            if isinstance(typ, (ArrayType, MapType)):
+                if isinstance(typ, MapType):
+                    raise NotImplementedError("MAP columns from python values")
+                composite[len(fields) - 1] = (typ, values)
+                arrays.append(None)
+                dictionaries.append(None)
+            elif typ.is_string:
                 vocab: Dict[str, int] = {}
                 codes = np.full(len(values), -1, dtype=np.int32)
                 for i, v in enumerate(values):
@@ -214,9 +246,16 @@ class Batch:
                     [typ.to_storage(v) if v is not None
                      else typ.null_storage() for v in values]))
                 dictionaries.append(None)
-        return Batch.from_arrays(Schema(fields), arrays, validities,
-                                 dictionaries, capacity=capacity,
-                                 num_rows=n, device=device)
+        out = Batch.from_arrays(Schema(fields), arrays, validities,
+                                dictionaries, capacity=capacity,
+                                num_rows=n, device=device)
+        if composite:
+            cols = list(out.columns)
+            for i, (typ, values) in composite.items():
+                cols[i] = make_array_column(typ, values, out.capacity,
+                                            device)
+            out = Batch(out.schema, cols, out.row_mask)
+        return out
 
     @staticmethod
     def from_numpy(
@@ -235,18 +274,29 @@ class Batch:
         cap = len(row_mask)
         cols = []
         for i, f in enumerate(schema.fields):
-            _check_storable(f.type)
             # copies: the source arrays may be another engine's read-only
             # buffers, and torch tensors on the CPU would alias them
-            arr = np.array(data[i], dtype=NUMPY_DTYPE[f.type.storage_dtype])
+            if isinstance(data[i], tuple):
+                # ARRAY / MAP parts keep their own dtypes
+                parts = tuple(torch.from_numpy(np.array(a)).to(device)
+                              for a in data[i])
+            else:
+                parts = (torch.from_numpy(np.array(
+                    data[i], dtype=NUMPY_DTYPE[f.type.storage_dtype]))
+                    .to(device),)
             valid = np.array(validity[i], dtype=bool)
-            if arr.shape[0] != cap or valid.shape != (cap,):
+            if any(a.shape[0] != cap for a in parts) or valid.shape != (cap,):
                 raise ValueError(
                     f"column {f.name!r} does not match capacity {cap}")
             d = dictionaries[i] if dictionaries is not None else None
-            cols.append(Column(f.type, torch.from_numpy(arr).to(device),
-                               torch.from_numpy(valid).to(device),
-                               tuple(d) if d is not None else None))
+            if d is not None:
+                # a MAP's dictionary is a (keys, values) pair of vocabularies
+                d = (tuple(tuple(x) if x is not None else None for x in d)
+                     if isinstance(f.type, MapType) else tuple(d))
+            cols.append(Column(f.type,
+                               parts if isinstance(data[i], tuple)
+                               else parts[0],
+                               torch.from_numpy(valid).to(device), d))
         mask = np.array(row_mask, dtype=bool)
         return Batch(schema, cols, torch.from_numpy(mask).to(device))
 
@@ -256,6 +306,9 @@ class Batch:
         mask = self.row_mask.cpu().numpy()
         out_cols = []
         for col in self.columns:
+            if isinstance(col.type, (ArrayType, MapType)):
+                out_cols.append(_composite_to_pylist(col, mask))
+                continue
             data = col.data.cpu().numpy()[mask]
             valid = col.validity.cpu().numpy()[mask]
             vals: List[Any] = []
@@ -295,7 +348,7 @@ class Batch:
         idx.scatter_(0, tgt, torch.arange(self.capacity, device=self.device))
         idx = idx[:cap]
         new_mask = torch.arange(cap, device=self.device) < self.count()
-        cols = [Column(c.type, c.data.index_select(0, idx),
+        cols = [Column(c.type, gather_rows(c.data, idx),
                        c.validity.index_select(0, idx) & new_mask,
                        c.dictionary)
                 for c in self.columns]
@@ -308,7 +361,8 @@ class Batch:
         every batch of a scan has one capacity; results are unchanged."""
         if capacity <= self.capacity:
             return self
-        cols = [Column(c.type, _pad_rows(c.data, capacity),
+        cols = [Column(c.type, map_parts(c.data,
+                                         lambda a: _pad_rows(a, capacity)),
                        _pad_rows(c.validity, capacity), c.dictionary)
                 for c in self.columns]
         return Batch(self.schema, cols, _pad_rows(self.row_mask, capacity))
@@ -368,7 +422,11 @@ def concat_batches(batches: Sequence[Batch],
     for i in range(len(schema)):
         cols = [b.columns[i] for b in batches]
         typ = cols[0].type
-        _check_storable(typ)
+        if isinstance(typ, ArrayType):
+            out_cols.append(_concat_array_columns(cols, cap))
+            continue
+        if isinstance(typ, MapType):
+            raise NotImplementedError("concat of MAP columns")
         dictionary = None
         if typ.is_string:
             dictionary, remaps = unify_dictionaries(cols)
@@ -380,3 +438,108 @@ def concat_batches(batches: Sequence[Batch],
         out_cols.append(Column(typ, data, validity, dictionary))
     mask = _pad_rows(torch.cat([b.row_mask for b in batches]), cap)
     return Batch(schema, out_cols, mask)
+
+
+def _empty_composite(typ: Type, cap: int, device) -> Column:
+    """An all-NULL ARRAY / MAP column of one element slot."""
+    z = torch.zeros(cap, dtype=torch.int32, device=device)
+    ev = torch.zeros((cap, 1), dtype=torch.bool, device=device)
+    if isinstance(typ, ArrayType):
+        vals = torch.zeros((cap, 1), dtype=typ.element.storage_dtype,
+                           device=device)
+        return Column(typ, (vals, z, ev), z.bool(),
+                      () if typ.element.is_string else None)
+    keys = torch.zeros((cap, 1), dtype=typ.key.storage_dtype, device=device)
+    vals = torch.zeros((cap, 1), dtype=typ.value.storage_dtype, device=device)
+    return Column(typ, (keys, vals, z, ev), z.bool(), None)
+
+
+def _decode_elem(typ: Type, d, vocab):
+    if typ.is_string:
+        code = int(d)
+        return vocab[code] if vocab and 0 <= code < len(vocab) else None
+    return typ.from_storage(d)
+
+
+def _composite_to_pylist(col: Column, mask: np.ndarray) -> List[Any]:
+    """Decode an ARRAY / MAP column's live rows to python lists / dicts."""
+    valid = col.validity.cpu().numpy()[mask]
+    parts = [a.cpu().numpy()[mask] for a in col.data]
+    out: List[Any] = []
+    if isinstance(col.type, ArrayType):
+        values, lengths, elem_valid = parts
+        et = col.type.element
+        for i, v in enumerate(valid):
+            out.append(None if not v else [
+                _decode_elem(et, values[i, j], col.dictionary)
+                if elem_valid[i, j] else None
+                for j in range(int(lengths[i]))])
+        return out
+    keys, values, lengths, val_valid = parts
+    kt, vt = col.type.key, col.type.value
+    kd, vd = col.dictionary or (None, None)
+    for i, v in enumerate(valid):
+        if not v:
+            out.append(None)
+            continue
+        out.append({_decode_elem(kt, keys[i, j], kd):
+                    (_decode_elem(vt, values[i, j], vd)
+                     if val_valid[i, j] else None)
+                    for j in range(int(lengths[i]))})
+    return out
+
+
+def make_array_column(typ: ArrayType, values: Sequence[Optional[Sequence]],
+                      cap: int, device) -> Column:
+    """Build an ARRAY column from python lists (None = NULL row)."""
+    et = typ.element
+    max_len = max([len(v) for v in values if v is not None] + [1])
+    data = np.zeros((cap, max_len), dtype=NUMPY_DTYPE[et.storage_dtype])
+    lengths = np.zeros(cap, dtype=np.int32)
+    elem_valid = np.zeros((cap, max_len), dtype=bool)
+    row_valid = np.zeros(cap, dtype=bool)
+    vocab: Dict[str, int] = {}
+    for i, row in enumerate(values):
+        if row is None:
+            continue
+        row_valid[i] = True
+        lengths[i] = len(row)
+        for j, e in enumerate(row):
+            if e is None:
+                continue
+            elem_valid[i, j] = True
+            data[i, j] = (vocab.setdefault(e, len(vocab)) if et.is_string
+                          else et.to_storage(e))
+    parts = tuple(torch.from_numpy(a).to(device)
+                  for a in (data, lengths, elem_valid))
+    return Column(typ, parts, torch.from_numpy(row_valid).to(device),
+                  tuple(vocab) if et.is_string else None)
+
+
+def _concat_array_columns(cols: Sequence[Column], cap: int) -> Column:
+    """Concatenate ARRAY columns along rows, padding widths to the max and
+    re-coding string elements into one vocabulary."""
+    typ = cols[0].type
+    width = max(c.data[0].shape[1] for c in cols)
+    dictionary, remaps = None, None
+    if typ.element.is_string:
+        dictionary, remaps = unify_dictionaries(cols)
+    vals, lens, evs = [], [], []
+    for ci, c in enumerate(cols):
+        v, ln, ev = c.data
+        if v.shape[1] < width:
+            v = torch.cat([v, v.new_zeros((v.shape[0], width - v.shape[1]))],
+                          dim=1)
+            ev = torch.cat([ev, ev.new_zeros((ev.shape[0],
+                                              width - ev.shape[1]))], dim=1)
+        if remaps is not None:
+            table = torch.from_numpy(remaps[ci]).to(v.device)
+            v = table[torch.where(v >= 0, v, len(remaps[ci]) - 1).to(
+                torch.int64)]
+        vals.append(v)
+        lens.append(ln)
+        evs.append(ev)
+    parts = tuple(_pad_rows(torch.cat(p), cap) for p in (vals, lens, evs))
+    return Column(typ, parts,
+                  _pad_rows(torch.cat([c.validity for c in cols]), cap),
+                  dictionary)

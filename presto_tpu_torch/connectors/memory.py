@@ -12,7 +12,7 @@ from __future__ import annotations
 
 from typing import Dict, Iterator, List, Optional, Sequence
 
-from ..batch import Batch, Column, Schema
+from ..batch import Batch, Column, Schema, map_parts
 from ..device import resolve_device
 from .spi import (
     Connector, ConnectorMetadata, ConnectorSplitManager, PageSource,
@@ -32,7 +32,8 @@ class MemoryPageSource(PageSource):
             idx = [b.schema.index_of(n) for n in self._columns]
             cols = [b.columns[i] for i in idx]
             yield Batch(b.schema.select(self._columns),
-                        [Column(c.type, c.data.to(self._device),
+                        [Column(c.type, map_parts(
+                            c.data, lambda a: a.to(self._device)),
                                 c.validity.to(self._device), c.dictionary)
                          for c in cols],
                         b.row_mask.to(self._device))

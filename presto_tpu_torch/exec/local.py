@@ -14,9 +14,10 @@ window, joins (inner, left, full and cross; unique or expanding builds;
 ON residuals) and semi joins (IN, NOT IN, [NOT] EXISTS, with or without
 a residual). Init plans (uncorrelated scalar subqueries) run before the
 main plan and their values substitute into its expressions; a subplan
-that occurs more than once runs once and replays its batches. Any other
-node kind (MarkDistinct, Unnest) raises NotImplementedError naming it;
-so do spilled builds.
+that occurs more than once runs once and replays its batches.
+MarkDistinct drains and flags the first occurrence of each distinct
+tuple; Unnest expands array columns into rows (with ordinality). Spilled
+builds raise NotImplementedError.
 
 Table scans go through the device scan cache and the prefetching split
 pipeline (``exec/scancache.py``); a join whose probe side a dynamic
@@ -42,16 +43,19 @@ import torch
 from .. import types as T
 from ..batch import (
     Batch, Column, Schema, bucket_capacity, concat_batches, remap_codes,
-    unify_dictionaries,
+    map_parts, repeat_rows, unify_dictionaries,
 )
 from ..errors import STATS_BOUND_VIOLATION, QueryCancelledError, QueryError
 from ..expr import ir
-from ..expr.compiler import compile_filter, compile_projection
+from ..expr.compiler import (
+    _err_scalar, _inputs, compile_filter, compile_projection, eval_expr,
+)
 from ..expr.rewrite import referenced_inputs, remap_inputs
 from ..expr.rewrite import rewrite as ir_rewrite
 from ..memory import QueryMemoryPool, batch_device_bytes
 from ..ops.aggregation import (
     AggSpec, dense_path_selected, global_aggregate, grouped_aggregate,
+    mark_distinct_flags, percentile_drains,
 )
 from ..ops.join import (
     build_key_ranks, build_match_mask, direct_keyed_plan, expand_join,
@@ -64,8 +68,9 @@ from ..ops.sort import SortKey, limit as limit_kernel, sort_batch, top_n
 from ..ops.window import WindowSpec, evaluate_window
 from ..planner.plan import (
     AggregationNode, DistinctNode, FilterNode, GroupIdNode, JoinNode,
-    LimitNode, OutputNode, PlanNode, ProjectNode, SemiJoinNode, SortNode,
-    TableScanNode, TopNNode, UnionNode, ValuesNode, WindowNode,
+    LimitNode, MarkDistinctNode, OutputNode, PlanNode, ProjectNode,
+    SemiJoinNode, SortNode, TableScanNode, TopNNode, UnionNode, UnnestNode,
+    ValuesNode, WindowNode,
 )
 from ..planner.planner import (
     InitPlanRef, LogicalPlan, Session, bool_property,
@@ -232,6 +237,48 @@ def _null_columns(fields, cap: int, device) -> List[Column]:
                                                device=device),
                            novalid, () if f.type.is_string else None))
     return cols
+
+
+def unnest_expand(b: Batch, exprs, ordinality: bool, schema: Schema):
+    """Lateral array expansion (reference operator/unnest/
+    UnnestOperator.java): [cap, L] element tiles flatten to [cap*L] rows
+    and the child's columns repeat per element slot. Rows past an array's
+    length are dead; several arrays zip to the longest (shorter ones pad
+    with NULL elements); a NULL array gives no rows. Returns (batch,
+    row error scalar or None)."""
+    arrs = [eval_expr(e, _inputs(b)) for e in exprs]
+    err = _err_scalar([a.err for a in arrs], b.row_mask)
+    widths = [a.data[0].shape[1] for a in arrs]
+    L = max(widths)
+    cap = b.capacity
+    eff_lens = [torch.where(a.valid, a.data[1], 0) for a in arrs]
+    max_len = eff_lens[0]
+    for ln in eff_lens[1:]:
+        max_len = torch.maximum(max_len, ln)
+    slot = torch.arange(L, device=b.device)[None, :].expand(cap, L)
+    out_mask = (b.row_mask[:, None] & (slot < max_len[:, None])).reshape(-1)
+    cols = [Column(c.type, repeat_rows(c.data, L),
+                   c.validity.repeat_interleave(L), c.dictionary)
+            for c in b.columns]
+    for a, w, ln in zip(arrs, widths, eff_lens):
+        values, _, elem_valid = a.data
+        if w < L:
+            values = _pad_cols(values, L)
+            elem_valid = _pad_cols(elem_valid, L)
+        ev = elem_valid & (slot < ln[:, None])
+        cols.append(Column(a.type.element,
+                           values.reshape((cap * L,) + values.shape[2:]),
+                           ev.reshape(-1), a.dictionary))
+    if ordinality:
+        cols.append(Column(T.BIGINT, (slot + 1).to(torch.int64).reshape(-1),
+                           out_mask))
+    return Batch(schema, cols, out_mask), err
+
+
+def _pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
+    """Zero-pad the element axis (axis 1) of ``t`` to ``width``."""
+    pad = t.new_zeros((t.shape[0], width - t.shape[1]) + tuple(t.shape[2:]))
+    return torch.cat([t, pad], dim=1)
 
 
 def key_bounds_violation(batch: Batch, cols: Sequence[int],
@@ -545,6 +592,26 @@ class _Executor:
                               self._sort_keys(node.order_keys), specs)
         yield Batch(_plan_schema(node), out.columns, out.row_mask)
 
+    def _MarkDistinctNode(self, node: MarkDistinctNode) -> Iterator[Batch]:
+        """Drain, then one sort for first-occurrence flags (reference
+        MarkDistinctOperator keeps a hash set across pages instead)."""
+        b = self._drain(node.child)
+        if b is None:
+            return
+        flags = mark_distinct_flags(b, list(node.cols))
+        yield Batch(_plan_schema(node), list(b.columns)
+                    + [Column(T.BOOLEAN, flags, b.row_mask)], b.row_mask)
+
+    def _UnnestNode(self, node: UnnestNode) -> Iterator[Batch]:
+        exprs = [self._resolve(e) for e in node.exprs]
+        schema = _plan_schema(node)
+        compact = self._compactor()
+        for b in self.run(node.child):
+            out, err = unnest_expand(b, exprs, node.ordinality, schema)
+            if err is not None:
+                self.error_flags.append(err)
+            yield compact(out)
+
     def _drain(self, node: PlanNode) -> Optional[Batch]:
         batches = list(self.run(node))
         if not batches:
@@ -580,6 +647,23 @@ class _Executor:
                         param=a.param) for a in node.aggs]
         group = list(node.group_indices)
         step = node.step
+        if step != "final" and percentile_drains(
+                aggs, _plan_schema(node.child).types, bool(group)):
+            # grouped or string approx_percentile has no mergeable state:
+            # drain the input and evaluate in one exact segmented-sort
+            # pass (the global numeric form carries histogram state
+            # through the partial/final path below)
+            b = self._drain(node.child)
+            if b is None:
+                if group:
+                    return
+                b = Batch.from_arrays(
+                    _plan_schema(node.child),
+                    [[] for _ in node.child.fields], num_rows=0,
+                    device=self.device)
+            yield (grouped_aggregate(b, group, aggs, mode="single")
+                   if group else global_aggregate(b, aggs, mode="single"))
+            return
         if not group:
             yield from self._global_agg(node, aggs, step)
             return
@@ -1039,8 +1123,8 @@ class _Executor:
             for k in range(nb):
                 cols = list(probe.columns)
                 for c in build.columns:
-                    data = c.data[k:k + 1].expand(
-                        (cap,) + tuple(c.data.shape[1:])).contiguous()
+                    data = map_parts(c.data, lambda a: a[k:k + 1].expand(
+                        (cap,) + tuple(a.shape[1:])).contiguous())
                     valid = c.validity[k:k + 1].expand(cap) & probe.row_mask
                     cols.append(Column(c.type, data, valid, c.dictionary))
                 reps.append(Batch(schema, cols, probe.row_mask))

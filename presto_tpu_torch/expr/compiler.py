@@ -17,16 +17,39 @@ reduce to one device scalar per batch (``_err_scalar``).
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import types as T
-from ..batch import Batch, Column, Schema
+from ..batch import Batch, Column, Schema, repeat_rows
+from . import array_functions  # noqa: F401  (registers the array functions)
 from . import functions as F
+from .array_functions import compact_elements, in_length
 from .functions import Val, cast_val, merge_err
-from .ir import Call, Cast, Expr, Form, InputRef, Literal, SpecialForm
+from .ir import (
+    Call, Cast, Expr, Form, InputRef, LambdaExpr, LambdaRef, Literal,
+    SpecialForm,
+)
+
+#: functions whose lambda arguments are evaluated over array elements
+HIGHER_ORDER = frozenset(
+    ["transform", "filter", "any_match", "all_match", "none_match",
+     "reduce"])
+
+#: lambda parameter bindings of the expression being evaluated, one frame
+#: per enclosing lambda; per thread, as a probe side may evaluate on a
+#: producer thread while its build evaluates on the consumer's
+_LAMBDA = threading.local()
+
+
+def _lambda_stack() -> List[List[Val]]:
+    stack = getattr(_LAMBDA, "stack", None)
+    if stack is None:
+        stack = _LAMBDA.stack = []
+    return stack
 
 
 def _masked_err(cond, err):
@@ -49,7 +72,11 @@ def eval_expr(expr: Expr, inputs: List[Val]) -> Val:
         out = cast_val(arg, expr.type)
         out.err = merge_err(out.err, arg.err)
         return out
+    if isinstance(expr, LambdaRef):
+        return _lambda_stack()[expr.level][expr.index]
     if isinstance(expr, Call):
+        if expr.name in HIGHER_ORDER:
+            return _eval_higher_order(expr, inputs)
         args = [eval_expr(a, inputs) for a in expr.args]
         out = F.lookup(expr.name)(args, expr.type)
         # strict calls: an argument's row error poisons the call's row
@@ -58,6 +85,95 @@ def eval_expr(expr: Expr, inputs: List[Val]) -> Val:
     if isinstance(expr, SpecialForm):
         return _eval_special(expr, inputs)
     raise NotImplementedError(f"{type(expr).__name__} expressions are not ported")
+
+
+def _repeat_val(v: Val, L: int) -> Val:
+    """Lift an outer-row Val to element granularity (row i -> L copies)."""
+    return Val(repeat_rows(v.data, L), v.valid.repeat_interleave(L),
+               v.type, v.dictionary,
+               err=None if v.err is None else v.err.repeat_interleave(L))
+
+
+def _eval_higher_order(expr: Call, inputs: List[Val]) -> Val:
+    """Array higher-order functions: the lambda body runs once over the
+    FLATTENED element array [cap*L] (captured outer columns repeat per
+    element), then results fold back to [cap, L] (reference
+    sql/gen/LambdaBytecodeGenerator.java invokes the lambda per element).
+    reduce folds sequentially over the L element slots."""
+    name = expr.name
+    stack = _lambda_stack()
+    arr = eval_expr(expr.args[0], inputs)
+    values, lengths, elem_valid = arr.data
+    cap, L = values.shape[0], values.shape[1]
+    inl = in_length(values, lengths)
+    et = expr.args[0].type.element
+
+    if name == "reduce":
+        init = eval_expr(expr.args[1], inputs)
+        step_lam: LambdaExpr = expr.args[2]
+        out_lam: LambdaExpr = expr.args[3]
+        state = init
+        for j in range(L):
+            xj = Val(values[:, j], (elem_valid & inl)[:, j], et,
+                     arr.dictionary)
+            stack.append([state, xj])
+            try:
+                new = eval_expr(step_lam.body, inputs)
+            finally:
+                stack.pop()
+            active = inl[:, j]
+            state = Val(torch.where(active, new.data, state.data),
+                        torch.where(active, new.valid, state.valid),
+                        new.type, new.dictionary,
+                        err=merge_err(state.err, _masked_err(active,
+                                                             new.err)))
+        stack.append([state])
+        try:
+            out = eval_expr(out_lam.body, inputs)
+        finally:
+            stack.pop()
+        out.valid = out.valid & arr.valid
+        out.err = merge_err(out.err, arr.err)
+        return out
+
+    lam: LambdaExpr = expr.args[1]
+    elem = Val(values.reshape(-1), (elem_valid & inl).reshape(-1), et,
+               arr.dictionary)
+    rep_inputs = [_repeat_val(v, L) for v in inputs]
+    # nested lambdas: enclosing frames lift to the new element granularity
+    old_stack = list(stack)
+    stack[:] = [[_repeat_val(v, L) for v in frame]
+                for frame in old_stack] + [[elem]]
+    try:
+        body = eval_expr(lam.body, rep_inputs)
+    finally:
+        stack[:] = old_stack
+    body_err = None
+    if body.err is not None:
+        body_err = torch.where(inl, body.err.reshape(cap, L), 0).max(1).values
+    if name == "transform":
+        return Val((body.data.reshape(cap, L), lengths,
+                    body.valid.reshape(cap, L) & inl), arr.valid, expr.type,
+                   dictionary=body.dictionary,
+                   err=merge_err(arr.err, body_err))
+    if name == "filter":
+        keep = (body.data & body.valid).reshape(cap, L) & inl
+        out = compact_elements(values, elem_valid, keep, arr, expr.type)
+        out.err = merge_err(out.err, body_err)
+        return out
+    # any/all/none_match: ANSI three-valued fold over the elements
+    b = body.data.reshape(cap, L)
+    bv = body.valid.reshape(cap, L)
+    any_true = (b & bv & inl).any(1)
+    any_null = (~bv & inl).any(1)
+    if name == "all_match":
+        any_false = (~b & bv & inl).any(1)
+        data, valid = ~any_false, any_false | ~any_null
+    else:
+        data = any_true if name == "any_match" else ~any_true
+        valid = any_true | ~any_null
+    return Val(data, valid & arr.valid, T.BOOLEAN,
+               err=merge_err(arr.err, body_err))
 
 
 def _eval_special(expr: SpecialForm, inputs: List[Val]) -> Val:

@@ -13,24 +13,25 @@ error-free) instead of raising — integer/decimal division by zero sets
 DIVISION_BY_ZERO, double division follows IEEE. The executor raises
 QueryError once per query.
 
-Ported so far: arithmetic (short decimals, integers, doubles), compares
-(numeric, date, dictionary strings), NOT, casts, date plus
-day/month/year intervals, the date parts year/month/day/quarter, LIKE
-(with an escape), and the vocabulary string functions lower, upper,
-trim, substr, length and concat. Every other builtin the analyzer knows
-raises NotImplementedError naming itself when evaluated.
+Long decimals (precision 19..38) are [n, 2] limb pairs computed through
+``ops/int128.py``. String functions (regex, JSON, URL, padding, ...) are
+host transforms of each batch's vocabulary followed by one device
+gather of the codes; nothing of them runs per row.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import re
 from typing import Callable, Dict, List, Optional, Tuple
+from urllib.parse import urlparse
 
 import numpy as np
 import torch
 
 from .. import errors as E
 from .. import types as T
+from ..ops import int128 as I
 from ..types import Type
 
 
@@ -49,8 +50,12 @@ class Val:
 
     @staticmethod
     def constant(value, typ: Type, n: int, device) -> "Val":
+        if isinstance(typ, T.ArrayType) and value is None:
+            return Val(_null_array(typ, n, device),
+                       torch.zeros(n, dtype=torch.bool, device=device), typ,
+                       dictionary=() if typ.element.is_string else None)
         if isinstance(typ, (T.ArrayType, T.MapType, T.RowType)):
-            raise NotImplementedError(f"{typ.display()} constants are not ported")
+            raise NotImplementedError(f"{typ.display()} constants")
         dt = typ.storage_dtype
         if value is None:
             width = getattr(typ, "storage_width", None)
@@ -72,6 +77,20 @@ class Val:
         return Val(data, ones, typ, literal=value)
 
 
+def _null_array(typ, n: int, device):
+    """Storage of n NULL arrays of one element slot."""
+    return (torch.zeros((n, 1), dtype=typ.storage_dtype, device=device),
+            torch.zeros(n, dtype=torch.int32, device=device),
+            torch.zeros((n, 1), dtype=torch.bool, device=device))
+
+
+def _all_valid(args) -> torch.Tensor:
+    v = args[0].valid
+    for a in args[1:]:
+        v = v & a.valid
+    return v
+
+
 def merge_err(*errs: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """Combine per-row error codes; the max code wins on a row."""
     present = [e for e in errs if e is not None]
@@ -91,8 +110,56 @@ def _is_long_dec(t) -> bool:
     return isinstance(t, T.DecimalType) and t.is_long
 
 
-def _long_dec_unported(what: str):
-    return NotImplementedError(f"long decimal {what} is not ported")
+def _dec_limbs(v: Val, to_scale: int):
+    """Numeric Val -> ([n, 2] limbs at to_scale, overflow rows). Decimal
+    inputs rescale from their own scale, integrals from 0
+    (UnscaledDecimal128Arithmetic.rescale)."""
+    t = v.type
+    if isinstance(t, T.DecimalType):
+        x = v.data if t.is_long else I.from_i64(v.data)
+        return I.rescale(x, to_scale - t.scale)
+    if T.is_integral(t) or isinstance(t, T.BigintType):
+        return I.rescale(I.from_i64(v.data.to(torch.int64)), to_scale)
+    raise NotImplementedError(f"cannot take decimal limbs of {t.display()}")
+
+
+def _cast_long_decimal(v: Val, to: Type) -> Val:
+    """Casts where the source or the target is a long decimal (p > 18):
+    limb rescales with range checks (DecimalCasts.java). Out-of-range rows
+    raise NUMERIC_VALUE_OUT_OF_RANGE."""
+    f = v.type
+    if isinstance(to, T.DecimalType):
+        if isinstance(f, T.DecimalType) or T.is_integral(f) \
+                or isinstance(f, T.BigintType):
+            x, ovf = _dec_limbs(v, to.scale)
+        elif T.is_floating(f):
+            bound = 10.0 ** (to.precision - to.scale)
+            scaled = v.data.to(torch.float64) * (10.0 ** to.scale)
+            x = I.from_f64(_round_half_away(scaled))
+            ovf = ~(v.data.to(torch.float64).abs() < bound)
+        else:
+            raise NotImplementedError(
+                f"cast {f.display()} -> {to.display()}")
+        fits = I.fits_decimal(x, to.precision) & ~ovf
+        err = flag_err(v.valid & ~fits, E.NUMERIC_VALUE_OUT_OF_RANGE)
+        return Val(x if to.is_long else I.lo(x), v.valid & fits, to,
+                   err=err)
+    # the source is a long decimal
+    if isinstance(to, (T.DoubleType, T.RealType)):
+        out = (I.to_f64(v.data) / (10.0 ** f.scale)).to(to.storage_dtype)
+        return Val(out, v.valid, to)
+    if T.is_integral(to) or isinstance(to, T.BigintType):
+        x, _ = I.rescale(v.data, -f.scale)
+        fits = I.hi(x) == (I.lo(x) >> 63)       # the value fits one limb
+        narrow = I.lo(x)
+        if not isinstance(to, T.BigintType):
+            info = torch.iinfo(to.storage_dtype)
+            fits = fits & (narrow >= info.min) & (narrow <= info.max)
+        err = flag_err(v.valid & ~fits, E.NUMERIC_VALUE_OUT_OF_RANGE)
+        return Val(narrow.to(to.storage_dtype), v.valid & fits, to, err=err)
+    if isinstance(to, T.BooleanType):
+        return Val(~I.is_zero(v.data), v.valid, to)
+    raise NotImplementedError(f"cast {f.display()} -> {to.display()}")
 
 
 def rescale_decimal(data: torch.Tensor, from_scale: int,
@@ -125,7 +192,12 @@ def cast_val(v: Val, to: Type) -> Val:
     if isinstance(f, T.UnknownType):
         # typed NULL: all-invalid storage of the target type
         n = v.data.shape[0]
-        if isinstance(to, (T.ArrayType, T.MapType, T.RowType)):
+        if isinstance(to, T.ArrayType):
+            return Val(_null_array(to, n, v.data.device),
+                       torch.zeros_like(v.valid), to,
+                       dictionary=() if to.element.is_string else None,
+                       err=v.err)
+        if isinstance(to, (T.MapType, T.RowType)):
             raise NotImplementedError(f"cast NULL to {to.display()}")
         width = getattr(to, "storage_width", None)
         shape = (n,) if width is None else (n, width)
@@ -135,7 +207,7 @@ def cast_val(v: Val, to: Type) -> Val:
                    dictionary=() if to.is_string else None, err=v.err)
     data = v.data
     if _is_long_dec(f) or _is_long_dec(to):
-        raise _long_dec_unported(f"cast {f.display()} -> {to.display()}")
+        return _cast_long_decimal(v, to)
     if isinstance(f, T.DecimalType) and isinstance(to, T.DecimalType):
         return Val(rescale_decimal(data, f.scale, to.scale), v.valid, to)
     if isinstance(to, (T.DoubleType, T.RealType)):
@@ -310,15 +382,62 @@ def register(name: str):
 
 
 def lookup(name: str) -> FunctionImpl:
-    if name in _REGISTRY:
-        return _REGISTRY[name]
-    try:
-        infer_call_type(name, [])
-    except KeyError:
+    if name not in _REGISTRY:
         raise KeyError(f"unknown function {name!r}")
-    except (TypeError, ValueError, IndexError):
-        pass
-    raise NotImplementedError(f"function {name} is not ported")
+    return _REGISTRY[name]
+
+
+def _long_decimal_arith(op: str, a: Val, b: Val, out, valid) -> Val:
+    """Decimal arithmetic through int128 limbs (DecimalOperators.java's
+    long-decimal paths): add/sub/mul exact with NUMERIC_VALUE_OUT_OF_RANGE
+    past 38 digits; division by a short divisor (precision <= 9) through
+    the base-2^32 short division, by any other through the general
+    int128 division; a zero divisor raises DIVISION_BY_ZERO."""
+    s_out = out.scale
+    sa = a.type.scale if isinstance(a.type, T.DecimalType) else 0
+    sb = b.type.scale if isinstance(b.type, T.DecimalType) else 0
+    if op in ("add", "sub"):
+        xa, oa = _dec_limbs(a, s_out)
+        xb, ob = _dec_limbs(b, s_out)
+        res = I.add(xa, xb) if op == "add" else I.sub(xa, xb)
+        rhs = xb if op == "add" else I.neg(xb)
+        wrap = I.add_overflows(xa, rhs, res)
+        fits = I.fits_decimal(res, out.precision) & ~(oa | ob | wrap)
+    elif op == "mul":
+        xa, oa = _dec_limbs(a, sa)
+        xb, ob = _dec_limbs(b, sb)
+        prod, om = I.mul(xa, xb)
+        res, orr = I.rescale(prod, s_out - (sa + sb))
+        fits = I.fits_decimal(res, out.precision) & ~(oa | ob | om | orr)
+    elif op == "div":
+        num, on = _dec_limbs(a, s_out + sb)
+        small_type = (isinstance(b.type, T.DecimalType)
+                      and not b.type.is_long and b.type.precision <= 9) \
+            or (T.is_integral(b.type)
+                and not isinstance(b.type, T.BigintType))
+        if small_type:
+            db = b.data.to(torch.int64)
+            zero = db == 0
+            q = I.div_round_half_up(num, torch.where(zero, 1, db).abs())
+            q = I.where(db < 0, I.neg(q), q)
+        else:
+            den, od = _dec_limbs(b, sb)
+            on = on | od
+            zero = I.is_zero(den)
+            q = I.div_round_half_up_wide(
+                num, I.where(zero, I.from_i64(torch.ones_like(
+                    zero, dtype=torch.int64)), den))
+        err = flag_err(valid & zero, E.DIVISION_BY_ZERO)
+        fits = I.fits_decimal(q, out.precision) & ~on & ~zero
+        err = err | flag_err(valid & ~zero & ~fits,
+                             E.NUMERIC_VALUE_OUT_OF_RANGE)
+        return Val(q if out.is_long else I.lo(q), valid & fits, out,
+                   err=err)
+    else:
+        raise NotImplementedError(f"long decimal {op} is not supported")
+    err = flag_err(valid & ~fits, E.NUMERIC_VALUE_OUT_OF_RANGE)
+    return Val(res if out.is_long else I.lo(res), valid & fits, out,
+               err=err)
 
 
 def _arith(op):
@@ -327,7 +446,7 @@ def _arith(op):
         valid = a.valid & b.valid
         if isinstance(out, T.DecimalType) and (
                 out.is_long or _is_long_dec(a.type) or _is_long_dec(b.type)):
-            raise _long_dec_unported(op)
+            return _long_decimal_arith(op, a, b, out, valid)
         if isinstance(out, T.DecimalType):
             s_out = out.scale
             sa = a.type.scale if isinstance(a.type, T.DecimalType) else 0
@@ -398,7 +517,7 @@ for _name, _op in [("add", "add"), ("subtract", "sub"), ("multiply", "mul"),
 def _negate(args, out):
     (a,) = args
     if _is_long_dec(a.type):
-        raise _long_dec_unported("negate")
+        return Val(I.neg(a.data), a.valid, out)
     return Val(-a.data, a.valid, out)
 
 
@@ -406,8 +525,30 @@ def _negate(args, out):
 def _abs(args, out):
     (a,) = args
     if _is_long_dec(a.type):
-        raise _long_dec_unported("abs")
+        return Val(I.abs_(a.data), a.valid, out)
     return Val(torch.abs(a.data), a.valid, out)
+
+
+def _long_dec_compare(a: Val, b: Val, op: str) -> Val:
+    """Compare when either side is a long decimal and both are exact
+    numerics: rescale to the wider scale, compare limbs. Where the rescale
+    would pass 38 digits (an extreme scale gap), compare float64 images."""
+    sa = a.type.scale if isinstance(a.type, T.DecimalType) else 0
+    sb = b.type.scale if isinstance(b.type, T.DecimalType) else 0
+    pa = a.type.precision if isinstance(a.type, T.DecimalType) else 19
+    pb = b.type.precision if isinstance(b.type, T.DecimalType) else 19
+    s = max(sa, sb)
+    valid = a.valid & b.valid
+    if max(pa + s - sa, pb + s - sb) > 38:
+        fa = cast_val(a, T.DOUBLE).data
+        fb = cast_val(b, T.DOUBLE).data
+        return Val(_CMP[op](fa, fb), valid, T.BOOLEAN)
+    xa, _ = _dec_limbs(a, s)
+    xb, _ = _dec_limbs(b, s)
+    data = {"eq": lambda: I.eq(xa, xb), "ne": lambda: ~I.eq(xa, xb),
+            "lt": lambda: I.lt(xa, xb), "le": lambda: I.le(xa, xb),
+            "gt": lambda: I.lt(xb, xa), "ge": lambda: I.le(xb, xa)}[op]()
+    return Val(data, valid, T.BOOLEAN)
 
 
 def _cmp(op):
@@ -415,8 +556,9 @@ def _cmp(op):
         a, b = args
         if a.type.is_string or b.type.is_string:
             return _string_compare(a, b, op)
-        if _is_long_dec(a.type) or _is_long_dec(b.type):
-            raise _long_dec_unported(op)
+        if (_is_long_dec(a.type) or _is_long_dec(b.type)) \
+                and not (T.is_floating(a.type) or T.is_floating(b.type)):
+            return _long_dec_compare(a, b, op)
         if a.type != b.type:
             a, b, _ = _unify_numeric(a, b)
         return Val(_CMP[op](a.data, b.data), a.valid & b.valid, T.BOOLEAN)
@@ -588,10 +730,659 @@ def _concat(args, out):
     return Val(a.data, valid, out, vocab)
 
 
+# -- math (reference operator/scalar/MathFunctions.java) ---------------------
+
+def _dbl_fn(fn):
+    def impl(args, out):
+        a = cast_val(args[0], T.DOUBLE)
+        return Val(fn(a.data), a.valid, out)
+    return impl
+
+
+def _cbrt(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * x.abs().pow(1.0 / 3.0)
+
+
+for _name, _tfn in [
+        ("sqrt", torch.sqrt), ("ln", torch.log), ("exp", torch.exp),
+        ("sin", torch.sin), ("cos", torch.cos), ("tan", torch.tan),
+        ("asin", torch.asin), ("acos", torch.acos), ("atan", torch.atan),
+        ("sinh", torch.sinh), ("cosh", torch.cosh), ("tanh", torch.tanh),
+        ("log2", torch.log2), ("log10", torch.log10), ("cbrt", _cbrt),
+        ("degrees", torch.rad2deg), ("radians", torch.deg2rad)]:
+    register(_name)(_dbl_fn(_tfn))
+
+
+def _long_dec_floor_ceil(a: Val, ceil: bool) -> torch.Tensor:
+    """Exact floor/ceil to integer multiples of 10**scale for long
+    decimals: drop the fraction digits by digit division, then bump toward
+    -inf (floor of negatives) / +inf (ceil of positives) where any dropped
+    digit was nonzero."""
+    s = a.type.scale
+    m = I.abs_(a.data)
+    k = s
+    rem_any = torch.zeros(a.data.shape[:-1], dtype=torch.bool,
+                          device=a.data.device)
+    while k > 0:
+        step = min(k, 9)
+        m, rr = I.divmod_small_abs(m, 10 ** step)
+        rem_any = rem_any | (rr != 0)
+        k -= step
+    neg_in = I.is_neg(a.data)
+    bump = (rem_any & (neg_in != ceil)).to(torch.int64)
+    m = I.add(m, I.pack(torch.zeros_like(bump), bump))
+    back, _ = I.rescale(I.where(neg_in, I.neg(m), m), s)
+    return back
+
+
+@register("floor")
+def _floor(args, out):
+    (a,) = args
+    if _is_long_dec(a.type):
+        return Val(_long_dec_floor_ceil(a, ceil=False), a.valid, out)
+    if isinstance(a.type, T.DecimalType):
+        div = 10 ** a.type.scale
+        return Val(torch.div(a.data, div, rounding_mode="floor") * div,
+                   a.valid, out)
+    if T.is_integral(a.type):
+        return Val(a.data, a.valid, out)
+    return Val(torch.floor(a.data), a.valid, out)
+
+
+@register("ceil")
+def _ceil(args, out):
+    (a,) = args
+    if _is_long_dec(a.type):
+        return Val(_long_dec_floor_ceil(a, ceil=True), a.valid, out)
+    if isinstance(a.type, T.DecimalType):
+        div = 10 ** a.type.scale
+        return Val(-torch.div(-a.data, div, rounding_mode="floor") * div,
+                   a.valid, out)
+    if T.is_integral(a.type):
+        return Val(a.data, a.valid, out)
+    return Val(torch.ceil(a.data), a.valid, out)
+
+
+@register("round")
+def _round(args, out):
+    a = args[0]
+    digits = 0
+    if len(args) > 1:
+        if args[1].literal is None:
+            raise NotImplementedError("round() with non-constant digits")
+        digits = int(args[1].literal)
+    if isinstance(a.type, T.DecimalType):
+        if digits >= a.type.scale:
+            return Val(a.data, a.valid, out)   # nothing to round away
+        if _is_long_dec(a.type):
+            x, _ = I.rescale(a.data, digits - a.type.scale)   # half up
+            x, _ = I.rescale(x, a.type.scale - digits)
+            return Val(x, a.valid, out)
+        data = rescale_decimal(a.data, a.type.scale, digits)
+        return Val(rescale_decimal(data, digits, a.type.scale), a.valid, out)
+    scale = 10.0 ** digits
+    x = a.data * scale
+    return Val(torch.sign(x) * torch.floor(x.abs() + 0.5) / scale, a.valid,
+               out)
+
+
+@register("power")
+def _power(args, out):
+    a, b = (cast_val(x, T.DOUBLE) for x in args)
+    return Val(torch.pow(a.data, b.data), a.valid & b.valid, out)
+
+
+@register("atan2")
+def _atan2(args, out):
+    a, b = (cast_val(x, T.DOUBLE) for x in args)
+    return Val(torch.atan2(a.data, b.data), a.valid & b.valid, out)
+
+
+@register("log")
+def _log(args, out):
+    # log(b, x): base-b logarithm of x
+    b, x = (cast_val(v, T.DOUBLE) for v in args)
+    return Val(torch.log(x.data) / torch.log(b.data), b.valid & x.valid, out)
+
+
+@register("sign")
+def _sign(args, out):
+    (a,) = args
+    if _is_long_dec(a.type):
+        return Val(I.sign(a.data).to(out.storage_dtype), a.valid, out)
+    # a decimal input's output is decimal(1,0), so the raw -1/0/1 is
+    # already scaled; doubles and integers keep their type
+    return Val(torch.sign(a.data).to(out.storage_dtype), a.valid, out)
+
+
+@register("truncate")
+def _truncate(args, out):
+    a = cast_val(args[0], T.DOUBLE)
+    if len(args) == 1:
+        return Val(torch.trunc(a.data), a.valid, out)
+    if args[1].literal is None:
+        raise NotImplementedError("truncate() scale must be a constant")
+    scale = 10.0 ** int(args[1].literal)
+    return Val(torch.trunc(a.data * scale) / scale, _all_valid(args), out)
+
+
+@register("width_bucket")
+def _width_bucket(args, out):
+    x, lo, hi, n = (cast_val(v, T.DOUBLE) for v in args)
+    frac = (x.data - lo.data) / (hi.data - lo.data)
+    b = torch.floor(frac * n.data).to(torch.int64) + 1
+    b = torch.minimum(b.clamp(min=0), n.data.to(torch.int64) + 1)
+    return Val(b, _all_valid(args), out)
+
+
+for _name, _tfn in [("is_nan", torch.isnan), ("is_finite", torch.isfinite),
+                    ("is_infinite", torch.isinf)]:
+    register(_name)(lambda args, out, f=_tfn: Val(
+        f(cast_val(args[0], T.DOUBLE).data), args[0].valid, T.BOOLEAN))
+
+
+def _variadic_extreme(is_max):
+    def impl(args, out):
+        # NULL if any argument is NULL (reference GreatestFunction)
+        if out.is_string:
+            # dictionary codes are insertion-ordered, not lexicographic
+            raise NotImplementedError("greatest/least on varchar")
+        vals = [cast_val(a, out) for a in args]
+        data = vals[0].data
+        for v in vals[1:]:
+            data = (torch.maximum(data, v.data) if is_max
+                    else torch.minimum(data, v.data))
+        return Val(data, _all_valid(vals), out)
+    return impl
+
+
+register("greatest")(_variadic_extreme(True))
+register("least")(_variadic_extreme(False))
+
+
+# -- bitwise (reference operator/scalar/BitwiseFunctions.java) ---------------
+
+def _bitwise(fn):
+    def impl(args, out):
+        vals = [cast_val(a, T.BIGINT) for a in args]
+        return Val(fn(*[v.data for v in vals]), _all_valid(vals), out)
+    return impl
+
+
+def _shr_logical(a: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns by n in [0, 64)."""
+    mask = (torch.ones_like(n) << (64 - n).clamp(max=63)) - 1
+    return torch.where(n == 0, a, (a >> n) & torch.where(n == 0, -1, mask))
+
+
+register("bitwise_and")(_bitwise(torch.bitwise_and))
+register("bitwise_or")(_bitwise(torch.bitwise_or))
+register("bitwise_xor")(_bitwise(torch.bitwise_xor))
+register("bitwise_not")(_bitwise(torch.bitwise_not))
+register("bitwise_left_shift")(_bitwise(lambda a, n: a << n))
+register("bitwise_right_shift")(_bitwise(_shr_logical))
+register("bitwise_arithmetic_shift_right")(_bitwise(lambda a, n: a >> n))
+
+
+def _popcount64(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of int64 bit patterns (SWAR with logical shifts)."""
+    def shr(v, k):
+        return (v >> k) & ((1 << (64 - k)) - 1)
+    x = x - (shr(x, 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + (shr(x, 2) & 0x3333333333333333)
+    x = (x + shr(x, 4)) & 0x0F0F0F0F0F0F0F0F
+    return shr(x * 0x0101010101010101, 56)
+
+
+@register("bit_count")
+def _bit_count(args, out):
+    a = cast_val(args[0], T.BIGINT)
+    bits = 64
+    if len(args) > 1:
+        if args[1].literal is None:
+            raise NotImplementedError("bit_count() bits must be a constant")
+        bits = int(args[1].literal)
+    data = a.data if bits == 64 else a.data & ((1 << bits) - 1)
+    return Val(_popcount64(data), a.valid, out)
+
+
+# -- vocabulary string functions (reference StringFunctions.java) ------------
+
+def _const_args(args) -> List[object]:
+    """The constant positional arguments of a string function."""
+    extra = []
+    for x in args:
+        lit = _string_literal_of(x) if x.type.is_string else x.literal
+        if lit is None:
+            raise NotImplementedError(
+                "string function positional args must be constants")
+        extra.append(lit)
+    return extra
+
+
+def _vocab_transform_nullable(fn):
+    """Like _vocab_transform, but fn may return None (SQL NULL): those
+    entries clear validity, and the output vocabulary is deduplicated so
+    equal strings share one code."""
+    def impl(args, out):
+        a = args[0]
+        if a.dictionary is None:
+            raise NotImplementedError("string fn on non-dictionary column")
+        extra = _const_args(args[1:])
+        lookup: Dict[str, int] = {}
+        remap = np.full(len(a.dictionary) + 1, -1, dtype=np.int32)
+        for i, s in enumerate(a.dictionary):
+            r = fn(s, *extra)
+            if r is not None:
+                remap[i] = lookup.setdefault(r, len(lookup))
+        codes = _code_gather(torch.from_numpy(remap).to(a.data.device),
+                             a.data)
+        return Val(codes, a.valid & (codes >= 0), out,
+                   dictionary=tuple(lookup))
+    return impl
+
+
+def _vocab_table_fn(fn, dtype):
+    """String -> bigint / boolean function via a host-computed table."""
+    def impl(args, out):
+        a = args[0]
+        if a.dictionary is None:
+            raise NotImplementedError("string fn on non-dictionary column")
+        extra = _const_args(args[1:])
+        table = vocab_table(a.dictionary, lambda s: fn(s, *extra), dtype,
+                            a.data.device)
+        return Val(_code_gather(table, a.data), a.valid,
+                   T.BOOLEAN if dtype is np.bool_ else out)
+    return impl
+
+
+def _split_part(s: str, delim: str, idx: int) -> Optional[str]:
+    if idx <= 0:
+        # a constant index: raised at planning like Presto's
+        # INVALID_FUNCTION_ARGUMENT for non-positive indexes
+        raise E.QueryError(E.INVALID_FUNCTION_ARGUMENT,
+                           "split_part index must be greater than zero")
+    if not delim:
+        return s if idx == 1 else None
+    parts = s.split(delim)
+    return parts[idx - 1] if idx <= len(parts) else None
+
+
+def _levenshtein(s: str, t: str) -> int:
+    if len(s) < len(t):
+        s, t = t, s
+    prev = list(range(len(t) + 1))
+    for i, cs in enumerate(s, 1):
+        cur = [i]
+        for j, ct in enumerate(t, 1):
+            cur.append(min(prev[j] + 1, cur[j - 1] + 1,
+                           prev[j - 1] + (cs != ct)))
+        prev = cur
+    return prev[-1]
+
+
+def _presto_replacement(repl: str) -> str:
+    """Presto/Java replacement syntax -> a Python re.sub template: $n and
+    ${name} are group references, \\$ is a literal dollar."""
+    out = []
+    i = 0
+    while i < len(repl):
+        c = repl[i]
+        if c == "\\" and i + 1 < len(repl):
+            nxt = repl[i + 1]
+            out.append(nxt if nxt in ("$", "\\") else "\\" + nxt)
+            i += 2
+        elif c == "$" and i + 1 < len(repl):
+            j = i + 1
+            if repl[j] == "{":
+                end = repl.index("}", j)
+                out.append(f"\\g<{repl[j + 1:end]}>")
+                i = end + 1
+            elif repl[j].isdigit():
+                while j < len(repl) and repl[j].isdigit():
+                    j += 1
+                out.append(f"\\g<{repl[i + 1:j]}>")
+                i = j
+            else:
+                out.append("$")
+                i += 1
+        else:
+            out.append("\\\\" if c == "\\" else c)
+            i += 1
+    return "".join(out)
+
+
+def _json_extract_scalar(doc: str, path: str):
+    """A small JSONPath: $.key and [idx] steps (the common Presto usage)."""
+    try:
+        v = json.loads(doc)
+    except Exception:
+        return None
+    if not path.startswith("$"):
+        return None
+    i = 1
+    while i < len(path):
+        if path[i] == ".":
+            j = i + 1
+            while j < len(path) and path[j] not in ".[":
+                j += 1
+            key = path[i + 1: j]
+            if not isinstance(v, dict) or key not in v:
+                return None
+            v = v[key]
+            i = j
+        elif path[i] == "[":
+            j = path.index("]", i)
+            token = path[i + 1: j].strip("\"'")
+            if isinstance(v, list):
+                try:
+                    v = v[int(token)]
+                except (ValueError, IndexError):
+                    return None
+            elif isinstance(v, dict):
+                if token not in v:
+                    return None
+                v = v[token]
+            else:
+                return None
+            i = j + 1
+        else:
+            return None
+    if isinstance(v, (dict, list)) or v is None:
+        return None      # scalar extraction only
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    return str(v)
+
+
+def _url_part(part):
+    def get(s: str) -> str:
+        try:
+            u = urlparse(s)
+        except Exception:
+            return ""
+        return {"protocol": u.scheme, "host": u.hostname or "",
+                "path": u.path, "query": u.query,
+                "fragment": u.fragment}[part]
+    return get
+
+
+def _url_port(s: str) -> int:
+    try:
+        p = urlparse(s).port
+    except Exception:
+        p = None
+    return -1 if p is None else p
+
+
+# varbinary bridge (reference VarbinaryFunctions.java): the dictionary
+# plan carries bytes vocabularies the same way as strings
+register("to_utf8")(_vocab_transform(
+    lambda s: s.encode("utf-8") if isinstance(s, str) else s))
+register("from_utf8")(_vocab_transform(
+    lambda s: s.decode("utf-8", "replace")
+    if isinstance(s, (bytes, bytearray)) else s))
+register("replace")(_vocab_transform(
+    lambda s, find, repl="": s.replace(find, repl)))
+register("reverse")(_vocab_transform(lambda s: s[::-1]))
+register("lpad")(_vocab_transform(
+    lambda s, n, pad=" ": s[:n] if len(s) >= n
+    else ((pad * n)[: n - len(s)] + s if pad else s)))
+register("rpad")(_vocab_transform(
+    lambda s, n, pad=" ": s[:n] if len(s) >= n
+    else (s + (pad * n)[: n - len(s)] if pad else s)))
+register("ltrim")(_vocab_transform(lambda s: s.lstrip()))
+register("rtrim")(_vocab_transform(lambda s: s.rstrip()))
+register("split_part")(_vocab_transform_nullable(_split_part))
+register("strpos")(_vocab_table_fn(lambda s, sub: s.find(sub) + 1, np.int64))
+register("codepoint")(_vocab_table_fn(lambda s: ord(s[0]) if s else 0,
+                                      np.int64))
+register("levenshtein_distance")(_vocab_table_fn(_levenshtein, np.int64))
+register("starts_with")(_vocab_table_fn(lambda s, p: s.startswith(p),
+                                        np.bool_))
+register("ends_with")(_vocab_table_fn(lambda s, p: s.endswith(p), np.bool_))
+# translate(): chars of `from` map positionally to `to`; unmatched delete
+register("translate")(_vocab_transform(
+    lambda s, frm, to: s.translate(
+        {ord(c): (to[i] if i < len(to) else None)
+         for i, c in enumerate(frm)})))
+# as in the reference, unequal lengths count their difference (the
+# vocabulary-table evaluation has no per-entry error channel)
+register("hamming_distance")(_vocab_table_fn(
+    lambda s, t: sum(a != b for a, b in zip(s, t)) + abs(len(s) - len(t)),
+    np.int64))
+# regex: host-compiled over the vocabulary (reference
+# JoniRegexpFunctions.java); patterns must be constants
+register("regexp_like")(_vocab_table_fn(
+    lambda s, pat: re.search(pat, s) is not None, np.bool_))
+register("regexp_extract")(_vocab_transform_nullable(
+    lambda s, pat, group=0: (
+        (lambda m: m.group(group) if m else None)(re.search(pat, s)))))
+register("regexp_replace")(_vocab_transform(
+    lambda s, pat, repl="": re.sub(pat, _presto_replacement(repl), s)))
+register("json_extract_scalar")(
+    _vocab_transform_nullable(_json_extract_scalar))
+for _p in ["protocol", "host", "path", "query", "fragment"]:
+    register(f"url_extract_{_p}")(_vocab_transform(_url_part(_p)))
+
+
+@register("url_extract_port")
+def _url_extract_port(args, out):
+    a = args[0]
+    if a.dictionary is None:
+        raise NotImplementedError("url fn on non-dictionary column")
+    vals = _code_gather(vocab_table(a.dictionary, _url_port, np.int64,
+                                    a.data.device), a.data)
+    return Val(vals, a.valid & (vals >= 0), out)
+
+
+# -- more datetime (reference operator/scalar/DateTimeFunctions.java) --------
+
+_US_DAY = 86_400_000_000
+_US_PER = {"millisecond": 1_000, "second": 1_000_000,
+           "minute": 60_000_000, "hour": 3_600_000_000,
+           "day": _US_DAY, "week": 7 * _US_DAY}
+
+
+def _to_micros(v: Val) -> torch.Tensor:
+    if isinstance(v.type, T.DateType):
+        return v.data.to(torch.int64) * _US_DAY
+    return v.data.to(torch.int64)
+
+
+def _days_of(a: Val) -> torch.Tensor:
+    if isinstance(a.type, T.DateType):
+        return a.data.to(torch.int64)
+    return torch.div(a.data, _US_DAY, rounding_mode="floor")
+
+
+def _jan1(y: torch.Tensor) -> torch.Tensor:
+    return _days_from_civil(y, torch.ones_like(y), torch.ones_like(y))
+
+
+@register("day_of_week")
+def _day_of_week(args, out):
+    (a,) = args
+    # ISO: Monday=1..Sunday=7; 1970-01-01 was a Thursday (=4)
+    return Val((_days_of(a) + 3) % 7 + 1, a.valid, out)
+
+
+@register("day_of_year")
+def _day_of_year(args, out):
+    (a,) = args
+    days = _days_of(a)
+    y, _, _ = _civil_from_days(days)
+    return Val(days - _jan1(y) + 1, a.valid, out)
+
+
+def _iso_week(days: torch.Tensor):
+    """ISO-8601 (week, week-year), branch-free."""
+    y, _, _ = _civil_from_days(days)
+    doy = days - _jan1(y) + 1
+    isodow = (days + 3) % 7 + 1
+
+    def weeks_in(year):
+        # 53-week years: Jan 1 is a Thursday, or a leap year's Wednesday
+        dow1 = (_jan1(year) + 3) % 7 + 1
+        leap = ((year % 4 == 0) & (year % 100 != 0)) | (year % 400 == 0)
+        return torch.where((dow1 == 4) | (leap & (dow1 == 3)), 53, 52)
+
+    w = torch.div(doy - isodow + 10, 7, rounding_mode="floor")
+    wy = weeks_in(y)
+    week = torch.where(w < 1, weeks_in(y - 1), torch.where(w > wy, 1, w))
+    wyear = torch.where(w < 1, y - 1, torch.where(w > wy, y + 1, y))
+    return week, wyear
+
+
+@register("week")
+def _week(args, out):
+    (a,) = args
+    return Val(_iso_week(_days_of(a))[0].to(torch.int64), a.valid, out)
+
+
+@register("year_of_week")
+def _year_of_week(args, out):
+    (a,) = args
+    return Val(_iso_week(_days_of(a))[1].to(torch.int64), a.valid, out)
+
+
+def _time_part(part):
+    div = {"hour": 3_600_000_000, "minute": 60_000_000,
+           "second": 1_000_000, "millisecond": 1_000}[part]
+    mod = {"hour": 24, "minute": 60, "second": 60, "millisecond": 1000}[part]
+
+    def impl(args, out):
+        (a,) = args
+        us = torch.div(_to_micros(a), div, rounding_mode="floor")
+        return Val(us % mod, a.valid, out)
+    return impl
+
+
+for _p in ["hour", "minute", "second", "millisecond"]:
+    register(_p)(_time_part(_p))
+
+
+def _unit_of(v: Val, fn: str) -> str:
+    unit = _string_literal_of(v)
+    if unit is None:
+        raise NotImplementedError(f"{fn} needs a constant unit")
+    return unit.lower()
+
+
+@register("date_trunc")
+def _date_trunc(args, out):
+    unit_v, a = args
+    unit = _unit_of(unit_v, "date_trunc")
+    is_date = isinstance(a.type, T.DateType)
+    days = _days_of(a)
+    if unit in ("millisecond", "second", "minute", "hour"):
+        if is_date:
+            return Val(a.data, a.valid, out)
+        q = _US_PER[unit]
+        return Val(torch.div(a.data, q, rounding_mode="floor") * q,
+                   a.valid, out)
+    if unit == "day":
+        td = days
+    elif unit == "week":
+        td = days - ((days + 3) % 7)          # back to Monday
+    elif unit in ("month", "quarter", "year"):
+        y, m, _ = _civil_from_days(days)
+        if unit == "month":
+            tm = m
+        elif unit == "quarter":
+            tm = torch.div(m - 1, 3, rounding_mode="floor") * 3 + 1
+        else:
+            tm = torch.ones_like(m)
+        td = _days_from_civil(y, tm, torch.ones_like(m))
+    else:
+        raise NotImplementedError(f"date_trunc({unit!r})")
+    if is_date:
+        return Val(td.to(a.data.dtype), a.valid, out)
+    return Val(td * _US_DAY, a.valid, out)
+
+
+def _trunc_div(x: torch.Tensor, q: int) -> torch.Tensor:
+    return torch.sign(x) * torch.div(x.abs(), q, rounding_mode="floor")
+
+
+@register("date_diff")
+def _date_diff(args, out):
+    unit_v, a, b = args
+    unit = _unit_of(unit_v, "date_diff")
+    valid = a.valid & b.valid
+    if unit in _US_PER:
+        return Val(_trunc_div(_to_micros(b) - _to_micros(a), _US_PER[unit]),
+                   valid, out)
+    ya, ma, dda = _civil_from_days(
+        torch.div(_to_micros(a), _US_DAY, rounding_mode="floor"))
+    yb, mb, ddb = _civil_from_days(
+        torch.div(_to_micros(b), _US_DAY, rounding_mode="floor"))
+    months = (yb * 12 + mb) - (ya * 12 + ma)
+    # complete months only (Joda monthsBetween semantics)
+    months = months - ((months > 0) & (ddb < dda)).to(torch.int64) \
+        + ((months < 0) & (ddb > dda)).to(torch.int64)
+    if unit == "month":
+        val = months
+    elif unit == "quarter":
+        val = _trunc_div(months, 3)
+    elif unit == "year":
+        val = _trunc_div(months, 12)
+    else:
+        raise NotImplementedError(f"date_diff({unit!r})")
+    return Val(val, valid, out)
+
+
+@register("date_add")
+def _date_add(args, out):
+    unit_v, n, a = args
+    unit = _unit_of(unit_v, "date_add")
+    valid = a.valid & n.valid
+    is_date = isinstance(a.type, T.DateType)
+    if unit in ("month", "quarter", "year"):
+        mult = {"month": 1, "quarter": 3, "year": 12}[unit]
+        days = _days_of(a)
+        shifted = _date_add_months(
+            [Val(days, a.valid, T.DATE),
+             Val(n.data.to(torch.int64) * mult, n.valid, n.type)], T.DATE)
+        if is_date:
+            return Val(shifted.data.to(a.data.dtype), valid, out)
+        return Val(shifted.data * _US_DAY + a.data % _US_DAY, valid, out)
+    q = _US_PER.get(unit)
+    if q is None:
+        raise NotImplementedError(f"date_add({unit!r})")
+    if is_date:
+        if unit in ("day", "week"):
+            return Val(a.data + (n.data * (q // _US_DAY)).to(a.data.dtype),
+                       valid, out)
+        raise NotImplementedError("date_add of sub-day unit to a DATE")
+    return Val(a.data + n.data.to(torch.int64) * q, valid, out)
+
+
+@register("last_day_of_month")
+def _last_day_of_month(args, out):
+    (a,) = args
+    y, m, _ = _civil_from_days(_days_of(a))
+    ny = torch.where(m == 12, y + 1, y)
+    nm = torch.where(m == 12, 1, m + 1)
+    td = _days_from_civil(ny, nm, torch.ones_like(m)) - 1
+    return Val(td.to(torch.int32), a.valid, out)
+
+
+@register("from_unixtime")
+def _from_unixtime(args, out):
+    a = cast_val(args[0], T.DOUBLE)
+    return Val((a.data * 1_000_000.0).to(torch.int64), a.valid, out)
+
+
+@register("to_unixtime")
+def _to_unixtime(args, out):
+    (a,) = args
+    return Val(_to_micros(a).to(torch.float64) / 1_000_000.0, a.valid, out)
+
+
 def infer_call_type(name: str, arg_types: List[Type]) -> Type:
-    """Return type inference for scalar calls (used by the analyzer); a
-    copy of the reference package's table, so the analyzer types every
-    builtin even where evaluation is not ported yet."""
+    """Return type inference for scalar calls (used by the analyzer;
+    FunctionRegistry.resolveFunction's role for the builtins)."""
     if name in ("eq", "ne", "lt", "le", "gt", "ge", "not", "like"):
         return T.BOOLEAN
     if name in ("add", "subtract", "multiply", "divide", "modulus"):

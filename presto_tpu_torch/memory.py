@@ -23,6 +23,7 @@ import dataclasses
 import threading
 from typing import Callable, List, Optional
 
+from .batch import data_parts
 from .obs.metrics import REGISTRY
 
 UNLIMITED = 1 << 62
@@ -36,7 +37,8 @@ def batch_device_bytes(batch) -> int:
     """Accounted footprint of a batch: data, validity and row mask."""
     total = batch.row_mask.numel() * batch.row_mask.element_size()
     for c in batch.columns:
-        total += c.data.numel() * c.data.element_size()
+        for a in data_parts(c.data):
+            total += a.numel() * a.element_size()
         total += c.validity.numel() * c.validity.element_size()
     return int(total)
 

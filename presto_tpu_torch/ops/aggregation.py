@@ -29,19 +29,47 @@ import numpy as np
 import torch
 
 from .. import types as T
-from ..batch import Batch, Column, Schema, bucket_capacity
+from ..batch import Batch, Column, Schema, bucket_capacity, gather_rows
 from ..types import Type
+from . import int128 as I
 from .join import lexsort_permutation
 from .scan import segment_sum_sorted_i64
+from .sketch import (
+    QD_BINS, hashed_column, hll_estimate, hll_m, hll_update, qd_estimate,
+    qd_update,
+)
 from .sort import rank_codes, unrank_table
 
+_VARIANCE_FNS = ("var_samp", "var_pop", "stddev_samp", "stddev_pop")
 _SUPPORTED = ("sum", "count", "count_star", "min", "max", "avg",
               "var_samp", "var_pop", "stddev_samp", "stddev_pop",
               "bool_and", "bool_or", "approx_percentile",
               "approx_distinct")
-#: aggregates the reference supports that the port does not run yet
-_UNPORTED = ("var_samp", "var_pop", "stddev_samp", "stddev_pop",
-             "bool_and", "bool_or", "approx_percentile", "approx_distinct")
+#: aggregates whose GROUPED form drains the input into one exact
+#: 'single'-mode pass (a segmented sort by group and value); the GLOBAL
+#: numeric form carries the bounded histogram state of ops/sketch.py
+#: through partial -> final like every other aggregate
+DRAIN_FNS = ("approx_percentile",)
+
+
+def has_drain_agg(aggs) -> bool:
+    return any(a.fn in DRAIN_FNS for a in aggs)
+
+
+def percentile_drains(aggs, input_types, grouped: bool) -> bool:
+    """True when approx_percentile aggregates must run as an exact drain:
+    grouped aggregations and string inputs. ``input_types`` is the child
+    schema's type list."""
+    drains = [a for a in aggs if a.fn in DRAIN_FNS]
+    if not drains:
+        return False
+    if grouped:
+        return True
+    # accepts AggSpec (.input) and planner PlanAgg (.arg) alike
+    return any(
+        input_types[a.input if hasattr(a, "input") else a.arg].is_string
+        for a in drains)
+
 
 #: largest fused key-domain of the unbounded dense path (dictionary and
 #: boolean keys); shared semantics with the reference
@@ -61,7 +89,11 @@ class AggSpec:
     input: Optional[int]
     output_type: Type
     name: str = ""
+    #: rows where this boolean column is false do not feed the aggregate
+    #: (the MarkDistinct lowering of DISTINCT aggregates)
     mask: Optional[int] = None
+    #: static scalar parameter (approx_percentile's p, approx_distinct's
+    #: standard error)
     param: Optional[float] = None
 
     def __post_init__(self):
@@ -69,29 +101,52 @@ class AggSpec:
 
     def state_types(self) -> List[Tuple[str, Type]]:
         base = self.name or self.fn
-        if self.fn in _UNPORTED:
-            raise NotImplementedError(f"aggregate {self.fn} is not ported")
+        if self.fn == "approx_percentile":
+            return [(f"{base}$qdig", T.QdigestStateType(QD_BINS))]
+        if self.fn == "approx_distinct":
+            return [(f"{base}$hll", T.HllStateType(hll_m(self.param)))]
         if self.fn in ("count", "count_star"):
             return [(f"{base}$cnt", T.BIGINT)]
         if self.fn == "avg":
             return [(f"{base}$sum", self._sum_type()),
                     (f"{base}$cnt", T.BIGINT)]
+        if self.fn in _VARIANCE_FNS:
+            # central moments (mean, m2, count), not sum / sum of squares:
+            # sumsq - sum^2/n cancels catastrophically for large-mean
+            # low-variance data (reference CentralMomentsState.java)
+            return [(f"{base}$mean", T.DOUBLE), (f"{base}$m2", T.DOUBLE),
+                    (f"{base}$cnt", T.BIGINT)]
+        if self.fn in ("bool_and", "bool_or"):
+            return [(f"{base}$val", T.INTEGER), (f"{base}$cnt", T.BIGINT)]
         return [(f"{base}$val", self._sum_type() if self.fn == "sum"
                  else self.output_type), (f"{base}$cnt", T.BIGINT)]
 
     def _sum_type(self) -> Type:
         if isinstance(self.output_type, T.DecimalType):
+            # decimal sums and averages accumulate in decimal(38, s)
+            # limb-pair state (DecimalSumAggregation's Int128 state)
             return T.DecimalType(38, self.output_type.scale)
         return self.output_type
 
 
-def _check_ported(aggs: Sequence[AggSpec]) -> None:
-    for a in aggs:
-        for _, st in a.state_types():
-            if getattr(st, "storage_width", None):
-                raise NotImplementedError(
-                    f"{a.fn} over {a.output_type.display()} needs long-"
-                    "decimal state, which is not ported")
+def mark_distinct_flags(batch: Batch, cols: Sequence[int]) -> torch.Tensor:
+    """True at the first live occurrence of each distinct tuple of
+    ``cols`` (reference operator/MarkDistinctOperator.java: hash-set
+    membership becomes one stable sort, boundaries, and a scatter back to
+    the input order). Dead rows are False."""
+    ops = [(~batch.row_mask).to(torch.int32)]
+    for ci in cols:
+        ops.extend(_key_operands(batch.columns[ci]))
+    perm = lexsort_permutation(ops)
+    s_live = batch.row_mask[perm]
+    diff = torch.zeros_like(s_live)
+    for op in ops[1:]:
+        s = op[perm]
+        diff = diff | (s != torch.roll(s, 1))
+    diff[0] = True
+    out = torch.zeros_like(s_live)
+    out[perm] = s_live & diff
+    return out
 
 
 def _max_sentinel(dtype):
@@ -111,18 +166,29 @@ def _fill(x: torch.Tensor, keep: torch.Tensor, value) -> torch.Tensor:
                                            device=x.device))
 
 
+def _key_operands(c: Column) -> List[torch.Tensor]:
+    """One key column as lexicographic operands: [null_rank, data] with
+    NULL rows' data neutralized (stale values must not split NULL groups);
+    long-decimal limb pairs give (signed hi, unsigned-ordered lo)."""
+    ops = [(~c.validity).to(torch.int32)]   # nulls last
+    if c.data.ndim == 2:
+        ops.append(_fill(I.hi(c.data), c.validity, 0))
+        ops.append(_fill(I.sortable_lo(c.data), c.validity, 0))
+        return ops
+    data = c.data.to(torch.int32) if c.data.dtype == torch.bool else c.data
+    ops.append(_fill(data, c.validity, 0))
+    return ops
+
+
 def _group_key_ops(batch: Batch,
                    group_indices: Sequence[int]) -> List[torch.Tensor]:
     """Lexicographic sort operands for GROUP BY keys: [dead_rank, then per
-    key (null_rank, null-neutralized data)]."""
+    key its operands]. Shared by every kernel whose output rows must align
+    positionally across separate sorts of one batch (grouped_aggregate and
+    the percentile drain)."""
     key_ops = [(~batch.row_mask).to(torch.int32)]
     for gi in group_indices:
-        c = batch.columns[gi]
-        if c.data.ndim == 2:
-            raise NotImplementedError("grouping by long decimals is not ported")
-        data = c.data.to(torch.int32) if c.data.dtype == torch.bool else c.data
-        key_ops.append((~c.validity).to(torch.int32))   # nulls last
-        key_ops.append(_fill(data, c.validity, 0))
+        key_ops.extend(_key_operands(batch.columns[gi]))
     return key_ops
 
 
@@ -137,6 +203,17 @@ def _first_slots(flags: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
     return out[:cap]
 
 
+def _boundary_groups(s_keys, s_mask):
+    """Boundary / group id / group count over sorted key operands."""
+    diff = torch.zeros_like(s_mask)
+    for op in s_keys:
+        diff = diff | (op != torch.roll(op, 1))
+    diff[0] = True
+    boundary = s_mask & diff
+    group_id = (torch.cumsum(boundary.to(torch.int64), 0) - 1).clamp(min=0)
+    return boundary, group_id, boundary.sum(dtype=torch.int64)
+
+
 def _group_sort(batch: Batch, group_indices: Sequence[int]):
     """Sort rows by group keys. Returns (sorted column data, sorted
     validity, sorted mask, boundary, group_id, num_groups); boundary marks
@@ -145,17 +222,20 @@ def _group_sort(batch: Batch, group_indices: Sequence[int]):
     perm = lexsort_permutation(key_ops)
     s_keys = [k[perm] for k in key_ops[1:]]
     s_mask = batch.row_mask[perm]
-    s_data = [c.data[perm] for c in batch.columns]
+    s_data = [gather_rows(c.data, perm) for c in batch.columns]
     s_valid = [c.validity[perm] for c in batch.columns]
-    diff = torch.zeros_like(s_mask)
-    for op in s_keys:
-        diff = diff | (op != torch.roll(op, 1))
-    first = torch.zeros_like(s_mask)
-    first[0] = True
-    boundary = s_mask & (diff | first)
-    group_id = (torch.cumsum(boundary.to(torch.int64), 0) - 1).clamp(min=0)
-    num_groups = boundary.sum(dtype=torch.int64)
+    boundary, group_id, num_groups = _boundary_groups(s_keys, s_mask)
     return s_data, s_valid, s_mask, boundary, group_id, num_groups
+
+
+def _wide_state_aggs(aggs: Sequence[AggSpec]) -> bool:
+    """Aggregates whose states carry a trailing width (HLL registers,
+    decimal(38) limb pairs): they take the sort path, as in the
+    reference."""
+    return any(a.fn == "approx_distinct" for a in aggs) or any(
+        getattr(st, "storage_width", None)
+        for a in aggs if a.fn not in DRAIN_FNS
+        for _, st in a.state_types())
 
 
 def dense_path_selected(batch: Batch, group_indices: Sequence[int],
@@ -164,6 +244,8 @@ def dense_path_selected(batch: Batch, group_indices: Sequence[int],
                         key_bounds=None) -> bool:
     """Host-only mirror of grouped_aggregate's dispatch: True when this
     batch/grouping takes the dense path."""
+    if has_drain_agg(aggs) or _wide_state_aggs(aggs):
+        return False
     cap = output_capacity or batch.capacity
     return dense_group_plan(batch, group_indices, cap,
                             key_bounds) is not None
@@ -269,7 +351,8 @@ class _SlotReducers:
     ``scatter_reduce_`` — the dense path's reducers (group id = composite
     key code; the reference's broadcast-compare and i32 digit-scatter
     reducers are TPU workarounds), and the sort path's reducers for
-    everything but its int64 sums."""
+    everything but its int64 sums. Values may carry a trailing width
+    (digit planes, HLL registers)."""
 
     def __init__(self, group_id: torch.Tensor, cap: int):
         self.gid, self.cap = group_id, cap
@@ -283,14 +366,23 @@ class _SlotReducers:
         return out.index_add_(0, self.gid, x)
 
     def _reduce(self, x, how, init):
-        out = torch.full((self.cap,), init, dtype=x.dtype, device=x.device)
-        return out.scatter_reduce_(0, self.gid, x, reduce=how)
+        out = torch.full((self.cap,) + tuple(x.shape[1:]), init,
+                         dtype=x.dtype, device=x.device)
+        idx = self.gid.view((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
+        return out.scatter_reduce_(0, idx, x, reduce=how)
 
     def min(self, x):
         return self._reduce(x, "amin", _max_sentinel(x.dtype))
 
     def max(self, x):
         return self._reduce(x, "amax", _min_sentinel(x.dtype))
+
+    def hll(self, valid, hashed, m):
+        return hll_update(self.gid, valid, hashed, self.cap, m)
+
+    def gather(self, per_group):
+        return per_group[self.gid]
+
 
 class _SegReducers(_SlotReducers):
     """Sort-path reducers: group ids are sorted runs with per-group start
@@ -309,7 +401,9 @@ class _SegReducers(_SlotReducers):
 
 
 class _GlobalReducer:
-    """Single-group reducer with the reducer surface."""
+    """Single-group reducer with the reducer surface (min/max/sum
+    collapse all rows; gather broadcasts), so the grouped and global
+    paths share the int128 and variance code."""
 
     def count(self, valid):
         return valid.sum(dtype=torch.int64)
@@ -319,11 +413,22 @@ class _GlobalReducer:
 
     def min(self, x):
         return x.min(0).values if x.shape[0] else torch.full(
-            (), _max_sentinel(x.dtype), dtype=x.dtype, device=x.device)
+            tuple(x.shape[1:]), _max_sentinel(x.dtype), dtype=x.dtype,
+            device=x.device)
 
     def max(self, x):
         return x.max(0).values if x.shape[0] else torch.full(
-            (), _min_sentinel(x.dtype), dtype=x.dtype, device=x.device)
+            tuple(x.shape[1:]), _min_sentinel(x.dtype), dtype=x.dtype,
+            device=x.device)
+
+    def hll(self, valid, hashed, m):
+        gid = torch.zeros(hashed.shape[0], dtype=torch.int64,
+                          device=hashed.device)
+        return hll_update(gid, valid, hashed, 1, m)[0]
+
+    def gather(self, per_group):
+        return per_group
+
 
 def _rank_reduce(codes, live, red, vocab, fn: str):
     """min/max over dictionary codes in LEXICOGRAPHIC order: map codes to
@@ -335,6 +440,35 @@ def _rank_reduce(codes, live, red, vocab, fn: str):
         r = red.max(_fill(ranks, live, -1))
     table = unrank_table(vocab, codes.device)
     return table[r.clamp(0, table.shape[0] - 1)]
+
+
+def _merge_variance(red, m_in, m2_in, cnt_raw, mask):
+    """Merge partial (mean, m2, n) states: Chan's parallel combination
+    generalized to k partials, M2 = sum(m2_i + n_i (mean_i - mean)^2),
+    with the (sum n_i dev_i)^2 / n term that cancels the rounding error of
+    the computed mean."""
+    live = mask & (cnt_raw > 0)
+    nw = _fill(cnt_raw, live, 0)
+    cnt = red.sum(nw)
+    nf = nw.to(torch.float64)
+    n = cnt.clamp(min=1).to(torch.float64)
+    mean = red.sum(nf * _fill(m_in, live, 0.0)) / n
+    dev = m_in - red.gather(mean)
+    wdev = red.sum(_fill(nf * dev, live, 0.0))
+    m2 = red.sum(_fill(m2_in + nf * dev * dev, live, 0.0)) - wdev * wdev / n
+    return mean + wdev / n, m2, cnt
+
+
+def _raw_variance(red, data, valid, cnt):
+    """Corrected two-pass central moments: the mean first, then squared
+    deviations with the (sum dev)^2 / n term that cancels the first pass's
+    rounding error — stable for any magnitude."""
+    x = data.to(torch.float64)
+    n = cnt.clamp(min=1).to(torch.float64)
+    mean = red.sum(_fill(x, valid, 0.0)) / n
+    dev = _fill(x - red.gather(mean), valid, 0.0)
+    s1 = red.sum(dev)
+    return mean + s1 / n, red.sum(dev * dev) - s1 * s1 / n, cnt
 
 
 def _segment_aggs(aggs: Sequence[AggSpec], col_data, col_valid,
@@ -349,21 +483,42 @@ def _segment_aggs(aggs: Sequence[AggSpec], col_data, col_valid,
             n_state = len(agg.state_types())
             s_cols = list(range(state_cursor, state_cursor + n_state))
             state_cursor += n_state
+            if agg.fn == "approx_percentile":
+                raise NotImplementedError(
+                    "grouped approx_percentile is drain-only "
+                    "(see percentile_drains)")
+            if agg.fn == "approx_distinct":
+                # HLL merge: per-bucket max of register rows; 0 is the
+                # register identity, so dead rows drop out
+                regs = col_data[s_cols[0]]
+                results.append((red.max(_fill(regs, mask[:, None], 0))
+                                .clamp(min=0),))
+                continue
             if agg.fn in ("count", "count_star"):
                 results.append((red.sum(_fill(col_data[s_cols[0]], mask, 0)),))
+                continue
+            if agg.fn in _VARIANCE_FNS:
+                results.append(_merge_variance(
+                    red, col_data[s_cols[0]], col_data[s_cols[1]],
+                    col_data[s_cols[2]], mask))
                 continue
             val_in = col_data[s_cols[0]]
             cnt_raw = col_data[s_cols[1]]
             cnt = red.sum(_fill(cnt_raw, mask, 0))
             live = mask & (cnt_raw > 0)
             vocab = col_dicts[s_cols[0]] if col_dicts else None
-            if vocab is not None and agg.fn in ("min", "max"):
+            if val_in.ndim == 2:
+                # long-decimal limb states
+                val = (_checked_sum128(val_in, live, red.sum)
+                       if agg.fn in ("sum", "avg")
+                       else _minmax128(val_in, live, red, agg.fn))
+            elif vocab is not None and agg.fn in ("min", "max"):
                 val = _rank_reduce(val_in, live, red, vocab, agg.fn)
             elif agg.fn in ("sum", "avg"):
                 val = red.sum(_fill(val_in, live, 0))
-            elif agg.fn == "min":
+            elif agg.fn in ("bool_and", "min"):
                 val = red.min(_fill(val_in, live, _max_sentinel(val_in.dtype)))
-            else:
+            else:                                     # max, bool_or
                 val = red.max(_fill(val_in, live, _min_sentinel(val_in.dtype)))
             results.append((val, cnt))
             continue
@@ -374,16 +529,39 @@ def _segment_aggs(aggs: Sequence[AggSpec], col_data, col_valid,
         valid = col_valid[agg.input] & mask
         if agg.mask is not None:
             valid = valid & col_data[agg.mask].to(torch.bool)
+        vocab = col_dicts[agg.input] if col_dicts else None
+        if agg.fn == "approx_distinct":
+            results.append((red.hll(valid, hashed_column(data, vocab),
+                                    hll_m(agg.param)),))
+            continue
         cnt = red.count(valid)
         if agg.fn == "count":
             results.append((cnt,))
             continue
-        vocab = col_dicts[agg.input] if col_dicts else None
+        if agg.fn in _VARIANCE_FNS:
+            results.append(_raw_variance(red, data, valid, cnt))
+            continue
+        if agg.fn in ("bool_and", "bool_or"):
+            x = data.to(torch.int32)
+            val = (red.min(_fill(x, valid, 1)) if agg.fn == "bool_and"
+                   else red.max(_fill(x, valid, 0)))
+            results.append((val, cnt))
+            continue
         if vocab is not None and agg.fn in ("min", "max"):
             results.append((_rank_reduce(data, valid, red, vocab, agg.fn),
                             cnt))
             continue
-        acc_dtype = agg.state_types()[0][1].storage_dtype
+        acc_t = agg.state_types()[0][1]
+        if getattr(acc_t, "storage_width", None):
+            # decimal(38) accumulation: short inputs sign-extend to limbs,
+            # long inputs pass through; sums are exact digit-plane sums
+            x = data if data.ndim == 2 else I.from_i64(data)
+            val = (_checked_sum128(x, valid, red.sum)
+                   if agg.fn in ("sum", "avg")
+                   else _minmax128(x, valid, red, agg.fn))
+            results.append((val, cnt))
+            continue
+        acc_dtype = acc_t.storage_dtype
         x = data.to(acc_dtype)
         if agg.fn in ("sum", "avg"):
             val = red.sum(_fill(x, valid, 0))
@@ -395,12 +573,75 @@ def _segment_aggs(aggs: Sequence[AggSpec], col_data, col_valid,
     return results
 
 
+def _checked_sum128(x: torch.Tensor, live: torch.Tensor,
+                    red_sum) -> torch.Tensor:
+    """Exact 128-bit sum of limb pairs [n, 2] with overflow poisoning:
+    groups whose true sum exceeds 38 digits (or that merge an already
+    poisoned partial) yield the OVERFLOW_SENTINEL, which raises
+    NUMERIC_VALUE_OUT_OF_RANGE when decoded (the deferred analogue of the
+    reference DecimalSumAggregation throw)."""
+    planes = _fill(I.digit_sum_tiles(x), live[:, None], 0)
+    val, ovf = I.from_digit_sum_tiles_checked(red_sum(planes))
+    ovf = ovf | ~I.fits_decimal(val, 38)
+    poisoned = red_sum((live & I.is_overflow_sentinel(x))
+                       .to(torch.int64)) > 0
+    return I.where(ovf | poisoned, I.sentinel_like(val), val)
+
+
+def _minmax128(x: torch.Tensor, live: torch.Tensor, red,
+               fn: str) -> torch.Tensor:
+    """min/max over limb pairs [n, 2]: lexicographic (hi, unsigned lo) in
+    two reductions — reduce hi, then lo among rows tied at the winning
+    hi."""
+    h, l = I.hi(x), I.sortable_lo(x)
+    op = red.min if fn == "min" else red.max
+    sent = _max_sentinel(h.dtype) if fn == "min" else _min_sentinel(h.dtype)
+    mh = op(_fill(h, live, sent))
+    tie = live & (h == red.gather(mh))
+    ml = op(_fill(l, tie, sent))
+    return I.pack(mh, ml ^ I.SIGN64)
+
+
+def _finalize_dec128(agg: AggSpec, val: torch.Tensor, cnt: torch.Tensor):
+    """Long-decimal finalize: the avg divide (poisoned past the 2^31-row
+    divisor bound and through overflowed sums), short-output narrowing.
+    ``val`` is [..., 2] limbs."""
+    out_t = agg.output_type
+    short_out = isinstance(out_t, T.DecimalType) and not out_t.is_long
+    if agg.fn == "avg":
+        q = I.div_round_half_up(val, cnt.clamp(1, 1 << 31))
+        bad = I.is_overflow_sentinel(val) | (cnt > (1 << 31))
+        val = I.where(bad, I.sentinel_like(q), q)
+    return I.lo(val) if short_out else val
+
+
+def _variance_out(agg: AggSpec, mean, m2, cnt):
+    """(mean, m2, count) central-moment state -> variance / stddev."""
+    del mean
+    n = cnt.clamp(min=1).to(torch.float64)
+    pop = agg.fn in ("var_pop", "stddev_pop")
+    den = n if pop else (n - 1.0).clamp(min=1.0)
+    var = m2.clamp(min=0.0) / den
+    out = torch.sqrt(var) if agg.fn.startswith("stddev") else var
+    return out, (cnt > 0) if pop else (cnt > 1)
+
+
 def _finalize(agg: AggSpec, parts):
     """state -> (output data, output validity)."""
     if agg.fn in ("count", "count_star"):
         return parts[0], torch.ones_like(parts[0], dtype=torch.bool)
+    if agg.fn == "approx_distinct":
+        regs = parts[0]
+        return hll_estimate(regs), torch.ones(
+            regs.shape[:-1], dtype=torch.bool, device=regs.device)
+    if agg.fn in _VARIANCE_FNS:
+        return _variance_out(agg, *parts)
     val, cnt = parts
     valid = cnt > 0
+    if agg.fn in ("bool_and", "bool_or"):
+        return val > 0, valid
+    if val.ndim == cnt.ndim + 1:
+        return _finalize_dec128(agg, val, cnt), valid
     if agg.fn == "avg":
         den = cnt.clamp(min=1)
         if isinstance(agg.output_type, T.DecimalType):
@@ -410,6 +651,131 @@ def _finalize(agg: AggSpec, parts):
             return out.to(torch.int64), valid
         return val / den.to(val.dtype), valid
     return val.to(agg.output_type.storage_dtype), valid
+
+
+# -- drained aggregates (grouped / string approx_percentile) ------------------
+
+def _percentile_input(batch: Batch, input_idx: int, mask_idx):
+    """(valid, sort value, unrank) of a percentile input column: dictionary
+    codes map through lexicographic ranks so value order is string order;
+    unrank maps the winner back to a code."""
+    c = batch.columns[input_idx]
+    if c.data.ndim == 2:
+        raise NotImplementedError(
+            "grouped approx_percentile over decimal(>18) is not "
+            "supported (cast to decimal(18,s) or double)")
+    valid = c.validity & batch.row_mask
+    if mask_idx is not None:
+        valid = valid & batch.columns[mask_idx].data.to(torch.bool)
+    vdata, unrank = c.data, None
+    if c.dictionary is not None:
+        vdata = rank_codes(vdata, c.dictionary)
+        unrank = unrank_table(c.dictionary, vdata.device)
+    elif vdata.dtype == torch.bool:
+        vdata = vdata.to(torch.int32)
+    return valid, vdata, unrank
+
+
+def _select_ks(aggs: Sequence[AggSpec], nvalid: torch.Tensor):
+    """Per-agg nearest-rank index (0-based) within the valid run."""
+    ks = []
+    for agg in aggs:
+        p = float(agg.param if agg.param is not None else 0.5)
+        k = torch.ceil(p * nvalid.to(torch.float64)).to(torch.int64) - 1
+        ks.append(torch.minimum(k.clamp(min=0), (nvalid - 1).clamp(min=0)))
+    return ks
+
+
+def _unranked(data, unrank):
+    if unrank is None:
+        return data
+    return unrank[data.clamp(0, unrank.shape[0] - 1)]
+
+
+def _grouped_percentiles(batch: Batch, group_indices: Sequence[int],
+                         aggs: Sequence[AggSpec], cap: int):
+    """Nearest-rank percentiles per group for aggregates sharing one
+    (input, mask): ONE segmented sort by (group keys, value), k
+    selections. Valid values sort first within each group, so the k-th
+    smallest valid value sits at (group start + k). Group order comes from
+    the shared _group_key_ops operands, so outputs align positionally with
+    grouped_aggregate's rows."""
+    valid, vdata, unrank = _percentile_input(batch, aggs[0].input,
+                                             aggs[0].mask)
+    key_ops = _group_key_ops(batch, group_indices)
+    val_null = (~valid).to(torch.int32)
+    ops = key_ops + [val_null, _fill(vdata, valid, 0)]
+    perm = lexsort_permutation(ops)
+    s_live = batch.row_mask[perm]
+    s_keys = [k[perm] for k in key_ops[1:]]
+    s_vnull, s_vals = val_null[perm], ops[-1][perm]
+    boundary, group_id, num_groups = _boundary_groups(s_keys, s_live)
+    red = _SlotReducers(group_id, cap)
+    nvalid = red.sum((s_live & (s_vnull == 0)).to(torch.int64))
+    bidx = _first_slots(boundary, cap, batch.capacity - 1)
+    out_mask = torch.arange(cap, device=batch.device) < num_groups
+    results = []
+    for k in _select_ks(aggs, nvalid):
+        sel = (bidx + k).clamp(0, batch.capacity - 1)
+        results.append((_unranked(s_vals[sel], unrank),
+                        (nvalid > 0) & out_mask))
+    return results
+
+
+def _global_percentiles(batch: Batch, aggs: Sequence[AggSpec]):
+    """Single-group nearest-rank percentiles (one sort, k selections)."""
+    valid, vdata, unrank = _percentile_input(batch, aggs[0].input,
+                                             aggs[0].mask)
+    ops = [(~valid).to(torch.int32), _fill(vdata, valid, 0)]
+    s_vals = ops[1][lexsort_permutation(ops)]
+    n = valid.sum(dtype=torch.int64)
+    return [(_unranked(s_vals[k], unrank), n > 0)
+            for k in _select_ks(aggs, n)]
+
+
+def _drain_groups(aggs):
+    """Drain aggs grouped by shared (input, mask): one sort per group."""
+    groups: dict = {}
+    for agg in aggs:
+        if agg.fn in DRAIN_FNS:
+            groups.setdefault((agg.input, agg.mask), []).append(agg)
+    return groups
+
+
+def _with_drain_aggs(batch: Batch, group_indices, aggs, mode,
+                     output_capacity) -> Batch:
+    """grouped_aggregate with approx_percentile columns spliced in."""
+    if mode != "single":
+        raise NotImplementedError(
+            "approx_percentile requires single-step aggregation "
+            "(the planner routes such plans through a drain)")
+    regular = [a for a in aggs if a.fn not in DRAIN_FNS]
+    # the drains align with the regular aggregates POSITIONALLY (both
+    # orders come from _group_key_ops), so the dense path must not run
+    base = grouped_aggregate(batch, group_indices, regular, "single",
+                             output_capacity, allow_dense=False)
+    computed = {}
+    for shared in _drain_groups(aggs).values():
+        for agg, res in zip(shared, _grouped_percentiles(
+                batch, group_indices, shared, base.capacity)):
+            computed[id(agg)] = res
+    nk = len(group_indices)
+    out_cols = list(base.columns[:nk])
+    out_fields = list(zip(base.schema.names[:nk], base.schema.types[:nk]))
+    ri = nk
+    for agg in aggs:
+        if agg.fn in DRAIN_FNS:
+            data, valid = computed[id(agg)]
+            out_fields.append((agg.name or agg.fn, agg.output_type))
+            out_cols.append(Column(
+                agg.output_type, data.to(agg.output_type.storage_dtype),
+                valid, batch.columns[agg.input].dictionary
+                if agg.output_type.is_string else None))
+        else:
+            out_cols.append(base.columns[ri])
+            out_fields.append((base.schema.names[ri], base.schema.types[ri]))
+            ri += 1
+    return Batch(Schema(out_fields), out_cols, base.row_mask)
 
 
 def _pad_to(arr: torch.Tensor, K: int, cap: int) -> torch.Tensor:
@@ -431,12 +797,17 @@ def grouped_aggregate(batch: Batch, group_indices: Sequence[int],
     layout. ``key_bounds`` (one Optional[(lo, hi)] per key) lets integer
     keys join the dense composite-code path."""
     assert mode in ("single", "partial", "final", "merge")
-    _check_ported(aggs)
+    if has_drain_agg(aggs):
+        return _with_drain_aggs(batch, group_indices, aggs, mode,
+                                output_capacity)
     cap = output_capacity or batch.capacity
     from_states = mode in ("final", "merge")
     n_keys = len(group_indices)
+    # wide states (HLL registers, decimal(38) limb pairs) take the sort
+    # path, as in the reference
+    wide = _wide_state_aggs(aggs)
     plan = (dense_group_plan(batch, group_indices, cap, key_bounds)
-            if allow_dense else None)
+            if allow_dense and not wide else None)
     dev = batch.device
     if plan is not None:
         # no-sort path: group id straight from the key data; the output
@@ -460,6 +831,11 @@ def grouped_aggregate(batch: Batch, group_indices: Sequence[int],
     else:
         s_data, s_valid, s_mask, boundary, group_id, num_groups = \
             _group_sort(batch, group_indices)
+        if wide and output_capacity is None:
+            # wide states are [cap, width] tensors and their sums go
+            # through [cap, 4] digit planes: size them by the group count,
+            # not by the input's lanes (one host sync)
+            cap = min(cap, bucket_capacity(max(int(num_groups), 1)))
         bidx = _first_slots(boundary, cap, batch.capacity - 1)
         out_mask = torch.arange(cap, device=dev) < num_groups
         key_cols = [Column(batch.columns[gi].type, s_data[gi][bidx],
@@ -469,16 +845,11 @@ def grouped_aggregate(batch: Batch, group_indices: Sequence[int],
         # sorted-run starts; absent groups point one past the end
         starts = torch.where(out_mask, bidx, batch.capacity).to(torch.int32)
         red = _SegReducers(group_id, cap, starts)
-        if from_states:
-            seg = _segment_aggs(aggs, s_data[n_keys:], s_valid[n_keys:],
-                                s_mask, red, from_states=True,
-                                col_dicts=[c.dictionary
-                                           for c in batch.columns[n_keys:]])
-        else:
-            seg = _segment_aggs(aggs, s_data, s_valid, s_mask, red,
-                                from_states=False,
-                                col_dicts=[c.dictionary
-                                           for c in batch.columns])
+        first = n_keys if from_states else 0
+        seg = _segment_aggs(aggs, s_data[first:], s_valid[first:], s_mask,
+                            red, from_states=from_states,
+                            col_dicts=[c.dictionary
+                                       for c in batch.columns[first:]])
 
     def value_dict(agg: AggSpec):
         """Dictionary for a string-valued min/max output/state column."""
@@ -516,39 +887,122 @@ def grouped_aggregate(batch: Batch, group_indices: Sequence[int],
     return Batch(Schema(out_fields), out_cols, out_mask)
 
 
+def _global_drains(batch: Batch, aggs: Sequence[AggSpec]) -> Batch:
+    """Single-mode global aggregation with exact percentile columns (the
+    drain callers and string inputs)."""
+    base = global_aggregate(batch, [a for a in aggs
+                                    if a.fn not in DRAIN_FNS], "single")
+    computed = {}
+    for shared in _drain_groups(aggs).values():
+        for agg, res in zip(shared, _global_percentiles(batch, shared)):
+            computed[id(agg)] = res
+    cap, dev = base.capacity, batch.device
+    out_cols: List[Column] = []
+    out_fields: List[Tuple[str, Type]] = []
+    ri = 0
+    for agg in aggs:
+        if agg.fn in DRAIN_FNS:
+            data, valid = computed[id(agg)]
+            dt = agg.output_type.storage_dtype
+            col = torch.zeros(cap, dtype=dt, device=dev)
+            col[0] = data.to(dt)
+            ok = torch.zeros(cap, dtype=torch.bool, device=dev)
+            ok[0] = valid
+            out_fields.append((agg.name or agg.fn, agg.output_type))
+            out_cols.append(Column(agg.output_type, col, ok,
+                                   batch.columns[agg.input].dictionary
+                                   if agg.output_type.is_string else None))
+        else:
+            out_cols.append(base.columns[ri])
+            out_fields.append((base.schema.names[ri], base.schema.types[ri]))
+            ri += 1
+    return Batch(Schema(out_fields), out_cols, base.row_mask)
+
+
+def _global_percentile_state(batch: Batch, agg: AggSpec, cols,
+                             from_states: bool) -> torch.Tensor:
+    """[QD_BINS] histogram of a global numeric approx_percentile: merged
+    state rows, or one pass over the raw input."""
+    mask = batch.row_mask
+    if from_states:
+        return _fill(cols[0].data, mask[:, None], 0).sum(0)
+    c = batch.columns[agg.input]
+    if c.dictionary is not None:
+        raise NotImplementedError(
+            "approx_percentile over strings is drain-only "
+            "(see percentile_drains)")
+    valid = c.validity & mask
+    if agg.mask is not None:
+        valid = valid & batch.columns[agg.mask].data.to(torch.bool)
+    # long decimals: histogram over the float64 image of the unscaled
+    # value (monotone, so the percentile's bin is the same)
+    values = I.to_f64(c.data) if c.data.ndim == 2 else c.data
+    return qd_update(valid, values.to(torch.float64))
+
+
+def _percentile_out(agg: AggSpec, counts: torch.Tensor):
+    p = float(agg.param if agg.param is not None else 0.5)
+    val, ok = qd_estimate(counts, p)
+    out_t = agg.output_type
+    if isinstance(out_t, T.DecimalType) and out_t.is_long:
+        val = I.from_f64(torch.round(val))
+    elif not out_t.storage_dtype.is_floating_point:
+        val = torch.round(val)
+    return val, ok
+
+
 def global_aggregate(batch: Batch, aggs: Sequence[AggSpec],
                      mode: str = "single") -> Batch:
     """Aggregation without GROUP BY: one output row, even over empty input
     (reference AggregationOperator.java). 'merge' consumes state columns
     and emits merged state columns."""
     assert mode in ("single", "partial", "final", "merge")
-    _check_ported(aggs)
+    if has_drain_agg(aggs) and mode == "single":
+        return _global_drains(batch, aggs)
     cap = 128  # minimum bucket; one live row
     dev = batch.device
     mask = batch.row_mask
     out_mask = torch.arange(cap, device=dev) < 1
     from_states = mode in ("final", "merge")
     cols = batch.columns
-    seg = _segment_aggs(aggs, [c.data for c in cols],
-                        [c.validity for c in cols], mask, _GlobalReducer(),
-                        from_states=from_states,
-                        col_dicts=[c.dictionary for c in cols])
+    regular = [a for a in aggs if a.fn != "approx_percentile"]
+    if from_states:
+        # state columns of the regular aggregates, in their order
+        reg_cols, cursor = [], 0
+        for a in aggs:
+            n = len(a.state_types())
+            if a.fn != "approx_percentile":
+                reg_cols.extend(cols[cursor:cursor + n])
+            cursor += n
+    else:
+        reg_cols = cols
+    seg = iter(_segment_aggs(regular, [c.data for c in reg_cols],
+                             [c.validity for c in reg_cols], mask,
+                             _GlobalReducer(), from_states=from_states,
+                             col_dicts=[c.dictionary for c in reg_cols]))
 
-    def pad(scalar: torch.Tensor, dtype) -> torch.Tensor:
-        out = torch.zeros(cap, dtype=dtype, device=dev)
-        out[0] = scalar.to(dtype)
+    def pad(value: torch.Tensor, dtype) -> torch.Tensor:
+        out = torch.zeros((cap,) + tuple(value.shape), dtype=dtype,
+                          device=dev)
+        out[0] = value.to(dtype)
         return out
 
     out_fields: List[Tuple[str, Type]] = []
     out_cols: List[Column] = []
     state_cursor = 0
-    for agg, parts in zip(aggs, seg):
+    for agg in aggs:
         n_state = len(agg.state_types())
+        my_cols = cols[state_cursor:state_cursor + n_state]
         vd = None
         if agg.fn in ("min", "max") and agg.input is not None:
-            vd = (cols[state_cursor].dictionary if from_states
+            vd = (my_cols[0].dictionary if from_states
                   else cols[agg.input].dictionary)
         state_cursor += n_state
+        if agg.fn == "approx_percentile":
+            parts = (_global_percentile_state(batch, agg, my_cols,
+                                              from_states),)
+        else:
+            parts = next(seg)
         if mode in ("partial", "merge"):
             for (fname, ftype), arr in zip(agg.state_types(), parts):
                 out_fields.append((fname, ftype))
@@ -556,7 +1010,10 @@ def global_aggregate(batch: Batch, aggs: Sequence[AggSpec],
                                        out_mask,
                                        vd if ftype.is_string else None))
             continue
-        data, valid = _finalize(agg, parts)
+        if agg.fn == "approx_percentile":
+            data, valid = _percentile_out(agg, parts[0])
+        else:
+            data, valid = _finalize(agg, parts)
         dt = agg.output_type.storage_dtype
         out_fields.append((agg.name or agg.fn, agg.output_type))
         out_cols.append(Column(agg.output_type, pad(data, dt),

@@ -22,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..batch import Batch, Column, Schema
+from ..batch import Batch, Column, Schema, gather_rows, map_parts
 
 _I64_MAX = torch.iinfo(torch.int64).max
 _FLIP = 0x7FFFFFFFFFFFFFFF
@@ -292,7 +292,7 @@ def lookup_join(probe: Batch, build: Batch, probe_keys: Sequence[int],
     for ci, name in zip(payload, payload_names):
         c = build.columns[ci]
         out_fields.append((name, c.type))
-        out_cols.append(Column(c.type, c.data[rows],
+        out_cols.append(Column(c.type, gather_rows(c.data, rows),
                                c.validity[rows] & match, c.dictionary))
     mask = match if join_type == "inner" else probe.row_mask
     return Batch(Schema(out_fields), out_cols, mask)
@@ -378,12 +378,13 @@ def expand_join(probe: Batch, build: Batch, probe_keys: Sequence[int],
     flat = matched.reshape(-1)
     out_fields = list(zip(probe.schema.names, probe.schema.types))
     out_cols: List[Column] = [
-        Column(c.type, _tile(c.data, k), _tile(c.validity, k), c.dictionary)
+        Column(c.type, map_parts(c.data, lambda a: _tile(a, k)),
+               _tile(c.validity, k), c.dictionary)
         for c in probe.columns]
     for ci, name in zip(payload, payload_names):
         c = build.columns[ci]
         out_fields.append((name, c.type))
-        out_cols.append(Column(c.type, c.data[rows],
+        out_cols.append(Column(c.type, gather_rows(c.data, rows),
                                c.validity[rows] & flat, c.dictionary))
     if join_type == "inner":
         mask = flat

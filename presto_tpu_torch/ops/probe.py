@@ -22,7 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..batch import Batch, Column, Schema
+from ..batch import Batch, Column, Schema, gather_rows
 from . import kernels
 from .join import (
     _key_arrays, direct_slot_codes, direct_tables, is_direct_prepared,
@@ -148,19 +148,35 @@ def direct_probe(codes: torch.Tensor, lo_table: torch.Tensor,
     return cnt, vb, outs
 
 
+def _kernel_columns(build: Batch, payload: Sequence[int]):
+    """The payload columns the kernel gathers, and where the rest go.
+    An ARRAY or MAP column is a tuple of tensors of no fixed element
+    width, so the kernel gathers the build's row index in its place (one
+    int64 column, appended once) and the composite's parts are indexed
+    with it; every other column rides the kernel."""
+    flat = [ci for ci in payload
+            if not isinstance(build.columns[ci].data, tuple)]
+    return flat, len(flat) < len(payload)
+
+
 def sorted_payload(build: Batch, payload: Sequence[int], prepared):
     """Build payload columns in SORTED build order plus their validity
     bit-planes (one int32 plane per group of 31 columns, and one for a
     join without payload). A join computes this once per build and reuses
     it for every probe batch."""
     _, _, perm = split_prepared(prepared)
+    flat, routed = _kernel_columns(build, payload)
+    cols = [(build.columns[ci].data[perm], build.columns[ci].validity[perm])
+            for ci in flat]
+    if routed:
+        cols.append((perm.to(torch.int64),
+                     torch.ones_like(perm, dtype=torch.bool)))
     data, planes = [], []
-    for g in range(0, max(len(payload), 1), VBITS_COLUMNS):
+    for g in range(0, max(len(cols), 1), VBITS_COLUMNS):
         vb = torch.zeros(perm.shape[0], dtype=torch.int32, device=perm.device)
-        for j, ci in enumerate(payload[g:g + VBITS_COLUMNS]):
-            c = build.columns[ci]
-            data.append(c.data[perm])
-            vb = vb | (c.validity[perm].to(torch.int32) << j)
+        for j, (d, v) in enumerate(cols[g:g + VBITS_COLUMNS]):
+            data.append(d)
+            vb = vb | (v.to(torch.int32) << j)
         planes.append(vb)
     return data, planes
 
@@ -191,12 +207,19 @@ def lookup_join_direct(probe: Batch, build: Batch,
         gathered.extend(outs)
         vbs.append(vb)
     match = cnt > 0            # codes already folded row_mask/valid/inr
+    flat, routed = _kernel_columns(build, payload)
+    rows = gathered[len(flat)] if routed else None
     out_fields = list(zip(probe.schema.names, probe.schema.types))
     out_cols: List[Column] = list(probe.columns)
-    for j, (ci, name) in enumerate(zip(payload, payload_names)):
+    for ci, name in zip(payload, payload_names):
         c = build.columns[ci]
-        bit = (vbs[j // VBITS_COLUMNS] >> (j % VBITS_COLUMNS)) & 1
         out_fields.append((name, c.type))
+        if ci not in flat:
+            out_cols.append(Column(c.type, gather_rows(c.data, rows),
+                                   c.validity[rows] & match, c.dictionary))
+            continue
+        j = flat.index(ci)
+        bit = (vbs[j // VBITS_COLUMNS] >> (j % VBITS_COLUMNS)) & 1
         out_cols.append(Column(c.type, gathered[j], (bit > 0) & match,
                                c.dictionary))
     mask = match if join_type == "inner" else probe.row_mask

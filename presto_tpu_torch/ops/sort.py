@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..batch import Batch, Column
+from ..batch import Batch, Column, gather_rows
 from .join import lexsort_permutation
 
 
@@ -64,7 +64,11 @@ def _sortable(col: Column, key: SortKey) -> List[torch.Tensor]:
     else:
         null_rank = (~valid).to(torch.int32)
     if data.ndim == 2:
-        raise NotImplementedError("sorting long decimals is not ported")
+        # long-decimal limb pairs: (signed hi, unsigned-ordered lo)
+        h, l = data[:, 0], data[:, 1] ^ (-(1 << 63))
+        if not key.ascending:
+            h, l = ~h, ~l
+        return [null_rank, torch.where(valid, h, 0), torch.where(valid, l, 0)]
     if col.type.is_string:
         data = rank_codes(data, col.dictionary)
     if data.dtype == torch.bool:
@@ -88,7 +92,8 @@ def sort_permutation(batch: Batch, keys: Sequence[SortKey]) -> torch.Tensor:
 
 def permute_batch(batch: Batch, perm: torch.Tensor) -> Batch:
     """Gather every row-aligned array of a batch by ``perm``."""
-    cols = [Column(c.type, c.data[perm], c.validity[perm], c.dictionary)
+    cols = [Column(c.type, gather_rows(c.data, perm), c.validity[perm],
+                   c.dictionary)
             for c in batch.columns]
     return Batch(batch.schema, cols, batch.row_mask[perm])
 

@@ -33,7 +33,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .. import types as T
-from ..batch import Batch, Column, Schema
+from ..batch import Batch, Column, Schema, gather_rows
 from ..types import Type
 from .join import lexsort_permutation
 from .sort import SortKey, _sortable, rank_codes, unrank_table
@@ -228,10 +228,13 @@ def _partition_operands(batch: Batch, partition_by) -> List[torch.Tensor]:
     ops: List[torch.Tensor] = []
     for pi in partition_by:
         c = batch.columns[pi]
-        if c.data.ndim == 2:
-            raise NotImplementedError(
-                "partitioning a window by long decimals is not ported")
         ops.append((~c.validity).to(torch.int32))
+        if c.data.ndim == 2:
+            # long-decimal limb pairs: two operands (hi, unsigned lo)
+            ops.append(torch.where(c.validity, c.data[:, 0], 0))
+            ops.append(torch.where(c.validity, c.data[:, 1] ^ (-(1 << 63)),
+                                   0))
+            continue
         d = c.data.to(torch.int32) if c.data.dtype == torch.bool else c.data
         # neutralize NULL rows' storage so stale values can't split one
         # NULL partition into many
@@ -278,7 +281,8 @@ def evaluate_window(
     s_part = [op[perm] for op in part_ops]
     s_order = [op[perm] for op in order_ops]
     mask = batch.row_mask[perm]
-    s_cols = [(c.data[perm], c.validity[perm]) for c in batch.columns]
+    s_cols = [(gather_rows(c.data, perm), c.validity[perm])
+              for c in batch.columns]
 
     idx = torch.arange(cap, dtype=torch.int64, device=dev)
     first = torch.zeros(cap, dtype=torch.bool, device=dev)

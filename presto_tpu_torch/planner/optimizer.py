@@ -662,9 +662,12 @@ def _prune(node: PlanNode, required: List[int]) -> Tuple[PlanNode, Dict[int, int
                        [node.fields[i] for i in req]), mapping
 
     if isinstance(node, LimitNode):
+        # a child that does not prune (Unnest) keeps all its fields, so
+        # narrow through cmap rather than assume the child shrank to req
         child, cmap = _prune(node.child, req)
-        return (LimitNode(child=child, count=node.count, fields=child.fields),
-                mapping)
+        inner = LimitNode(child=child, count=node.count, fields=child.fields)
+        return _narrow(inner, [cmap[i] for i in req],
+                       [node.fields[i] for i in req]), mapping
 
     if isinstance(node, DistinctNode):
         # distinct is over ALL columns: cannot prune through it
@@ -677,8 +680,9 @@ def _prune(node: PlanNode, required: List[int]) -> Tuple[PlanNode, Dict[int, int
     if isinstance(node, UnionNode):
         new_children = []
         for c in node.children:
-            nc, _ = _prune(c, req)
-            new_children.append(nc)
+            nc, cmap = _prune(c, req)
+            new_children.append(_narrow(nc, [cmap[i] for i in req],
+                                        [c.fields[i] for i in req]))
         fields = tuple(node.fields[i] for i in req)
         return (UnionNode(children_=tuple(new_children), fields=fields,
                           distinct=node.distinct), mapping)

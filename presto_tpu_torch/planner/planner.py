@@ -1607,7 +1607,7 @@ def _parse_approx_distinct_error(analyzer, call) -> float:
         raise AnalysisError(
             "approx_distinct standard error must be a constant")
     param = float(e_expr.value)
-    raise NotImplementedError("approx_distinct is not ported")
+    from ..ops.sketch import MAX_STANDARD_ERROR, MIN_STANDARD_ERROR
     if not (MIN_STANDARD_ERROR <= param <= MAX_STANDARD_ERROR):
         raise AnalysisError(
             "approx_distinct standard error must be in "

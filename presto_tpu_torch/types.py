@@ -156,8 +156,7 @@ class DecimalType(Type):
     stores a two-limb [capacity, 2] i64 tile — value = hi * 2**64 +
     (lo mod 2**64), the TPU-columnar shape of the reference's Int128
     (reference spi/type/DecimalType.java MAX_PRECISION = 38,
-    spi/block/Int128ArrayBlock.java). The port carries long-decimal
-    storage but no long-decimal arithmetic yet.
+    spi/block/Int128ArrayBlock.java; limb arithmetic in ops/int128.py).
     """
 
     precision: int = 18

@@ -36,6 +36,8 @@ def test_sources_found():
     # the scan-cache slice: its modules are held to the same rule
     assert {"scancache.py", "local_exchange.py", "stats.py", "memory.py",
             "metrics.py", "config.py", "printer.py"} <= names
+    # the SQL-surface slice: long decimals, sketches, arrays
+    assert {"int128.py", "sketch.py", "array_functions.py"} <= names
 
 
 def test_runner_without_device_needs_a_gpu(monkeypatch):

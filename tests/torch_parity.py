@@ -23,12 +23,21 @@ def port_type(t):
     return PT.parse_type(t.display())
 
 
+def _host(data):
+    """A JAX column's data as numpy: one array, or the tuple of an ARRAY
+    or MAP column; long decimals stay [cap, 2] limb pairs."""
+    if isinstance(data, tuple):
+        return tuple(np.asarray(a) for a in data)
+    return np.asarray(data)
+
+
 def to_port(jbatch, device="cpu") -> TBatch:
-    """The same batch (capacity, padding lanes, vocabularies) in the port."""
+    """The same batch (capacity, padding lanes, vocabularies) in the port,
+    long-decimal limb pairs and ARRAY / MAP tuple columns included."""
     schema = TSchema([(f.name, port_type(f.type))
                       for f in jbatch.schema.fields])
     return TBatch.from_numpy(
-        schema, [np.asarray(c.data) for c in jbatch.columns],
+        schema, [_host(c.data) for c in jbatch.columns],
         [np.asarray(c.validity) for c in jbatch.columns],
         np.asarray(jbatch.row_mask),
         [c.dictionary for c in jbatch.columns], device=device)
