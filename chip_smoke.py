@@ -74,7 +74,28 @@ result line):
    run (integers, decimals, dates and strings exactly, doubles within rel
    1e-9), prints per statement the walls, the rows, the peak device
    memory and the launches of each kernel, and fails unless both kernels
-   launched in the phase.
+   launched in the phase;
+8. files: BASELINE config 5 and the file catalogs. Writes TPC-H SF1 with
+   the port's own writers into a temporary directory (lineitem's 16
+   columns in ORC_LINEITEM_FILES ORC files, orders and customer in one
+   each, stripes of 2^16 rows; lineitem's PARQUET_COLUMNS in
+   PARQUET_FILES Parquet files), times each Q1 column's decode alone on
+   one thread (per ORC stripe and per Parquet row group), runs Q6, Q1
+   and Q3 over ORC and Q6 and Q1 over Parquet on ``cuda`` (scan cache
+   off, then cold and warm), each against the TPC-H catalog's CPU rows
+   of the path phase, printing per run the wall, the stripes or row
+   groups read and pruned, the host decode seconds, the peak device
+   memory, the RLEv2 runs over 56 bits decoded on the host and the
+   launches of each kernel, and for each query the device busy time of
+   its expansions (the kernels under the readers' torch.profiler
+   ranges, in one more run with the cache off and the splits and join
+   probe sides on one thread) beside the host decode seconds; runs CONFIG5_SQL (config 5's scan-filter-project) against the
+   CPU run and fails unless it pruned a stripe; prints the ``[device``
+   lines, the kernels section and the Verdict line of EXPLAIN ANALYZE of
+   ORC Q3 and Q6 with the scan cache off (the decode path); checks that
+   a warm profiled ORC Q3's per-operator device seconds lie between
+   torch.profiler's busy time and the query's wall; fails unless both
+   kernels launched in the phase.
 
 Every breakdown line times the plan's table scans twice: with the scan
 cache cleared (host generation and the copy to the card) and as a warm
@@ -84,7 +105,8 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or presto_tpu.
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1 and 2 alone and
-prints the kernels line; ``--surface-only`` runs phases 1 and 7 alone.
+prints the kernels line; ``--surface-only`` runs phases 1 and 7 alone,
+``--files-only`` phases 1 and 8 (its CPU reference rows computed there).
 Either times whichever ``presto_tpu_torch`` sits beside the script, so
 a copy of the script placed in a checkout of another commit measures
 that commit (turn by turn with this one, in one call, to compare them).
@@ -94,6 +116,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -203,6 +226,23 @@ from unnest(sequence(1, 100000)) with ordinality as t(x, o)"""),
 #: rows a block of csrc/scan.cu sums (ops/scan.py TILE_ROWS); a constant
 #: here so that the script also times kernels of commits that predate it
 SCAN_TILE_ROWS = 2048
+#: the files phase: TPC-H SF1 lineitem (all 16 columns) in this many ORC
+#: files, orders and customer in one each, every file in stripes of the
+#: writer's default 2^16 rows; lineitem's Q1 and Q6 columns in this many
+#: Parquet files of one row group each
+FILES_SF = 1
+ORC_LINEITEM_FILES = 4
+PARQUET_FILES = 8
+PARQUET_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
+                   "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
+#: BASELINE config 5's scan-filter-project, returning rows: an
+#: l_orderkey range over the clustered key, which must prune stripes
+CONFIG5_SQL = """
+select l_orderkey, l_linenumber, l_extendedprice * (1 - l_discount) as
+       disc_price, l_shipdate, l_shipmode
+from lineitem
+where l_orderkey between 1000000 and 1060000 and l_quantity < 24
+"""
 
 
 def fail(phase: str, msg: str) -> None:
@@ -989,11 +1029,263 @@ def phase_surface(torch):
     return launches
 
 
+def write_tpch_files(root: str, sf: float) -> str:
+    """TPC-H ``sf`` written with the port's writers under ``root``:
+    ``orc/{lineitem,orders,customer}`` and ``parquet/lineitem`` (the
+    PARQUET_COLUMNS). Returns a line of seconds and sizes."""
+    from presto_tpu_torch.connectors.spi import TableHandle
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+    from presto_tpu_torch.formats.orc_writer import write_orc
+    from presto_tpu_torch.formats.parquet import write_parquet_batches
+    tp = TpchConnector(sf=sf)
+    out = []
+
+    def batches(split, cols):
+        return tp.page_source(split, list(cols), rows_per_batch=1 << 20,
+                              device="cpu").batches()
+
+    def size(d):
+        return sum(os.path.getsize(os.path.join(d, f))
+                   for f in os.listdir(d))
+
+    for table, files in (("lineitem", ORC_LINEITEM_FILES), ("orders", 1),
+                         ("customer", 1)):
+        th = TableHandle("tpch", "default", table)
+        schema = tp.metadata.table_schema(th)
+        d = os.path.join(root, "orc", table)
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        rows = 0
+        for i, split in enumerate(tp.split_manager.splits(th, files)):
+            rows += write_orc(os.path.join(d, f"part{i}.orc"), schema,
+                              batches(split, schema.names))
+        out.append(f"orc {table} {rows} rows {size(d) / 2**20:.1f} MiB "
+                   f"{time.perf_counter() - t0:.3f} s")
+    th = TableHandle("tpch", "default", "lineitem")
+    schema = tp.metadata.table_schema(th).select(PARQUET_COLUMNS)
+    d = os.path.join(root, "parquet", "lineitem")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    rows = 0
+    for i, split in enumerate(tp.split_manager.splits(th, PARQUET_FILES)):
+        rows += write_parquet_batches(os.path.join(d, f"part{i}.parquet"),
+                                      schema, batches(split, schema.names))
+    out.append(f"parquet lineitem {rows} rows {size(d) / 2**20:.1f} MiB "
+               f"{time.perf_counter() - t0:.3f} s")
+    return " | ".join(out)
+
+
+def _decode_breakdown(torch, root: str) -> None:
+    """Each of Q1's columns decoded alone, on one thread, from the first
+    ORC lineitem file (per stripe) and the first Parquet file (per row
+    group): where a cold file scan's host time goes."""
+    from presto_tpu_torch.formats.orc import OrcReader
+    from presto_tpu_torch.formats.parquet import ParquetReader
+    dev = torch.device("cuda")
+    orc = OrcReader(os.path.join(root, "orc", "lineitem", "part0.orc"))
+    pq = ParquetReader(os.path.join(root, "parquet", "lineitem",
+                                    "part0.parquet"))
+    out = []
+    for kind, reader, units in (("orc", orc, len(orc.tail.stripes)),
+                                ("parquet", pq, len(pq.row_groups))):
+        for col in PARQUET_COLUMNS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in reader.batches([col], device=dev):
+                pass
+            torch.cuda.synchronize()
+            out.append(f"{kind} {col} "
+                       f"{(time.perf_counter() - t0) / units * 1e3:.2f}")
+    print(f"files decode breakdown (ms a stripe / a row group, one "
+          f"thread): {' | '.join(out)}", flush=True)
+
+
+def _file_counters():
+    from presto_tpu_torch.formats import decodestats as ds
+    from presto_tpu_torch.ops import probe, scan
+    return {"stripes read": ds.ORC_STRIPES_READ,
+            "stripes pruned": ds.ORC_STRIPES_PRUNED,
+            "orc files pruned": ds.ORC_FILES_PRUNED,
+            "row groups read": ds.PARQUET_GROUPS_READ,
+            "row groups pruned": ds.PARQUET_GROUPS_PRUNED,
+            "host decode s": ds.HOST_SECONDS,
+            "wide host decodes": ds.WIDE_HOST_DECODES}, (scan, probe)
+
+
+def phase_files(torch, tpch_cpu_rows=None):
+    """BASELINE config 5 and the file catalogs on the card: TPC-H SF1
+    written as ORC and Parquet by the port's writers, Q6, Q1 and Q3 over
+    ORC and Q6 and Q1 over Parquet (scan cache off, then cold and warm)
+    against the TPC-H catalog's CPU rows, the config-5 scan-filter-project
+    that must prune stripes, EXPLAIN ANALYZE of ORC Q3 and Q6, and the
+    profiler against torch.profiler's busy time over a warm ORC Q3.
+    Returns the launches of the phase."""
+    import tempfile
+
+    from presto_tpu_torch.connectors.orc import OrcConnector
+    from presto_tpu_torch.connectors.parquet import ParquetConnector
+    from presto_tpu_torch.connectors.spi import CatalogManager
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.scancache import CACHE
+    from presto_tpu_torch.formats.decodestats import EXPANSION
+    from torch.profiler import ProfilerActivity, profile
+    queries = _queries()
+    counters, (scan, probe) = _file_counters()
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="files_")
+    try:
+        print(f"files write: {write_tpch_files(root, FILES_SF)}",
+              flush=True)
+        _decode_breakdown(torch, root)
+        if tpch_cpu_rows is None:
+            cpu = LocalRunner(tpch_sf=FILES_SF, device="cpu",
+                              rows_per_batch=ROWS_PER_BATCH)
+            tpch_cpu_rows = {n: cpu.execute(queries[n]).rows
+                             for n in PATH_QUERIES}
+        runners = {}
+        for kind, conn in (("orc", OrcConnector), ("parquet",
+                                                   ParquetConnector)):
+            cm = CatalogManager()
+            cm.register(kind, conn(os.path.join(root, kind)))
+            runners[kind] = LocalRunner(catalogs=cm, catalog=kind)
+        scan.launches = 0
+        probe.launches = 0
+
+        def run(kind, name, sql, label, properties=None):
+            before = {k: c.value for k, c in counters.items()}
+            launched = (scan.launches, probe.launches)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = runners[kind].execute(sql, properties=properties)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = {k: c.value - before[k] for k, c in counters.items()}
+            print(f"files {kind} {name} {label}: wall {wall:.3f} s | "
+                  f"{int(delta['stripes read'])} stripes read "
+                  f"{int(delta['stripes pruned'])} pruned, "
+                  f"{int(delta['row groups read'])} row groups read "
+                  f"{int(delta['row groups pruned'])} pruned | host decode "
+                  f"{delta['host decode s']:.3f} s | peak "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
+                  f"widths over 56 on the host "
+                  f"{int(delta['wide host decodes'])} | launches scan "
+                  f"{scan.launches - launched[0]} probe "
+                  f"{probe.launches - launched[1]}", flush=True)
+            return res, wall, delta
+
+        def expansion_seconds(kind, sql):
+            """Device busy seconds of the expansions of one scan with the
+            cache off: the kernels under the EXPANSION ranges in a
+            torch.profiler trace. Splits and join probe sides run inline,
+            on the thread the profiler follows (it records no other)."""
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                res = runners[kind].execute(sql, properties={
+                    "scan_cache": False, "scan_prefetch": False,
+                    "probe_prefetch": False})
+                torch.cuda.synchronize()
+            ranges = [e for e in prof.events() if e.name == EXPANSION]
+            return (res, len(ranges),
+                    sum(e.device_time_total for e in ranges) / 1e6)
+
+        for kind, names in (("orc", PATH_QUERIES), ("parquet", ("q6",
+                                                                "q1"))):
+            for name in names:
+                CACHE.clear()
+                for label, props in (("scan_cache=false",
+                                      {"scan_cache": False}),
+                                     ("cold", None), ("warm", None)):
+                    res, _, delta = run(kind, name, queries[name], label,
+                                        props)
+                    _same_rows(res.rows, tpch_cpu_rows[name], 1e-9)
+                    if label == "scan_cache=false":
+                        host_s = delta["host decode s"]
+                print(f"files {kind} {name}: {len(res.rows)} rows match the "
+                      "TPC-H cpu run (scan cache off, cold and warm)",
+                      flush=True)
+                res, n_ranges, dev_s = expansion_seconds(kind,
+                                                         queries[name])
+                _same_rows(res.rows, tpch_cpu_rows[name], 1e-9)
+                print(f"files {kind} {name} decode: host decode "
+                      f"{host_s:.3f} s (scan_cache=false run) vs "
+                      f"expansion kernels {dev_s:.6f} s over {n_ranges} "
+                      "expansions (torch.profiler, scan_cache=false, "
+                      "splits and probe sides inline)", flush=True)
+                # every ORC integer column expands on the device; Parquet's
+                # PLAIN pages (Q6 reads only those) have nothing to expand
+                if kind == "orc" and n_ranges == 0:
+                    raise AssertionError(f"no expansion range in the "
+                                         f"{kind} {name} trace")
+
+        # BASELINE config 5: scan-filter-project returning rows
+        res, wall, delta = run("orc", "config5", CONFIG5_SQL,
+                               "scan_cache=false", {"scan_cache": False})
+        want = LocalRunner(tpch_sf=FILES_SF, device="cpu",
+                           rows_per_batch=ROWS_PER_BATCH).execute(
+            CONFIG5_SQL).rows
+        _same_rows(sorted(res.rows), sorted(want), 1e-9)
+        print(f"files orc config5: {len(res.rows)} rows match the TPC-H cpu "
+              f"run; {int(delta['stripes pruned'])} stripes pruned "
+              f"({int(delta['orc files pruned'])} whole files), "
+              f"{int(delta['stripes read'])} read", flush=True)
+        if not res.rows or delta["stripes pruned"] <= 0:
+            raise AssertionError("the config-5 range pruned no stripe")
+
+        for name in ("q3", "q6"):
+            # the decode path is the question: is the file scan input-bound?
+            text = [r[0] for r in runners["orc"].execute(
+                "explain analyze " + queries[name],
+                properties={"scan_cache": False}).rows]
+            for line in text:
+                if ("[device " in line or line.startswith(
+                        ("Kernels", "  segment_sum", "  direct_probe",
+                         "Verdict:", "Total:"))):
+                    print(f"files explain {name}: {line.strip()}",
+                          flush=True)
+            if not any(line.startswith("Verdict: ") for line in text):
+                raise AssertionError(f"EXPLAIN ANALYZE of {name} printed "
+                                     "no Verdict line")
+
+        # the profiler against torch.profiler over the same warm Q3
+        gpu = runners["orc"]
+        gpu.execute(queries["q3"])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            gpu.execute(queries["q3"], properties={"profile": True})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+        ops = sum(st.device_time_s
+                  for st in gpu.last_stats.by_node.values())
+        print(f"files profiler q3 warm: per-operator device "
+              f"{ops * 1e3:.3f} ms | torch.profiler busy "
+              f"{busy * 1e3:.3f} ms | wall {wall * 1e3:.3f} ms", flush=True)
+        if not busy <= ops <= wall:
+            raise AssertionError("the per-operator device seconds lie "
+                                 "outside [busy, wall]")
+        from presto_tpu_torch.obs import profiler
+        print(f"files hbm: {json.dumps(profiler.hbm_totals())} | kernel "
+              f"records: {json.dumps(profiler.KERNELS.snapshot())}",
+              flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {"segment_sum_sorted_i64": scan.launches,
+                "direct_probe": probe.launches}
+    print(f"files launches: {json.dumps(launches)} | phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError("a kernel never launched in the files phase")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     kernels_only = sys.argv[1:] == ["--kernels-only"]
     surface_only = sys.argv[1:] == ["--surface-only"]
-    if sys.argv[1:] and not (kernels_only or surface_only):
+    files_only = sys.argv[1:] == ["--files-only"]
+    if sys.argv[1:] and not (kernels_only or surface_only or files_only):
         fail("device", f"unknown arguments {sys.argv[1:]}")
     try:
         import torch
@@ -1006,7 +1298,7 @@ def main() -> None:
     except ImportError as e:
         fail("device", f"the presto_tpu_torch package is missing: {e}")
     try:
-        phase_device(torch)
+        card = phase_device(torch)
     except Exception as e:  # noqa: BLE001 - report the phase, exit nonzero
         fail("device and build", f"{type(e).__name__}: {e}")
     if surface_only:
@@ -1014,6 +1306,12 @@ def main() -> None:
             phase_surface(torch)
         except Exception as e:  # noqa: BLE001
             fail("surface", f"{type(e).__name__}: {e}")
+        return
+    if files_only:
+        try:
+            phase_files(torch)
+        except Exception as e:  # noqa: BLE001
+            fail("files", f"{type(e).__name__}: {e}")
         return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -1044,13 +1342,19 @@ def main() -> None:
         surface_launches = phase_surface(torch)
     except Exception as e:  # noqa: BLE001
         fail("surface", f"{type(e).__name__}: {e}")
+    try:
+        files_launches = phase_files(torch, tpch_cpu_rows)
+    except Exception as e:  # noqa: BLE001
+        fail("files", f"{type(e).__name__}: {e}")
     for entry in entries:
         # launches over every phase that drives the engine: path, tpch,
-        # tpcds, scan and surface
+        # tpcds, scan, surface and files
         entry["launches"] = sum(p[entry["name"]] for p in (
             launches, tpch_launches, tpcds_launches, scan_launches,
-            surface_launches))
+            surface_launches, files_launches))
     print(f"total wall {time.perf_counter() - t_start:.3f} s", flush=True)
+    # the card line again, so a log kept only from its tail still has it
+    print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,6 +46,9 @@ _sp("join_dense_path", "boolean", True,
 _sp("probe_prefetch", "boolean", True,
     "run a join's probe side on a producer thread while its build side "
     "drains")
+_sp("profile", "boolean", False,
+    "time each operator's frames and each kernel launch on the device "
+    "(obs/profiler.py; always on under EXPLAIN ANALYZE)")
 _sp("push_partial_aggregation_through_join", "boolean", True,
     "eager aggregation below joins when the grouping key covers the "
     "probe join key")

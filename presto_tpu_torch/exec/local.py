@@ -53,6 +53,7 @@ from ..expr.compiler import (
 from ..expr.rewrite import referenced_inputs, remap_inputs
 from ..expr.rewrite import rewrite as ir_rewrite
 from ..memory import QueryMemoryPool, batch_device_bytes
+from ..obs import profiler
 from ..ops.aggregation import (
     AggSpec, dense_path_selected, global_aggregate, grouped_aggregate,
     mark_distinct_flags, percentile_drains,
@@ -134,21 +135,30 @@ def execute_plan(plan: LogicalPlan, session: Session, device,
     ex = _Executor(session, rows_per_batch, torch.device(device),
                    stats=stats)
     ex.cancel_event = cancel_event
-    run_init_plans(ex, plan)
+    # device-time profiling (obs/profiler.py): per-operator frames timed
+    # on the device and kernel launches bracketed. On under the `profile`
+    # session property, and always under EXPLAIN ANALYZE, which already
+    # pays a host sync per batch for live row counts; plain queries pay
+    # one contextvar load per frame and launch
+    profile_on = stats is not None and (
+        bool_property(session, "profile", False) or stats.count_rows)
     root = plan.root
     out: List[Batch] = []
-    it = ex.run(root.child)
-    try:
-        for b in it:
-            ex._check_cancel()
-            if collect_rows:
-                out.append(b)
-    finally:
-        # closing the root generator runs every suspended finally below
-        # it (the threaded scan's stop and join) on error, cancel or LIMIT
-        close = getattr(it, "close", None)
-        if close is not None:
-            close()
+    with profiler.profiled(profile_on, ex.device):
+        run_init_plans(ex, plan)
+        it = ex.run(root.child)
+        try:
+            for b in it:
+                ex._check_cancel()
+                if collect_rows:
+                    out.append(b)
+        finally:
+            # closing the root generator runs every suspended finally
+            # below it (the threaded scan's stop and join) on error,
+            # cancel or LIMIT
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
     ex.check_errors()
     return QueryResult(names=[f.name for f in root.fields],
                        types=[f.type for f in root.fields],
@@ -414,10 +424,17 @@ class _Executor:
         if node in self._shared:
             with self._memo_locks_lock:
                 lock = self._memo_locks.setdefault(node, threading.Lock())
-            with lock:
+            if not lock.acquire(blocking=False):
+                # another thread runs the subplan, in frames that may need
+                # this thread's profile frame lock
+                with profiler.blocking():
+                    lock.acquire()
+            try:
                 if node in self._materialized:
                     return iter(self._materialized[node])
                 return self._run_memoized(node, m)
+            finally:
+                lock.release()
         it = m(node)
         if self.stats is not None:
             it = self.stats.wrap(node, it)
@@ -822,6 +839,7 @@ class _Executor:
         lkeys, rkeys = list(node.left_keys), list(node.right_keys)
         build = self._drain(node.right)
         dyn = prep = sorted_cols = maxk = None
+        unique = node.build_unique
         if build is not None:
             summary = self._build_summary(build, rkeys)
             if dyn_on:
@@ -834,10 +852,16 @@ class _Executor:
                 build = build.compact(scap, check=False)
             prep = self._prepare_join_build(build, rkeys, summary,
                                             node.key_bounds)
-            if node.build_unique and is_direct_prepared(prep):
-                sorted_cols = sorted_payload(build, payload, prep)
             if not node.build_unique:
                 maxk = self._build_multiplicity(prep)
+                # a direct build the planner could not prove unique (file
+                # catalogs declare no keys) whose keys measure unique
+                # probes like a unique one: the same rows in the same
+                # lanes as the expansion at one match a row
+                unique = (maxk == 1 and is_direct_prepared(prep)
+                          and residual_outer is None)
+            if unique and is_direct_prepared(prep):
+                sorted_cols = sorted_payload(build, payload, prep)
         track_full = node.join_type == "full" and build is not None
         build_matched = None
         full_acc = ({"m": None} if track_full and residual_outer is not None
@@ -861,7 +885,7 @@ class _Executor:
                 continue
             for out in self._probe_batches(node, probe, build, payload,
                                            payload_names, prep, sorted_cols,
-                                           maxk):
+                                           maxk, unique):
                 if residual_fn is not None:
                     out = residual_fn(out)
                 yield compact(out)
@@ -1015,13 +1039,13 @@ class _Executor:
 
     def _probe_batches(self, node: JoinNode, probe: Batch, build: Batch,
                        payload, payload_names, prepared, sorted_cols,
-                       maxk) -> Iterator[Batch]:
+                       maxk, unique: bool) -> Iterator[Batch]:
         schema = _plan_schema(node)
         lkeys, rkeys = list(node.left_keys), list(node.right_keys)
         # FULL OUTER probes like LEFT; _join_once emits the unmatched
         # build tail
         jt = "left" if node.join_type == "full" else node.join_type
-        if node.build_unique:
+        if unique:
             out = self._dispatch_lookup(probe, build, lkeys, rkeys, payload,
                                         payload_names, jt, prepared,
                                         sorted_cols)

@@ -25,6 +25,7 @@ import threading
 from typing import Callable, Iterator, List, Optional
 
 from ..batch import Batch
+from ..obs import profiler
 
 _DONE = object()
 
@@ -88,11 +89,14 @@ class LocalExchange:
         if self._producer is not None and self._producer.is_alive():
             # bounded: the producer notices _closed within one 0.1 s put
             # timeout; anything longer is upstream work finishing a batch
-            self._producer.join(timeout=5.0)
+            # (which may need this thread's profile frame lock)
+            with profiler.blocking():
+                self._producer.join(timeout=5.0)
 
     def start_producer(self, produce: Callable[[], None]) -> None:
         """Run ``produce`` on an owned daemon thread that close() joins,
-        in a copy of the caller's context."""
+        in a copy of the caller's context (so a profiled query's frames
+        and kernel launches there are timed and attributed too)."""
         ctx = contextvars.copy_context()
         self._producer = threading.Thread(target=ctx.run, args=(produce,),
                                           daemon=True,
@@ -116,7 +120,13 @@ class LocalExchange:
     def consumer(self, c: int) -> Iterator[Batch]:
         q = self._queues[c]
         while True:
-            item = q.get()
+            try:
+                item = q.get_nowait()
+            except _queue.Empty:
+                # the producer's frames need this thread's profile frame
+                # lock (obs/profiler.py) to make the next batch
+                with profiler.blocking():
+                    item = q.get()
             if item is _DONE:
                 if self._failed is not None:
                     raise self._failed

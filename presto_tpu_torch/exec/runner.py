@@ -3,10 +3,13 @@
 The counterpart of ``presto_tpu/exec/runner.py`` (reference
 presto-main/.../testing/LocalQueryRunner.java:210): parse -> analyze and
 plan -> optimize -> execute, with in-process connectors. Besides queries
-it serves EXPLAIN [ANALYZE] (text), SET / RESET / SHOW SESSION, and the
-memory catalog's CREATE TABLE AS, INSERT INTO and DROP TABLE, like the
-reference's DataDefinitionTask dispatch. It has no system catalog,
-transactions, security, query log, history, serving caches or events.
+it serves EXPLAIN [ANALYZE] (text; ANALYZE profiles the operators' device
+time and appends the kernels and verdict sections), SET / RESET / SHOW
+SESSION, and CREATE TABLE AS (with ``partitioned_by`` on the file
+catalogs), INSERT INTO and DROP TABLE on the writable catalogs (memory,
+ORC, Parquet), like the reference's DataDefinitionTask dispatch. It has
+no system catalog, transactions, security, query log, history, serving
+caches or events.
 
 The runner works on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present it raises rather than carry on
@@ -29,6 +32,7 @@ from ..device import resolve_device
 from ..planner.optimizer import optimize
 from ..planner.planner import LogicalPlan, Session, _schema_exists, plan_query
 from ..planner.printer import (
+    format_cost_verdict, format_executables_summary,
     format_scan_cache_summary, format_skew_summary, print_plan,
 )
 from ..sql import ast as A
@@ -152,7 +156,9 @@ class LocalRunner:
         text = print_plan(plan, stats)
         if stats is not None:
             for section in (format_skew_summary(stats),
-                            format_scan_cache_summary(stats, self.device)):
+                            format_scan_cache_summary(stats, self.device),
+                            format_executables_summary(stats),
+                            format_cost_verdict(stats)):
                 if section:
                     text += "\n" + section
         return QueryResult(["Query Plan"], [T.VARCHAR],
@@ -191,14 +197,23 @@ class LocalRunner:
     def _ctas(self, stmt: A.CreateTableAsSelect, session: Session,
               cancel_event) -> QueryResult:
         conn, table = self._writable(stmt.name)
-        if stmt.properties:
-            raise NotImplementedError(
-                "CREATE TABLE AS with table properties is not ported")
+        props = dict(stmt.properties)
+        part_by = props.pop("partitioned_by", ())
+        if props:
+            raise ValueError(
+                f"unknown table properties: {sorted(props)}")
         schema, batches = self._run_to_batches(stmt.query, session,
                                                cancel_event)
         if table in conn.tables and stmt.if_not_exists:
             return QueryResult(["rows"], [T.BIGINT], [(0,)])
-        conn.create_table(table, schema, if_not_exists=stmt.if_not_exists)
+        if part_by:
+            # the file catalogs route rows into key=value directories
+            conn.create_table(table, schema,
+                              if_not_exists=stmt.if_not_exists,
+                              partitioned_by=list(part_by))
+        else:
+            conn.create_table(table, schema,
+                              if_not_exists=stmt.if_not_exists)
         n = sum(conn.append(table, Batch(schema, b.columns, b.row_mask))
                 for b in batches)
         return QueryResult(["rows"], [T.BIGINT], [(n,)])

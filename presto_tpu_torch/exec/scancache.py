@@ -29,7 +29,11 @@ the executor (exec/local.py):
   Consumer-side waits are prefetch stalls, the histogram that says
   whether a query is input-bound. The workers are handed the runner's
   device and copy on their thread's default stream: a pageable,
-  synchronous copy on the stream the consumer's kernels also use.
+  synchronous copy on the stream the consumer's kernels also use. They
+  run in a copy of the scan's context, so under a profile context each
+  batch they decode is a frame of the scan operator
+  (``obs/profiler.resumed_frame``); the consumer's waits on them release
+  its frame lock (``profiler.blocking``).
 
 - **Bucketed capacity padding**: the ragged final chunk of a split pads
   up to the scan stream's bucket, so every batch of a stream has one
@@ -49,6 +53,7 @@ Not ported yet: the fair device scheduler's stall credit
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import queue as _queue
 import threading
@@ -60,6 +65,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 from ..batch import Batch, bucket_capacity
 from ..connectors import spi
 from ..memory import QueryMemoryPool, batch_device_bytes
+from ..obs import profiler
 from ..obs.metrics import REGISTRY
 from ..planner.planner import bool_property
 
@@ -460,15 +466,20 @@ def scan_splits(conn, catalog: str, columns: Sequence[str],
         _SHARED_ATTACH.inc()
         t_stall = time.perf_counter()
         deadline = t_stall + SHARED_WAIT_S
-        done = True
+        # the owner may be a profiled query that needs the frame lock
+        with profiler.blocking():
+            done = _wait_published(fl, deadline)
+        stall(time.perf_counter() - t_stall)
+        return done and fl.batches is not None
+
+    def _wait_published(fl: _InFlight, deadline: float) -> bool:
+        """Wait for the owner's batches; False past ``deadline``."""
         while not fl.event.wait(0.1):
             if check_cancel is not None:
                 check_cancel()
             if time.perf_counter() > deadline:
-                done = False      # wedged producer: decode solo
-                break
-        stall(time.perf_counter() - t_stall)
-        return done and fl.batches is not None
+                return False      # wedged producer: decode solo
+        return True
 
     def split_batches(i: int, split) -> Iterator[Batch]:
         t0 = time.perf_counter()
@@ -592,7 +603,11 @@ def scan_splits(conn, catalog: str, columns: Sequence[str],
             try:
                 # ``start + i``: split numbers stay global when the warm
                 # fast path served a prefix
-                for b in gen:
+                while True:
+                    with profiler.resumed_frame():
+                        b = next(gen, done_marker)
+                    if b is done_marker:
+                        break
                     if not put(queues[i], b):
                         return
             except BaseException as e:  # re-raised on the consumer side
@@ -603,7 +618,10 @@ def scan_splits(conn, catalog: str, columns: Sequence[str],
             put(queues[i], done_marker)
 
     n_workers = max(1, min(int(opts.threads), len(splits)))
-    workers = [threading.Thread(target=worker, daemon=True,
+    # each worker in its own copy of this context: the scan's operator
+    # and profile session (one context cannot run on two threads)
+    workers = [threading.Thread(target=contextvars.copy_context().run,
+                                args=(worker,), daemon=True,
                                 name=f"scan-prefetch-{j}")
                for j in range(n_workers)]
     for w in workers:
@@ -616,7 +634,8 @@ def scan_splits(conn, catalog: str, columns: Sequence[str],
                 except _queue.Empty:
                     # the consumer outran the prefetcher: an input stall
                     t_stall = time.perf_counter()
-                    item = q.get()
+                    with profiler.blocking():
+                        item = q.get()
                     stall(time.perf_counter() - t_stall)
                 if item is done_marker:
                     break
@@ -627,7 +646,9 @@ def scan_splits(conn, catalog: str, columns: Sequence[str],
                 yield item
     finally:
         stop.set()
-        for w in workers:
-            # bounded: workers notice ``stop`` within one 0.1 s put timeout
-            # (or when the batch they are generating is done)
-            w.join(timeout=2.0)
+        # a profiled worker may wait for this thread's frame lock
+        with profiler.blocking():
+            for w in workers:
+                # bounded: workers notice ``stop`` within one 0.1 s put
+                # timeout (or when the batch they are generating is done)
+                w.join(timeout=2.0)

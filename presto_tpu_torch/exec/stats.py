@@ -8,7 +8,11 @@ analyze mode where a host sync per batch is acceptable, live rows.
 
 Wall time is inclusive (a node's clock runs while it waits on its
 children), so the printer reports exclusive time by subtracting the
-children's. The profiler's device-time attribution is not ported.
+children's. Under a profile context (``obs/profiler.py``: the
+``profile`` session property, or EXPLAIN ANALYZE) each iterator frame is
+also timed on the device, exclusive of its children's frames, into
+``NodeStats.device_time_s``, and each hand-kernel launch made in the
+frame is charged to the node's kernel table (``record_device``).
 """
 from __future__ import annotations
 
@@ -17,6 +21,8 @@ import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
+from ..obs import profiler
+
 
 @dataclasses.dataclass
 class NodeStats:
@@ -24,6 +30,9 @@ class NodeStats:
     batches: int = 0
     rows: int = 0                # live rows (analyze mode only)
     capacity: int = 0            # total batch capacity emitted
+    #: device seconds of this operator's frames, exclusive of its
+    #: children's (profile mode only: obs/profiler.operator_frame)
+    device_time_s: float = 0.0
 
 
 class StatsCollector:
@@ -46,6 +55,9 @@ class StatsCollector:
         self.cache_hits = 0
         self.cache_misses = 0
         self.prefetch_stall_s = 0.0
+        #: plan node -> {KernelRecord: [launches, device_s, bytes]}: the
+        #: hand kernels each operator launched while profiled
+        self.exe_by_node: Dict[object, Dict[object, list]] = {}
         # prefetch worker threads record concurrently: an unlocked += would
         # drop updates
         self._lock = threading.Lock()
@@ -60,6 +72,54 @@ class StatsCollector:
     def record_stall(self, seconds: float) -> None:
         with self._lock:
             self.prefetch_stall_s += seconds
+
+    def record_frame(self, node, seconds: float) -> None:
+        """Charge one profiled iterator frame's exclusive device seconds
+        to a plan operator (obs/profiler.operator_frame's sink)."""
+        with self._lock:
+            self.by_node.setdefault(node, NodeStats()).device_time_s += \
+                seconds
+
+    def record_device(self, node, seconds: float, record,
+                      nbytes: int = 0) -> None:
+        """Charge one profiled kernel launch to a plan operator's kernel
+        table (obs/profiler.kernel_call's sink). Its seconds already lie
+        inside the operator's frame time."""
+        with self._lock:
+            ent = self.exe_by_node.setdefault(node, {}).setdefault(
+                record, [0, 0.0, 0])
+            ent[0] += 1
+            ent[1] += seconds
+            ent[2] += nbytes
+
+    def device_for(self, node) -> Optional[Dict]:
+        """Per-operator device account for the printer: frame seconds,
+        the seconds and bound-formula bytes of its kernel launches. None
+        when the operator was not profiled."""
+        st = self.by_node.get(node)
+        kernels = self.exe_by_node.get(node) or {}
+        if (st is None or st.device_time_s <= 0.0) and not kernels:
+            return None
+        return {"device_time_s": st.device_time_s if st else 0.0,
+                "kernel_s": sum(e[1] for e in list(kernels.values())),
+                "bytes": sum(e[2] for e in list(kernels.values()))}
+
+    def executables_used(self) -> List[Dict]:
+        """This query's hand kernels, aggregated across operators, by
+        device time: the EXPLAIN ANALYZE "Kernels" section's feed."""
+        agg: Dict[object, list] = {}
+        for per_node in list(self.exe_by_node.values()):
+            for rec, (n, secs, nbytes) in list(per_node.items()):
+                ent = agg.setdefault(rec, [0, 0.0, 0])
+                ent[0] += n
+                ent[1] += secs
+                ent[2] += nbytes
+        out = [{"name": rec.name, "source": rec.source, "invocations": n,
+                "device_time_s": secs, "build_seconds": rec.build_seconds,
+                "bytes_per_call": nbytes / n if n else 0.0}
+               for rec, (n, secs, nbytes) in agg.items()]
+        out.sort(key=lambda d: -d["device_time_s"])
+        return out
 
     def record_split(self, table: str, split_no: int, started_at: float,
                      wall_s: float, batches: int) -> None:
@@ -90,8 +150,14 @@ class StatsCollector:
             try:
                 while True:
                     t0 = time.perf_counter()
+                    session = profiler.active_session()
                     try:
-                        b = next(it)
+                        if session is None:
+                            b = next(it)
+                        else:
+                            with profiler.operator_frame(session, self,
+                                                         node):
+                                b = next(it)
                     except StopIteration:
                         st.wall_s += time.perf_counter() - t0
                         return

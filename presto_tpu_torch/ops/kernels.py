@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Callable, Dict, Iterable, Sequence, Tuple
 
+from ..obs import profiler
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -81,6 +83,7 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, float]:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
+        profiler.KERNELS.note_build(name, seconds[name])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return seconds

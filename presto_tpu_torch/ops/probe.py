@@ -5,7 +5,9 @@ probe lanes resolves each lane's slot against the direct-address
 lo/cnt tables, writes the match count, gathers the packed validity bits
 and every payload column. On a CUDA tensor ``direct_probe`` launches the
 kernel or raises; on a CPU tensor it runs the plain version. There is no
-fallback between the two and no breaker.
+fallback between the two and no breaker. Under a profile context
+(``obs/profiler.py``) each call is timed and charged to the kernel's
+record and to the calling operator.
 
 Payload columns are gathered at their own element width (1, 4, 8 or 16
 bytes), so no 64-bit or int128 plane split is needed. The launch's
@@ -23,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..batch import Batch, Column, Schema, gather_rows
+from ..obs import profiler
 from . import kernels
 from .join import (
     _key_arrays, direct_slot_codes, direct_tables, is_direct_prepared,
@@ -34,6 +37,10 @@ from .join import (
 #: chip_smoke.py reads ``launches``)
 launches = 0
 plain_calls = 0
+
+#: the kernel's record in the profiler's registry
+RECORD = profiler.KERNELS.register("direct_probe", "probe",
+                                   "presto_tpu_torch/csrc/probe.cu")
 
 #: payload columns whose validity fits one int32 bit-plane
 VBITS_COLUMNS = 31
@@ -113,11 +120,31 @@ def direct_probe(codes: torch.Tensor, lo_table: torch.Tensor,
     ``codes``: int32[n] slot indices, -1 for lanes that must not match.
     ``lo_table``/``cnt_table``: int32[size]. ``vbits`` and ``payload``:
     per build row in SORTED build order. Lanes without a match get zeros."""
-    global launches, plain_calls
     _check(codes, lo_table, cnt_table, vbits, payload)
+    return profiler.kernel_call(
+        RECORD, codes.device,
+        lambda out: _moved_bytes(codes, out[0], payload),
+        lambda: _probe(codes, lo_table, cnt_table, vbits, payload))
+
+
+def _moved_bytes(codes, cnt, payload) -> int:
+    """The bound formula's bytes of one launch (profile mode only: it
+    reads the lane counts back): codes read on every lane, lo/cnt read on
+    live lanes (code >= 0), vbits and payload gathered on matched lanes
+    (cnt > 0), and cnt, vb and payload written on every lane."""
+    widths = sum(_width(p) for p in payload)
+    live = int((codes >= 0).sum())
+    matched = int((cnt > 0).sum())
+    return (codes.shape[0] * (4 + 4 + 4 + widths) + 8 * live
+            + matched * (4 + widths))
+
+
+def _probe(codes, lo_table, cnt_table, vbits, payload):
+    global launches, plain_calls
     if codes.device.type == "cpu":
         with kernels.COUNT_LOCK:
             plain_calls += 1
+        RECORD.note_call(launched=False)
         return direct_probe_plain(codes, lo_table, cnt_table, vbits, payload)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
@@ -145,6 +172,7 @@ def direct_probe(codes: torch.Tensor, lo_table: torch.Tensor,
     kernels.check("probe", status, "direct_probe")
     with kernels.COUNT_LOCK:
         launches += 1
+    RECORD.note_call(launched=True)
     return cnt, vb, outs
 
 

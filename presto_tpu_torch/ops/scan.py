@@ -6,6 +6,8 @@ kernel ``csrc/scan.cu`` scans the int64 values directly (see its header
 for the design and bound). On a CUDA tensor the wrapper launches the
 kernel or raises; on a CPU tensor it runs the plain version, which
 computes the same bits with ``torch.cumsum`` and boundary gathers.
+Under a profile context (``obs/profiler.py``) each call is timed and
+charged to the kernel's record and to the calling operator.
 
 Contract (as in the reference): group members are CONTIGUOUS RUNS, dead
 rows carry zero values, ``starts[g]`` is segment g's first row (so
@@ -18,6 +20,7 @@ import ctypes
 
 import torch
 
+from ..obs import profiler
 from . import kernels
 
 #: launches of the CUDA kernel, and calls of its plain version on CPU
@@ -25,6 +28,10 @@ from . import kernels
 #: chip_smoke.py reads ``launches``)
 launches = 0
 plain_calls = 0
+
+#: the kernel's record in the profiler's registry
+RECORD = profiler.KERNELS.register("segment_sum_sorted_i64", "scan",
+                                   "presto_tpu_torch/csrc/scan.cu")
 
 #: rows a block of the CUDA kernel sums (kTile in csrc/scan.cu); the tests
 #: put run boundaries on and around its multiples
@@ -77,11 +84,21 @@ def segment_sum_sorted_i64(values: torch.Tensor, starts: torch.Tensor,
     like the reference's digit-plane sums). ``starts`` must be
     non-decreasing within [0, n]: the CUDA kernel finds each tile's
     segments by searching it."""
-    global launches, plain_calls
     _check(values, starts, num_segments)
+    # the bound formula's bytes: values read, starts read, sums written
+    return profiler.kernel_call(
+        RECORD, values.device,
+        lambda out: 8 * values.shape[0] + 12 * num_segments,
+        lambda: _segment_sum(values, starts, num_segments))
+
+
+def _segment_sum(values: torch.Tensor, starts: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    global launches, plain_calls
     if values.device.type == "cpu":
         with kernels.COUNT_LOCK:
             plain_calls += 1
+        RECORD.note_call(launched=False)
         return segment_sum_sorted_plain(values, starts, num_segments)
     if values.device.type != "cuda":
         raise ValueError(f"unsupported device {values.device}")
@@ -97,6 +114,7 @@ def segment_sum_sorted_i64(values: torch.Tensor, starts: torch.Tensor,
     kernels.check("scan", status, "segment_sum_sorted_i64")
     with kernels.COUNT_LOCK:
         launches += 1
+    RECORD.note_call(launched=True)
     return out
 
 

@@ -2,9 +2,12 @@
 
 The counterpart of the text half of ``presto_tpu/planner/printer.py``
 (reference presto-main/.../sql/planner/planprinter/PlanPrinter.java,
-textLogicalPlan). The JSON, Graphviz, distributed and IO renderings and
-the sections that read the mesh, the result cache, executables and the
-cost verdict are not ported.
+textLogicalPlan). Under EXPLAIN ANALYZE each executed node carries its
+profiled device time and its kernels' bytes (``[device ...]``), and the
+runner appends the skew, scan-cache, kernels (``format_executables_summary``)
+and verdict (``format_cost_verdict``) sections. The JSON, Graphviz,
+distributed and IO renderings and the sections that read the mesh and
+the result cache are not ported.
 """
 from __future__ import annotations
 
@@ -88,6 +91,48 @@ def format_scan_cache_summary(stats, device) -> str:
             f"prefetch stall {stall_s * 1e3:,.1f}ms")
 
 
+def format_executables_summary(stats, max_rows: int = 12) -> str:
+    """EXPLAIN ANALYZE's kernels section under profile mode: the hand
+    kernels this query launched, by device time, with their build
+    seconds and bound-formula bytes per call (obs/profiler.KERNELS holds
+    the process-lifetime view). Empty when none was profiled."""
+    used = stats.executables_used()
+    if not used:
+        return ""
+    lines = ["Kernels (this query, by device time):"]
+    for e in used[:max_rows]:
+        lines.append(
+            f"  {e['name']:<24} x{e['invocations']:<5} device "
+            f"{e['device_time_s'] * 1e3:,.1f}ms, build "
+            f"{e['build_seconds']:,.2f}s, "
+            f"{_si(e['bytes_per_call'])}B per call")
+    if len(used) > max_rows:
+        lines.append(f"  ... and {len(used) - max_rows} more")
+    return "\n".join(lines)
+
+
+def format_cost_verdict(stats) -> str:
+    """Closing EXPLAIN ANALYZE line, tf.data's framing: is the query
+    input-bound (scan decode and staging plus prefetch stall dominate)
+    or compute-bound (the other operators' device time dominates)? Empty
+    when nothing was profiled."""
+    from ..obs.profiler import cost_verdict
+    v = cost_verdict(stats)
+    if v is None:
+        return ""
+    return (f"Verdict: {v['verdict']} "
+            f"(device compute {v['compute_s'] * 1e3:,.1f}ms vs input "
+            f"{v['input_s'] * 1e3:,.1f}ms scan+stall)")
+
+
+def _si(v: float) -> str:
+    """Compact engineering notation for byte totals."""
+    for thresh, unit in ((1e12, "T"), (1e9, "G"), (1e6, "M"), (1e3, "K")):
+        if abs(v) >= thresh:
+            return f"{v / thresh:,.2f}{unit}"
+    return f"{v:,.0f}"
+
+
 def _label(n: PlanNode) -> str:
     cols = ", ".join(f"{f.name}:{f.type.display()}" for f in n.fields)
     if isinstance(n, TableScanNode):
@@ -159,6 +204,13 @@ def _walk(n: PlanNode, depth: int, lines: List[str], stats=None) -> None:
             suffix = (f"   [self {self_ms:,.1f}ms, wall "
                       f"{st.wall_s * 1e3:,.1f}ms, {st.rows:,} rows, "
                       f"{st.batches} batches]")
+            # profiled device account: the operator's frames on the
+            # device's clock (exclusive of its children) and the bytes
+            # its kernel launches move by their bound formulas
+            dev = stats.device_for(n)
+            if dev is not None:
+                suffix += (f" [device {dev['device_time_s'] * 1e3:,.1f}ms"
+                           f", {_si(dev['bytes'])}B kernels]")
         elif not isinstance(n, OutputNode):
             suffix = "   [not executed]"
     lines.append("  " * depth + "- " + _label(n) + suffix)

@@ -1,6 +1,7 @@
 """presto_tpu_torch stands alone: no module of the port, and not
-chip_smoke.py, imports JAX or anything of presto_tpu; and the runner
-never falls back to the CPU on its own."""
+chip_smoke.py, imports JAX, anything of presto_tpu, or pyarrow (the card's
+machine has none; the port writes its own ORC and Parquet files); and the
+runner never falls back to the CPU on its own."""
 import ast
 import pathlib
 
@@ -10,7 +11,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 _SOURCES = sorted((ROOT / "presto_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-_FORBIDDEN = ("jax", "jaxlib", "presto_tpu")
+_FORBIDDEN = ("jax", "jaxlib", "presto_tpu", "pyarrow")
 
 
 def _imports(path: pathlib.Path):
@@ -38,6 +39,11 @@ def test_sources_found():
             "metrics.py", "config.py", "printer.py"} <= names
     # the SQL-surface slice: long decimals, sketches, arrays
     assert {"int128.py", "sketch.py", "array_functions.py"} <= names
+    # the file-format slice: ORC and Parquet, their connectors, the
+    # profiler
+    assert {"proto.py", "thrift_compact.py", "orc_meta.py", "orc_rle.py",
+            "orc.py", "orc_writer.py", "parquet.py", "decodestats.py",
+            "filebase.py", "profiler.py"} <= names
 
 
 def test_runner_without_device_needs_a_gpu(monkeypatch):

@@ -1,5 +1,6 @@
 """Helpers shared by the tests that hold presto_tpu_torch against
-presto_tpu: carrying a JAX batch into the port, and comparing rows.
+presto_tpu: carrying a JAX batch into the port, and comparing rows and
+batches.
 
 Importing this module sets torch's CPU thread pool to one thread. The
 suite runs in several worker processes at once, and the port's tests
@@ -71,3 +72,36 @@ def assert_results_match(got, want, rel: float = 1e-12):
     assert [t.display() for t in got.types] == \
         [t.display() for t in want.types]
     assert_rows_match(got.rows, want.rows, rel)
+
+
+def _live(data, valid, mask):
+    """(live values with NULL lanes zeroed, validity) of one column as
+    exact bit patterns."""
+    data = np.asarray(data)
+    valid = np.asarray(valid)[mask]
+    live = data[mask].copy()
+    live[~valid] = 0
+    if live.dtype.kind == "f":
+        live = live.view(np.int64 if live.itemsize == 8 else np.int32)
+    return live, valid
+
+
+def assert_batches_equal(jbatch, tbatch, skip=()):
+    """The port's batch holds the reference's live rows exactly:
+    schema, validity, data bits, vocabularies and codes."""
+    assert [f.name for f in tbatch.schema.fields] == \
+        [f.name for f in jbatch.schema.fields]
+    assert [f.type.display() for f in tbatch.schema.fields] == \
+        [f.type.display() for f in jbatch.schema.fields]
+    jm = np.asarray(jbatch.row_mask)
+    tm = tbatch.row_mask.numpy()
+    assert np.array_equal(jm, tm)
+    for f, jc, tc in zip(tbatch.schema.fields, jbatch.columns,
+                         tbatch.columns):
+        if f.name in skip:
+            continue
+        jd, jv = _live(jc.data, jc.validity, jm)
+        td, tv = _live(tc.data.numpy(), tc.validity.numpy(), tm)
+        assert np.array_equal(jv, tv), f.name
+        assert np.array_equal(jd, td), f.name
+        assert tc.dictionary == jc.dictionary, f.name
