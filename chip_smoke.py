@@ -40,15 +40,15 @@ result line):
    down the slowest query's wall;
 5. tpcds: with every launch count set to 0 again, runs q27 (ROLLUP and
    GROUPING()) and the 22 queries of ``tests/tpcds_queries.py`` (star
-   joins, windows, correlated and scalar subqueries) at SF1 through
-   ``LocalRunner(tpch_sf=1, catalog="tpcds", rows_per_batch=2**23)`` on
+   joins, windows, correlated and scalar subqueries) at TPCDS_SF (0.5)
+   through ``LocalRunner(catalog="tpcds", rows_per_batch=2**23)`` on
    ``cuda`` (one cold run each) against the port's ``device="cpu"`` run
    as above, printing per query the cuda and cpu walls, the rows, the
    peak device memory and the launches of each kernel; then q55 and q27
    at SF10 (``store_sales`` 28.8 M rows, four batches), cold and warm
    on ``cuda``, against the CPU run; fails if the probe never launched
    in the phase, reports the segment sum's launches, and breaks down the
-   slowest SF1 query's wall;
+   slowest of those queries' walls;
 6. scan: the device scan cache and the prefetching scan pipeline. With
    every launch count set to 0 and the scan cache cleared, runs Q1 and Q3
    at SF1 and q55 and q27 at SF10 on ``cuda``, cold then warm, printing
@@ -64,7 +64,8 @@ result line):
    card, each read against the same statements on the CPU. Fails if
    either kernel never launched in the phase;
 7. surface: with every launch count set to 0 and the scan cache cleared,
-   runs the statements of ``SURFACE_QUERIES`` at SF1 on ``cuda``, cold
+   runs the statements of ``SURFACE_QUERIES`` at SURFACE_SF (0.5) on
+   ``cuda``, cold
    then warm: DISTINCT aggregates beside others (MarkDistinct), variance,
    boolean and sketch aggregates (HLL, the percentile histogram and its
    drained grouped form), a sort-path grouping by ``l_orderkey``, long
@@ -75,7 +76,8 @@ result line):
    1e-9), prints per statement the walls, the rows, the peak device
    memory and the launches of each kernel, and fails unless both kernels
    launched in the phase;
-8. files: BASELINE config 5 and the file catalogs. Writes TPC-H SF1 with
+8. files: BASELINE config 5 and the file catalogs. Writes TPC-H at
+   FILES_SF (0.5) with
    the port's own writers into a temporary directory (lineitem's 16
    columns in ORC_LINEITEM_FILES ORC files, orders and customer in one
    each, stripes of 2^16 rows; lineitem's PARQUET_COLUMNS in
@@ -83,7 +85,7 @@ result line):
    one thread (per ORC stripe and per Parquet row group), runs Q6, Q1
    and Q3 over ORC and Q6 and Q1 over Parquet on ``cuda`` (scan cache
    off, then cold and warm), each against the TPC-H catalog's CPU rows
-   of the path phase, printing per run the wall, the stripes or row
+   at FILES_SF, printing per run the wall, the stripes or row
    groups read and pruned, the host decode seconds, the peak device
    memory, the RLEv2 runs over 56 bits decoded on the host and the
    launches of each kernel, and for each query the device busy time of
@@ -95,7 +97,30 @@ result line):
    ORC Q3 and Q6 with the scan cache off (the decode path); checks that
    a warm profiled ORC Q3's per-operator device seconds lie between
    torch.profiler's busy time and the query's wall; fails unless both
-   kernels launched in the phase.
+   kernels launched in the phase;
+9. chains: the fused join chains. With every launch count set to 0,
+   runs the TPC-H queries of CHAIN_QUERIES at SF1 and q27 at SF10
+   (``rows_per_batch=2**23``) on ``cuda`` with ``fused_pipeline`` on
+   and off, each cold (scan cache cleared) then warm, printing
+   per run the wall, the source and tail lanes, the liveness readbacks,
+   the launches of each kernel and the peak device memory; compares on
+   with off and each with the CPU rows of the tpch and tpcds phases;
+   fails if a query took no chain with the chain on, if q27's tail lanes
+   are not below half its source lanes, or if the probe never launched
+   inside a fused tail;
+10. spill: ``LocalRunner(tpch_sf=1, rows_per_batch=2**20)`` with
+   ``dense_grouping=false`` runs SPILL_QUERIES on ``cuda`` unbudgeted
+   (scan cache cleared, then warm), then with ``query_max_memory`` at a
+   quarter of the warm run's pool peak,
+   and the join and the ORDER BY also with the disk tier
+   (``spill_to_disk_bytes``, a temporary ``spill_path``), printing per
+   run the wall, the pool peak, ``torch.cuda.max_memory_allocated``, the
+   spilled, host-staged and disk bytes, the revocations and the launches
+   of each kernel; compares each budgeted run with the unbudgeted one
+   and that with the port's ``device="cpu"`` run; fails if a budgeted
+   run's pool peak exceeds its budget or it spilled nothing, if a disk
+   run wrote no page or left a file, or if the segment sum never
+   launched in the phase.
 
 Every breakdown line times the plan's table scans twice: with the scan
 cache cleared (host generation and the copy to the card) and as a warm
@@ -106,7 +131,9 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 ``python3 chip_smoke.py --kernels-only`` runs phases 1 and 2 alone and
 prints the kernels line; ``--surface-only`` runs phases 1 and 7 alone,
-``--files-only`` phases 1 and 8 (its CPU reference rows computed there).
+``--files-only`` phases 1 and 8, ``--chains-only`` phases 1 and 9,
+``--spill-only`` phases 1 and 10 (each computes its CPU reference rows
+itself).
 Either times whichever ``presto_tpu_torch`` sits beside the script, so
 a copy of the script placed in a checkout of another commit measures
 that commit (turn by turn with this one, in one call, to compare them).
@@ -129,8 +156,11 @@ ROWS_PER_BATCH = 1 << 23
 #: the queries of the path phase; the tpch phase runs the others
 PATH_QUERIES = ("q6", "q1", "q3")
 #: the tpcds phase's scales: the battery, and q55 / q27 as the benchmark
-#: runs them
-TPCDS_SF, TPCDS_BIG_SF = 1, 10
+#: runs them. The battery and the surface phase run at SF 0.5 (SF1 up to
+#: PR 7) so that the chains and spill phases fit the script's time aim;
+#: their CPU reference runs took most of those phases' walls.
+TPCDS_SF, TPCDS_BIG_SF = 0.5, 10
+SURFACE_SF = 0.5
 #: q27 as the benchmark runs it (bench.py); tests/tpcds_queries.py
 #: carries the other queries
 TPCDS_Q27 = """
@@ -147,7 +177,7 @@ group by rollup (i_item_id, s_state)
 order by i_item_id nulls last, s_state nulls last
 limit 100
 """
-#: the surface phase's statements at SF1 (name, SQL): mixed DISTINCT,
+#: the surface phase's statements (name, SQL): mixed DISTINCT,
 #: variance, boolean and sketch aggregates, long decimals as values, keys
 #: and join payloads, the scalar functions, and UNNEST
 SURFACE_QUERIES = (
@@ -226,23 +256,64 @@ from unnest(sequence(1, 100000)) with ordinality as t(x, o)"""),
 #: rows a block of csrc/scan.cu sums (ops/scan.py TILE_ROWS); a constant
 #: here so that the script also times kernels of commits that predate it
 SCAN_TILE_ROWS = 2048
-#: the files phase: TPC-H SF1 lineitem (all 16 columns) in this many ORC
-#: files, orders and customer in one each, every file in stripes of the
-#: writer's default 2^16 rows; lineitem's Q1 and Q6 columns in this many
-#: Parquet files of one row group each
-FILES_SF = 1
+#: the files phase: TPC-H at FILES_SF, lineitem (all 16 columns) in this
+#: many ORC files, orders and customer in one each, every file in stripes
+#: of the writer's default 2^16 rows; lineitem's Q1 and Q6 columns in
+#: this many Parquet files of one row group each. SF 0.5 (SF1 up to PR 7)
+#: keeps the script near its time aim with the chains and spill phases.
+FILES_SF = 0.5
 ORC_LINEITEM_FILES = 4
 PARQUET_FILES = 8
 PARQUET_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
                    "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
 #: BASELINE config 5's scan-filter-project, returning rows: an
-#: l_orderkey range over the clustered key, which must prune stripes
-CONFIG5_SQL = """
+#: l_orderkey range over the clustered key, which must prune stripes (at
+#: SF1 keys 1 000 000 to 1 060 000 of 1.5 M orders; the range scales with
+#: FILES_SF, so it covers the same share of the table)
+def config5_sql(sf):
+    """CONFIG5_SQL at scale factor ``sf``."""
+    return f"""
 select l_orderkey, l_linenumber, l_extendedprice * (1 - l_discount) as
        disc_price, l_shipdate, l_shipmode
 from lineitem
-where l_orderkey between 1000000 and 1060000 and l_quantity < 24
+where l_orderkey between {int(1_000_000 * sf)}
+  and {int(1_060_000 * sf)} and l_quantity < 24
 """
+
+
+CONFIG5_SQL = config5_sql(FILES_SF)
+
+
+#: the chains phase: the TPC-H queries the JAX package runs through a
+#: fused join chain (q27 at SF10 joins them)
+CHAIN_QUERIES = ("q2", "q5", "q7", "q8", "q9", "q10", "q11", "q17", "q18",
+                 "q21")
+#: the spill phase: tests/test_spill.py's queries (hash aggregation, a
+#: partitioned join, a left join, DISTINCT, a full ORDER BY with a
+#: descending string key, string group keys) over TPC-H SF1 in batches
+#: of 2^20 rows, so lineitem streams as 6 batches whose partial states
+#: merge
+SPILL_QUERIES = (
+    "select l_orderkey, sum(l_quantity) q, count(*) c from lineitem "
+    "group by l_orderkey order by l_orderkey limit 50",
+    "select o_orderpriority, count(*) c from orders, lineitem "
+    "where l_orderkey = o_orderkey group by o_orderpriority "
+    "order by o_orderpriority",
+    "select count(*) c, count(o_orderkey) co from customer left join "
+    "orders on c_custkey = o_custkey",
+    "select count(*) c from (select distinct l_suppkey, l_returnflag "
+    "from lineitem) t",
+    "select o_orderstatus, o_orderkey from orders "
+    "order by o_orderstatus desc, o_orderkey",
+    "select l_returnflag, l_linestatus, count(*) c, sum(l_quantity) q "
+    "from lineitem group by l_returnflag, l_linestatus "
+    "order by l_returnflag, l_linestatus",
+)
+SPILL_ROWS_PER_BATCH = 1 << 20
+#: the join and the ORDER BY also run with the disk tier; the ORDER BY
+#: stages about 29 MiB, so the host tier is cut to 16 MiB for both
+SPILL_DISK_QUERIES = (1, 4)
+SPILL_DISK_BYTES = 16 << 20
 
 
 def fail(phase: str, msg: str) -> None:
@@ -746,7 +817,7 @@ def phase_tpch(torch):
         like_s[0] += time.perf_counter() - t0
         return res
     functions._REGISTRY["like"] = timed_like
-    walls = {}
+    walls, cpu_rows = {}, {}
     scan.launches = 0
     probe.launches = 0
     try:
@@ -764,6 +835,7 @@ def phase_tpch(torch):
             t0 = time.perf_counter()
             ref = cpu.execute(sql)
             cpu_s = time.perf_counter() - t0
+            cpu_rows[name] = ref.rows
             _same_rows(res.rows, ref.rows, 1e-9)
             if not res.rows:
                 print(f"{name}: no rows on cuda, none on cpu either",
@@ -783,7 +855,7 @@ def phase_tpch(torch):
     print(f"slowest on cuda: {slowest} ({walls[slowest]:.3f} s cold)",
           flush=True)
     _breakdown(torch, gpu, slowest, queries[slowest])
-    return launches
+    return launches, cpu_rows
 
 
 def _tests_on_path() -> None:
@@ -807,7 +879,7 @@ def _tpcds_queries():
 
 
 def phase_tpcds(torch):
-    """q27 and the TPC-DS battery at SF1 on the card, each against the
+    """q27 and the TPC-DS battery at TPCDS_SF on the card, each against the
     port's CPU run; then q55 and q27 at SF10, cold and warm."""
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.exec.scancache import CACHE
@@ -986,14 +1058,15 @@ def phase_scan(torch, tpch_cpu_rows, tpcds_cpu_rows):
 
 
 def phase_surface(torch):
-    """The SQL surface of the port's later slices at SF1: each statement
-    of SURFACE_QUERIES on the card, cold then warm, against the port's
-    CPU run."""
+    """The SQL surface of the port's later slices at SURFACE_SF: each
+    statement of SURFACE_QUERIES on the card, cold then warm, against the
+    port's CPU run."""
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.exec.scancache import CACHE
     from presto_tpu_torch.ops import probe, scan
-    gpu = LocalRunner(tpch_sf=1, rows_per_batch=ROWS_PER_BATCH)
-    cpu = LocalRunner(tpch_sf=1, device="cpu", rows_per_batch=ROWS_PER_BATCH)
+    gpu = LocalRunner(tpch_sf=SURFACE_SF, rows_per_batch=ROWS_PER_BATCH)
+    cpu = LocalRunner(tpch_sf=SURFACE_SF, device="cpu",
+                      rows_per_batch=ROWS_PER_BATCH)
     scan.launches = 0
     probe.launches = 0
     CACHE.clear()
@@ -1112,9 +1185,9 @@ def _file_counters():
             "wide host decodes": ds.WIDE_HOST_DECODES}, (scan, probe)
 
 
-def phase_files(torch, tpch_cpu_rows=None):
-    """BASELINE config 5 and the file catalogs on the card: TPC-H SF1
-    written as ORC and Parquet by the port's writers, Q6, Q1 and Q3 over
+def phase_files(torch):
+    """BASELINE config 5 and the file catalogs on the card: TPC-H at
+    FILES_SF written as ORC and Parquet by the port's writers, Q6, Q1 and Q3 over
     ORC and Q6 and Q1 over Parquet (scan cache off, then cold and warm)
     against the TPC-H catalog's CPU rows, the config-5 scan-filter-project
     that must prune stripes, EXPLAIN ANALYZE of ORC Q3 and Q6, and the
@@ -1137,11 +1210,10 @@ def phase_files(torch, tpch_cpu_rows=None):
         print(f"files write: {write_tpch_files(root, FILES_SF)}",
               flush=True)
         _decode_breakdown(torch, root)
-        if tpch_cpu_rows is None:
-            cpu = LocalRunner(tpch_sf=FILES_SF, device="cpu",
-                              rows_per_batch=ROWS_PER_BATCH)
-            tpch_cpu_rows = {n: cpu.execute(queries[n]).rows
-                             for n in PATH_QUERIES}
+        cpu = LocalRunner(tpch_sf=FILES_SF, device="cpu",
+                          rows_per_batch=ROWS_PER_BATCH)
+        tpch_cpu_rows = {n: cpu.execute(queries[n]).rows
+                         for n in PATH_QUERIES}
         runners = {}
         for kind, conn in (("orc", OrcConnector), ("parquet",
                                                    ParquetConnector)):
@@ -1280,13 +1352,218 @@ def phase_files(torch, tpch_cpu_rows=None):
     return launches
 
 
+def _launch_counts():
+    from presto_tpu_torch.ops import probe, scan
+    return {"segment_sum_sorted_i64": scan.launches,
+            "direct_probe": probe.launches}
+
+
+def _reset_launches() -> None:
+    from presto_tpu_torch.ops import probe, scan
+    scan.launches = 0
+    probe.launches = 0
+
+
+def phase_chains(torch, tpch_cpu_rows=None, q27_cpu_rows=None):
+    """The fused join chains: the TPC-H queries the reference fuses at
+    SF1 and q27 at SF10, each with fused_pipeline on and off, cold and
+    warm, against each other and the CPU rows of the earlier phases.
+    Returns the launches of the phase."""
+    from presto_tpu_torch.exec import fused
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.scancache import CACHE
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    from presto_tpu_torch.ops import probe
+    queries = _queries()
+    counters = {k: REGISTRY.counter(f"fused_{k}_total")
+                for k in ("source_lanes", "tail_lanes",
+                          "liveness_readbacks")}
+    # probe launches inside fused tails: the tail's direct-address join
+    # stages call exec/fused.lookup_join_direct
+    in_tail = {"calls": 0, "launches": 0}
+    orig = fused.lookup_join_direct
+
+    def counted(*args, **kwargs):
+        before = probe.launches
+        out = orig(*args, **kwargs)
+        in_tail["calls"] += 1
+        in_tail["launches"] += probe.launches - before
+        return out
+
+    def run(runner, label, sql, fused_on, cold):
+        if cold:
+            CACHE.clear()
+        before = {k: c.value for k, c in counters.items()}
+        launched = _launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = runner.execute(sql, properties={"fused_pipeline": fused_on})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = {k: int(c.value - before[k]) for k, c in counters.items()}
+        now = _launch_counts()
+        print(f"chains {label} fused={'on' if fused_on else 'off'} "
+              f"{'cold' if cold else 'warm'}: wall {wall:.3f} s | lanes "
+              f"source {delta['source_lanes']} tail {delta['tail_lanes']} "
+              f"| readbacks {delta['liveness_readbacks']} | launches probe "
+              f"{now['direct_probe'] - launched['direct_probe']} scan "
+              f"{now['segment_sum_sorted_i64'] - launched['segment_sum_sorted_i64']}"
+              f" | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        return res, delta
+
+    def one(runner, label, sql, ref_rows):
+        """On cold, on warm, off cold, off warm (cold: the scan cache
+        cleared first)."""
+        out = {}
+        for fused_on, cold in ((True, True), (True, False), (False, True),
+                               (False, False)):
+            res, delta = run(runner, label, sql, fused_on, cold)
+            _same_rows(res.rows, ref_rows, 1e-9)
+            if fused_on and delta["source_lanes"] <= 0:
+                raise AssertionError(f"{label} took no fused chain")
+            if not fused_on and delta["source_lanes"]:
+                raise AssertionError(f"{label} fused with the chain off")
+            out[(fused_on, cold)] = (res, delta)
+        on, off = out[(True, False)][0], out[(False, False)][0]
+        _same_rows(on.rows, off.rows, 1e-9)
+        print(f"chains {label}: {len(ref_rows)} rows, on and off cold and "
+              "warm, match the cpu run and each other", flush=True)
+        return out[(True, True)][1]
+
+    t_phase = time.perf_counter()
+    gpu = LocalRunner(tpch_sf=1, rows_per_batch=ROWS_PER_BATCH)
+    if tpch_cpu_rows is None:
+        cpu = LocalRunner(tpch_sf=1, device="cpu",
+                          rows_per_batch=ROWS_PER_BATCH)
+        tpch_cpu_rows = {n: cpu.execute(queries[n]).rows
+                         for n in CHAIN_QUERIES}
+        del cpu
+    ds = _tpcds_queries()
+    if q27_cpu_rows is None:
+        q27_cpu_rows = LocalRunner(
+            tpch_sf=TPCDS_BIG_SF, catalog="tpcds", device="cpu",
+            rows_per_batch=ROWS_PER_BATCH).execute(ds["q27"]).rows
+    _reset_launches()
+    fused.lookup_join_direct = counted
+    try:
+        for name in CHAIN_QUERIES:
+            one(gpu, f"sf1 {name}", queries[name], tpch_cpu_rows[name])
+        del gpu
+        big = LocalRunner(tpch_sf=TPCDS_BIG_SF, catalog="tpcds",
+                          rows_per_batch=ROWS_PER_BATCH)
+        delta = one(big, f"sf{TPCDS_BIG_SF} q27", ds["q27"], q27_cpu_rows)
+    finally:
+        fused.lookup_join_direct = orig
+    launches = _launch_counts()
+    print(f"chains launches: {json.dumps(launches)} | probe in fused "
+          f"tails: {in_tail['calls']} calls, {in_tail['launches']} launches "
+          f"| phase wall {time.perf_counter() - t_phase:.3f} s", flush=True)
+    if not delta["tail_lanes"] * 2 < delta["source_lanes"]:
+        raise AssertionError(f"q27 SF{TPCDS_BIG_SF}: tail lanes "
+                             f"{delta['tail_lanes']} not below half the "
+                             f"source lanes {delta['source_lanes']}")
+    if in_tail["launches"] <= 0:
+        raise AssertionError("the probe never launched in a fused tail")
+    return launches
+
+
+def phase_spill(torch):
+    """Memory-bounded queries: SPILL_QUERIES at SF1 unbudgeted, with a
+    quarter of that run's pool peak as query_max_memory, and (the join
+    and the ORDER BY) with the disk tier; every run against the
+    unbudgeted one, which runs against the CPU. Returns the launches."""
+    import tempfile
+
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.scancache import CACHE
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    base = {"dense_grouping": False}
+    gpu = LocalRunner(tpch_sf=1, rows_per_batch=SPILL_ROWS_PER_BATCH)
+    cpu = LocalRunner(tpch_sf=1, device="cpu",
+                      rows_per_batch=SPILL_ROWS_PER_BATCH)
+    host_staged = REGISTRY.counter("spill_host_staged_bytes_total")
+    t_phase = time.perf_counter()
+    _reset_launches()
+
+    def run(label, sql, props):
+        launched = _launch_counts()
+        staged0 = host_staged.value
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = gpu.execute(sql, properties=props)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = gpu.session.last_memory_stats
+        now = _launch_counts()
+        print(f"spill {label}: wall {wall:.3f} s | pool peak "
+              f"{st.peak_bytes} B | max allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | "
+              f"spilled {st.spilled_bytes} B, host staged "
+              f"{int(host_staged.value - staged0)} B, disk "
+              f"{st.disk_spilled_bytes} B, revocations {st.revocations} | "
+              f"launches scan "
+              f"{now['segment_sum_sorted_i64'] - launched['segment_sum_sorted_i64']}"
+              f" probe {now['direct_probe'] - launched['direct_probe']}",
+              flush=True)
+        return res, st
+
+    for i, sql in enumerate(SPILL_QUERIES):
+        # budgeted runs replay the warm splits: hold them against the
+        # unbudgeted warm run
+        CACHE.clear()
+        run(f"q{i} unbudgeted cold", sql, base)
+        free, st = run(f"q{i} unbudgeted warm", sql, base)
+        t0 = time.perf_counter()
+        ref = cpu.execute(sql, properties=base)
+        cpu_s = time.perf_counter() - t0
+        _same_rows(free.rows, ref.rows, 1e-9)
+        if st.spilled_bytes:
+            raise AssertionError(f"q{i} spilled without a budget")
+        budget = st.peak_bytes // 4
+        cases = [("budget", {"query_max_memory": budget})]
+        if i in SPILL_DISK_QUERIES:
+            cases.append(("budget+disk", {
+                "query_max_memory": budget,
+                "spill_to_disk_bytes": SPILL_DISK_BYTES}))
+        for label, props in cases:
+            spill_dir = tempfile.mkdtemp(prefix="spill_")
+            try:
+                if "spill_to_disk_bytes" in props:
+                    props = dict(props, spill_path=spill_dir)
+                res, bst = run(f"q{i} {label} {budget} B", sql,
+                               dict(base, **props))
+                left = os.listdir(spill_dir)
+            finally:
+                shutil.rmtree(spill_dir, ignore_errors=True)
+            _same_rows(res.rows, free.rows, 1e-9)
+            if bst.peak_bytes > budget:
+                raise AssertionError(f"q{i} {label}: pool peak "
+                                     f"{bst.peak_bytes} over {budget}")
+            if bst.spilled_bytes <= 0:
+                raise AssertionError(f"q{i} {label} spilled nothing")
+            if "spill_path" in props and (bst.disk_spilled_bytes <= 0
+                                          or left):
+                raise AssertionError(f"q{i} {label}: {bst.disk_spilled_bytes}"
+                                     f" B on disk, left {left}")
+        print(f"spill q{i}: {len(ref.rows)} rows; budgeted runs match the "
+              f"unbudgeted one, which matches the cpu run ({cpu_s:.3f} s)",
+              flush=True)
+    launches = _launch_counts()
+    print(f"spill launches: {json.dumps(launches)} | phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    if launches["segment_sum_sorted_i64"] <= 0:
+        raise AssertionError("the segment sum never launched in the phase")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
-    kernels_only = sys.argv[1:] == ["--kernels-only"]
-    surface_only = sys.argv[1:] == ["--surface-only"]
-    files_only = sys.argv[1:] == ["--files-only"]
-    if sys.argv[1:] and not (kernels_only or surface_only or files_only):
+    flags = ("--kernels-only", "--surface-only", "--files-only",
+             "--chains-only", "--spill-only")
+    if sys.argv[1:] and (len(sys.argv) != 2 or sys.argv[1] not in flags):
         fail("device", f"unknown arguments {sys.argv[1:]}")
+    only = sys.argv[1] if len(sys.argv) == 2 else None
     try:
         import torch
     except ImportError as e:
@@ -1301,25 +1578,23 @@ def main() -> None:
         card = phase_device(torch)
     except Exception as e:  # noqa: BLE001 - report the phase, exit nonzero
         fail("device and build", f"{type(e).__name__}: {e}")
-    if surface_only:
-        try:
-            phase_surface(torch)
-        except Exception as e:  # noqa: BLE001
-            fail("surface", f"{type(e).__name__}: {e}")
-        return
-    if files_only:
-        try:
-            phase_files(torch)
-        except Exception as e:  # noqa: BLE001
-            fail("files", f"{type(e).__name__}: {e}")
-        return
+    for flag, name, phase in (("--surface-only", "surface", phase_surface),
+                              ("--files-only", "files", phase_files),
+                              ("--chains-only", "chains", phase_chains),
+                              ("--spill-only", "spill", phase_spill)):
+        if only == flag:
+            try:
+                phase(torch)
+            except Exception as e:  # noqa: BLE001
+                fail(name, f"{type(e).__name__}: {e}")
+            return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     try:
         entries = [check_scan(torch, gen), check_probe(torch, gen)]
     except Exception as e:  # noqa: BLE001
         fail("kernels", f"{type(e).__name__}: {e}")
-    if kernels_only:
+    if only == "--kernels-only":
         print(json.dumps({"kernels": entries}), flush=True)
         return
     try:
@@ -1327,7 +1602,7 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail("path", f"{type(e).__name__}: {e}")
     try:
-        tpch_launches = phase_tpch(torch)
+        tpch_launches, tpch_cpu_more = phase_tpch(torch)
     except Exception as e:  # noqa: BLE001
         fail("tpch", f"{type(e).__name__}: {e}")
     try:
@@ -1343,15 +1618,26 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail("surface", f"{type(e).__name__}: {e}")
     try:
-        files_launches = phase_files(torch, tpch_cpu_rows)
+        files_launches = phase_files(torch)
     except Exception as e:  # noqa: BLE001
         fail("files", f"{type(e).__name__}: {e}")
+    try:
+        chains_launches = phase_chains(
+            torch, {**tpch_cpu_rows, **tpch_cpu_more},
+            tpcds_cpu_rows["q27"])
+    except Exception as e:  # noqa: BLE001
+        fail("chains", f"{type(e).__name__}: {e}")
+    try:
+        spill_launches = phase_spill(torch)
+    except Exception as e:  # noqa: BLE001
+        fail("spill", f"{type(e).__name__}: {e}")
     for entry in entries:
         # launches over every phase that drives the engine: path, tpch,
-        # tpcds, scan, surface and files
+        # tpcds, scan, surface, files, chains and spill
         entry["launches"] = sum(p[entry["name"]] for p in (
             launches, tpch_launches, tpcds_launches, scan_launches,
-            surface_launches, files_launches))
+            surface_launches, files_launches, chains_launches,
+            spill_launches))
     print(f"total wall {time.perf_counter() - t_start:.3f} s", flush=True)
     # the card line again, so a log kept only from its tail still has it
     print(card, flush=True)

@@ -402,6 +402,20 @@ def unify_dictionaries(columns: Sequence[Column]
     return tuple(vocab), remaps
 
 
+def apply_remap_np(codes: np.ndarray, remap: np.ndarray) -> np.ndarray:
+    """Host-side dictionary code remap (-1 maps through the sentinel)."""
+    idx = np.where(codes >= 0, codes, len(remap) - 1)
+    return remap[idx]
+
+
+def vocab_column(vocab: Optional[Tuple[str, ...]]) -> Column:
+    """A one-slot CPU column carrying only a vocabulary, so host code can
+    reuse ``unify_dictionaries`` without real data."""
+    from .types import VARCHAR
+    return Column(VARCHAR, torch.zeros(1, dtype=torch.int32),
+                  torch.zeros(1, dtype=torch.bool), vocab)
+
+
 def remap_codes(col: Column, remap: np.ndarray, vocab: Tuple[str, ...]) -> Column:
     """Apply a dictionary remap on device (gather)."""
     table = torch.from_numpy(remap).to(col.data.device)

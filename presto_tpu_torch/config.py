@@ -41,6 +41,14 @@ _sp("dense_grouping", "boolean", True,
     "allow the stats-bounded dense (scatter-path) GROUP BY plan")
 _sp("enable_dynamic_filtering", "boolean", True,
     "build-side key bounds filter the probe side at runtime")
+_sp("fused_compact_floor", "integer", 1 << 17,
+    "skip fused-chain compaction below this batch capacity")
+_sp("fused_compact_window", "integer", 4,
+    "fused-chain liveness readbacks amortize over this many batches")
+_sp("fused_pipeline", "boolean", True,
+    "run chains of unique-build inner/left joins (with the filters and "
+    "projections between them) as one head/tail program pair "
+    "(exec/fused.py)")
 _sp("join_dense_path", "boolean", True,
     "stats-driven dense-key direct-address join builds")
 _sp("probe_prefetch", "boolean", True,
@@ -53,8 +61,8 @@ _sp("push_partial_aggregation_through_join", "boolean", True,
     "eager aggregation below joins when the grouping key covers the "
     "probe join key")
 _sp("query_max_memory", "integer", None,
-    "per-query memory pool limit in bytes (spill beyond it; not ported: "
-    "a query with it set raises)")
+    "per-query memory pool limit in bytes (join builds, aggregation "
+    "states and sorts spill beyond it)")
 _sp("scan_cache", "boolean", True,
     "serve repeated scans from the device-resident scan cache")
 _sp("scan_pad_batches", "boolean", True,
@@ -70,8 +78,12 @@ _sp("shared_scan", "boolean", True,
     "attach concurrent identical-split scan misses to one in-flight "
     "decode instead of racing duplicates")
 _sp("spill_partitions", "integer", 16,
-    "hash partitions of spilled builds (not ported: a query with it set "
-    "raises)")
+    "hash partitions of spilled join builds and aggregation states")
+_sp("spill_path", "varchar", None,
+    "directory for second-tier disk spill pages")
+_sp("spill_to_disk_bytes", "integer", 4 << 30,
+    "host bytes staged by a query's spill stores before they flush "
+    "compressed pages to disk")
 _sp("stats_bounded_grouping", "boolean", True,
     "attach hard per-key bounds from connector stats to aggregations")
 

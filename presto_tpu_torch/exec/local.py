@@ -16,14 +16,28 @@ a residual). Init plans (uncorrelated scalar subqueries) run before the
 main plan and their values substitute into its expressions; a subplan
 that occurs more than once runs once and replays its batches.
 MarkDistinct drains and flags the first occurrence of each distinct
-tuple; Unnest expands array columns into rows (with ordinality). Spilled
-builds raise NotImplementedError.
+tuple; Unnest expands array columns into rows (with ordinality).
+
+Join builds, grouped aggregation states (DISTINCT included) and sorts
+accumulate in the spill buffers of ``exec/spill.py`` against the query's
+memory pool (``query_max_memory``): past the budget they stage to host
+memory, then to disk pages, and a spilled join build probes partition by
+partition (``_partitioned_join``).
+
+A chain of two or more unique-build inner or left joins, with the
+filters and projections between them, runs fused (``exec/fused.py``,
+``_try_fused_chain``): every build drains first, all their dynamic
+bounds reach the source scan before it starts, and each source batch
+goes through a head (bounds and the first join's membership mask, no
+payload) and, after windowed compaction, a tail with every payload
+gather.
 
 Table scans go through the device scan cache and the prefetching split
 pipeline (``exec/scancache.py``); a join whose probe side a dynamic
 filter cannot prune runs that side on a producer thread while its build
-drains (``exec/local_exchange.py``). Shared subplans are memoized
-within a per-query ``memory.QueryMemoryPool``.
+drains (``exec/local_exchange.py``); a fused chain streams its source
+without that thread. Shared subplans are memoized within the query's
+``memory.QueryMemoryPool``.
 
 Unique-build joins probe through the CUDA direct-address probe kernel
 (``ops/probe.py``) whenever the build gets a direct-address table, and
@@ -42,8 +56,8 @@ import torch
 
 from .. import types as T
 from ..batch import (
-    Batch, Column, Schema, bucket_capacity, concat_batches, remap_codes,
-    map_parts, repeat_rows, unify_dictionaries,
+    Batch, Column, Schema, bucket_capacity, concat_batches, map_parts,
+    repeat_rows,
 )
 from ..errors import STATS_BOUND_VIOLATION, QueryCancelledError, QueryError
 from ..expr import ir
@@ -54,6 +68,7 @@ from ..expr.rewrite import referenced_inputs, remap_inputs
 from ..expr.rewrite import rewrite as ir_rewrite
 from ..memory import QueryMemoryPool, batch_device_bytes
 from ..obs import profiler
+from ..obs.metrics import REGISTRY
 from ..ops.aggregation import (
     AggSpec, dense_path_selected, global_aggregate, grouped_aggregate,
     mark_distinct_flags, percentile_drains,
@@ -77,10 +92,27 @@ from ..planner.planner import (
     InitPlanRef, LogicalPlan, Session, bool_property,
 )
 from . import scancache
+from .fused import (
+    FilterStage, JoinStage, ProjectStage, fused_pipeline, fused_prefilter,
+    keys_in_build_vocab,
+)
 from .local_exchange import exchange_source
+from .spill import (
+    AggSpillBuffer, HostPartitionStore, SortSpillBuffer,
+    SpillableBuildBuffer,
+)
 
 _DYN_TYPES = (T.BigintType, T.IntegerType, T.SmallintType, T.TinyintType,
               T.DateType)
+
+#: fused-chain lane accounting: capacities entering the chain (source)
+#: and entering the tail's payload gathers (after the head's masks and
+#: the windowed compaction); their ratio is the gather-lane reduction of
+#: the selectivity-first head. Readbacks count the head's windowed
+#: liveness syncs.
+_FUSED_SOURCE_LANES = REGISTRY.counter("fused_source_lanes_total")
+_FUSED_TAIL_LANES = REGISTRY.counter("fused_tail_lanes_total")
+_FUSED_READBACKS = REGISTRY.counter("fused_liveness_readbacks_total")
 
 
 @dataclasses.dataclass
@@ -178,22 +210,6 @@ def _apply_dynamic_bounds(probe: Batch,
         c = probe.columns[pk]
         keep = keep & c.validity & (c.data >= lo) & (c.data <= hi)
     return Batch(probe.schema, probe.columns, keep)
-
-
-def keys_in_build_vocab(probe: Batch, build: Batch, probe_keys,
-                        build_keys) -> Batch:
-    """``probe`` with each string join key re-coded into the build key's
-    vocabulary, extended by the probe's strings the build lacks. The two
-    sides' dictionaries are built independently (per batch for free-text
-    columns), and the join kernels compare codes, so equal strings must
-    carry equal codes first; the build keeps its codes."""
-    cols = list(probe.columns)
-    for pk, bk in zip(probe_keys, build_keys):
-        pc, bc = probe.columns[pk], build.columns[bk]
-        if pc.type.is_string and pc.dictionary != bc.dictionary:
-            vocab, remaps = unify_dictionaries([bc, pc])
-            cols[pk] = remap_codes(pc, remaps[1], vocab)
-    return Batch(probe.schema, cols, probe.row_mask)
 
 
 def mark_exists_mask(probe: Batch, build: Batch, probe_keys, build_keys,
@@ -308,6 +324,25 @@ def key_bounds_violation(batch: Batch, cols: Sequence[int],
     return torch.where(bad, STATS_BOUND_VIOLATION, 0).to(torch.int32)
 
 
+class _ChainBuilds:
+    """A fused chain's prepared builds, one entry per join stage in
+    bottom-up order, and the spill buffers holding their reservations
+    (released by ``close``)."""
+
+    def __init__(self):
+        self.preps: List[object] = []
+        self.builds: List[Batch] = []
+        #: sorted payload of a direct-address build, else None
+        self.sorted_cols: List[object] = []
+        #: per join stage: [(lo, hi)] aligned with its dyn_keys
+        self.dyns: List[Tuple[Tuple[int, int], ...]] = []
+        self.bufs: List[SpillableBuildBuffer] = []
+
+    def close(self) -> None:
+        for bf in self.bufs:
+            bf.close()
+
+
 class _Executor:
     #: largest (max-min+1) key span served by a direct-address lookup
     #: table; wider spans use the sorted build's binary search
@@ -324,10 +359,6 @@ class _Executor:
 
     def __init__(self, session: Session, rows_per_batch: int,
                  device: torch.device, stats=None):
-        for prop in ("query_max_memory", "spill_partitions"):
-            if prop in session.properties:
-                raise NotImplementedError(
-                    f"spilled, partitioned builds ({prop}) are not ported")
         self.session = session
         self.rows_per_batch = rows_per_batch
         self.device = device
@@ -335,9 +366,20 @@ class _Executor:
         #: set by execute_plan: checked per scan batch, so a cancel stops
         #: a query mid-drain
         self.cancel_event = None
-        #: the query's memory pool (memoized subplans reserve from it);
-        #: unlimited until spilled builds are ported
-        self.pool = QueryMemoryPool()
+        #: the query's memory pool: the spill buffers and memoized
+        #: subplans reserve from it; staged host bytes beyond
+        #: spill_to_disk_bytes flush to pages on disk (reference
+        #: NodeSpillConfig)
+        props = session.properties
+
+        def int_prop(name, default=None):
+            v = props.get(name, default)
+            return int(v) if v is not None else None
+        self.pool = QueryMemoryPool(
+            int_prop("query_max_memory"),
+            disk_threshold=int_prop("spill_to_disk_bytes", 4 << 30),
+            spill_dir=props.get("spill_path"))
+        self.spill_partitions = int_prop("spill_partitions", 16)
         session.last_memory_stats = self.pool.stats
         #: runtime (dynamic-filter) scan bounds: scan node ->
         #: [(column, lo, hi)]
@@ -640,9 +682,14 @@ class _Executor:
         return [SortKey(k.index, k.ascending, k.nulls_first) for k in keys]
 
     def _SortNode(self, node: SortNode) -> Iterator[Batch]:
-        b = self._drain(node.child)
-        if b is not None:
-            yield sort_batch(b, self._sort_keys(node.keys))
+        buf = SortSpillBuffer(self.pool, "order-by",
+                              self._sort_keys(node.keys))
+        try:
+            for b in self.run(node.child):
+                buf.add(b)
+            yield from buf.results(self.rows_per_batch)
+        finally:
+            buf.close()
 
     def _TopNNode(self, node: TopNNode) -> Iterator[Batch]:
         keys = self._sort_keys(node.keys)
@@ -702,43 +749,37 @@ class _Executor:
         bounds."""
         kb = tuple(node.key_bounds) if node.key_bounds else None
         yield from self._grouped_agg(node.child, range(len(node.fields)),
-                                     [], kb, "single")
+                                     [], kb, "single", name="distinct")
 
-    def _grouped_agg(self, child: PlanNode, group, aggs, kb,
-                     step: str) -> Iterator[Batch]:
-        """Partial aggregation per batch, partial states merged every
-        MERGE_EVERY batches, then the final (or, for a partial step, the
-        merge) aggregation of what is left."""
+    def _grouped_agg(self, child: PlanNode, group, aggs, kb, step: str,
+                     name: str = "hash-agg") -> Iterator[Batch]:
+        """Partial aggregation per batch into an AggSpillBuffer (partial
+        states merged every MERGE_EVERY batches on the device, or staged
+        to the host hash-partitioned by group key under memory
+        pressure), then the final (or, for a partial step, the merge)
+        aggregation of what it holds, partition by partition when it
+        spilled."""
         allow = bool_property(self.session, "dense_grouping", True)
         group = list(group)
         key_idx = list(range(len(group)))
-        states: List[Batch] = []
-        for b in self.run(child):
-            if step == "final":
-                part = b
-            else:
-                self._flag_bounds(b, group, aggs, kb, allow)
-                part = grouped_aggregate(b, group, aggs, mode="partial",
-                                         key_bounds=kb, allow_dense=allow)
-            states.append(part)
-            if len(states) >= self.MERGE_EVERY:
-                states = [self._merge_states(states, key_idx, aggs, kb,
-                                             allow)]
-        if not states:
-            return
-        merged = states[0] if len(states) == 1 else concat_batches(states)
-        self._flag_bounds(merged, key_idx, aggs, kb, allow)
-        yield grouped_aggregate(merged, key_idx, aggs,
-                                mode="merge" if step == "partial" else "final",
-                                key_bounds=kb, allow_dense=allow)
-
-    def _merge_states(self, states, key_idx, aggs, kb, allow) -> Batch:
-        """Merge buffered partial states into one compacted state batch."""
-        cat = concat_batches(states)
-        self._flag_bounds(cat, key_idx, aggs, kb, allow)
-        merged = grouped_aggregate(cat, key_idx, aggs, mode="merge",
-                                   key_bounds=kb, allow_dense=allow)
-        return merged.compact(bucket_capacity(max(merged.host_count(), 1)))
+        buf = AggSpillBuffer(
+            self.pool, name, key_idx, aggs, self.spill_partitions,
+            merge_every=self.MERGE_EVERY, key_bounds=kb, allow_dense=allow,
+            flag_bounds=lambda b: self._flag_bounds(b, key_idx, aggs, kb,
+                                                    allow))
+        try:
+            for b in self.run(child):
+                if step == "final":
+                    part = b
+                else:
+                    self._flag_bounds(b, group, aggs, kb, allow)
+                    part = grouped_aggregate(b, group, aggs, mode="partial",
+                                             key_bounds=kb,
+                                             allow_dense=allow)
+                buf.add_partial(part)
+            yield from buf.results(final=step != "partial")
+        finally:
+            buf.close()
 
     def _flag_bounds(self, b: Batch, cols, aggs, kb, allow) -> None:
         """Stats-bounds contract: a batch that takes the dense (clamping)
@@ -771,7 +812,7 @@ class _Executor:
 
     # -- joins ----------------------------------------------------------------
     def _JoinNode(self, node: JoinNode) -> Iterator[Batch]:
-        yield from self._coalesce(self._join_once(node))
+        yield from self._coalesce(self._join_dispatch(node))
 
     def _coalesce(self, it: Iterator[Batch],
                   min_cap: int = 1 << 15) -> Iterator[Batch]:
@@ -794,6 +835,218 @@ class _Executor:
         if pend:
             yield pend[0] if len(pend) == 1 else concat_batches(pend)
 
+    def _join_dispatch(self, node: JoinNode) -> Iterator[Batch]:
+        if bool_property(self.session, "fused_pipeline", True):
+            fused = self._try_fused_chain(node)
+            if fused is not None:
+                yield from fused
+                return
+        yield from self._join_once(node)
+
+    # -- fused join chains ----------------------------------------------------
+    def _try_fused_chain(self, top: JoinNode):
+        """Head check for a fused chain (exec/fused.py): two or more
+        unique-build inner or left joins without residuals, with the
+        filters and projections between them, over one streaming source.
+        Returns the output iterator, or None when the shape does not
+        qualify (the generic per-operator path then runs unchanged). The
+        chain's work runs in the head join's frames, so EXPLAIN ANALYZE
+        and the profiler charge it there; interior nodes never run on
+        their own."""
+        def join_ok(j: PlanNode) -> bool:
+            return (isinstance(j, JoinNode)
+                    and j.join_type in ("inner", "left")
+                    and j.build_unique and j.residual is None)
+
+        if not join_ok(top):
+            return None
+        nodes: List[PlanNode] = []       # top-down
+        cur: PlanNode = top
+        njoins = 0
+        while True:
+            if cur is not top and cur in self._shared:
+                break                    # memoized source boundary
+            if join_ok(cur):
+                nodes.append(cur)
+                njoins += 1
+                cur = cur.left
+            elif isinstance(cur, (FilterNode, ProjectNode)):
+                nodes.append(cur)
+                cur = cur.child
+            else:
+                break
+        if njoins < 2:
+            return None
+        return self._run_fused_chain(nodes, cur)
+
+    def _run_fused_chain(self, nodes: List[PlanNode], source: PlanNode):
+        """Drain and prepare every build of the chain (bottom-up), push
+        every bound that maps to a source column to the source scan
+        before it starts (the generic path can push only the bottom
+        join's), then stream the source through the head and tail
+        (``_stream_fused``). None when a build is empty or spilled: the
+        generic path then runs the joins (and drains those builds
+        again)."""
+        src_map = {i: i for i in range(len(source.fields))}
+        dyn_enabled = bool_property(self.session,
+                                    "enable_dynamic_filtering", True)
+        stages: List[object] = []
+        builds = _ChainBuilds()
+        pre_rows: List[Tuple[int, int, int]] = []
+        try:
+            ok = self._drain_fused_builds(list(reversed(nodes)), src_map,
+                                          dyn_enabled, stages, builds,
+                                          pre_rows)
+        except BaseException:
+            builds.close()
+            raise
+        if not ok:
+            builds.close()
+            return None
+        if pre_rows:
+            self._push_dynamic_bounds(source, pre_rows)
+        first_join = next(i for i, st in enumerate(stages)
+                          if isinstance(st, JoinStage))
+        head, tail = stages[:first_join], stages[first_join:]
+        join1 = tail[0]
+        semi_keys = ((join1.lkeys, join1.rkeys)
+                     if join1.join_type == "inner" else None)
+        fn_head = fused_prefilter(tuple(head),
+                                  tuple(k for k, _, _ in pre_rows),
+                                  semi_keys)
+        fn_tail = fused_pipeline(tuple(tail))
+        window = max(1, int(self.session.properties.get(
+            "fused_compact_window", 4)))
+        return self._stream_fused(fn_head, fn_tail, source,
+                                  [(lo, hi) for _, lo, hi in pre_rows],
+                                  builds, window)
+
+    def _stream_fused(self, fn_head, fn_tail, source, pre_vals,
+                      builds: "_ChainBuilds",
+                      window: int) -> Iterator[Batch]:
+        """Head -> windowed compaction -> tail. The head returns each
+        batch's live count as a device scalar; one readback per
+        ``window`` batches stacks them, each batch compacts to its live
+        bucket, and the tail gathers over the compacted lanes. The check
+        disables itself after a window with no 4x shrink (as
+        _compactor's does), so a non-selective chain pays one sync."""
+        compact = self._compactor()
+        state = {"check": True}
+        pend: List[Tuple[Batch, torch.Tensor]] = []
+        # the _compactor floor: below it the tail over the full capacity
+        # costs less than the (amortized) readback
+        floor = int(self.session.properties.get("fused_compact_floor",
+                                                1 << 17))
+
+        def drain_pend() -> List[Batch]:
+            if not pend:
+                return []
+            counts = torch.stack([c for _, c in pend]).cpu().tolist()
+            _FUSED_READBACKS.inc()
+            outs, shrunk = [], False
+            for (b, _), live in zip(pend, counts):
+                tgt = bucket_capacity(max(int(live), 1))
+                if b.capacity > floor and tgt * 4 <= b.capacity:
+                    b = b.compact(tgt, check=False)
+                    shrunk = True
+                outs.append(b)
+            if not shrunk:
+                # selectivity is near-uniform across a chain's batches
+                state["check"] = False
+            pend.clear()
+            return outs
+
+        def run_tail(hb: Batch) -> Iterator[Batch]:
+            _FUSED_TAIL_LANES.inc(hb.capacity)
+            out, err = fn_tail(hb, builds.preps, builds.builds,
+                               builds.sorted_cols, builds.dyns)
+            if err is not None:
+                self.error_flags.append(err)
+            yield compact(out)
+
+        try:
+            for probe in self.run(source):
+                _FUSED_SOURCE_LANES.inc(probe.capacity)
+                hb, err, cnt = fn_head(probe, pre_vals, builds.builds[0],
+                                       builds.preps[0])
+                if err is not None:
+                    self.error_flags.append(err)
+                if not state["check"] or hb.capacity <= floor:
+                    # a sub-floor batch never compacts: no readback, and
+                    # no vote on the adaptive disable
+                    yield from run_tail(hb)
+                    continue
+                pend.append((hb, cnt))
+                if len(pend) >= window:
+                    for b in drain_pend():
+                        yield from run_tail(b)
+            for b in drain_pend():
+                yield from run_tail(b)
+        finally:
+            builds.close()
+
+    def _drain_fused_builds(self, order, src_map, dyn_enabled, stages,
+                            builds: "_ChainBuilds", pre_rows) -> bool:
+        """Drain and prepare every build of a chain (bottom-up), appending
+        its stages; False when a build is empty or spilled. ``pre_rows``
+        collects every dynamic bound whose key maps to a raw source column,
+        as (source index, lo, hi), for the head's mask."""
+        for nd in order:
+            if isinstance(nd, FilterNode):
+                stages.append(FilterStage(self._resolve(nd.predicate)))
+                continue
+            if isinstance(nd, ProjectNode):
+                exprs = tuple(self._resolve(e) for e in nd.exprs)
+                stages.append(ProjectStage(
+                    exprs, tuple(f.name for f in nd.fields)))
+                src_map = {out_i: src_map[e.index]
+                           for out_i, e in enumerate(exprs)
+                           if isinstance(e, ir.InputRef)
+                           and e.index in src_map}
+                continue
+            rkeys = list(nd.right_keys)
+            # through the spillable buffer for memory accounting; a build
+            # the pool forces to the host cannot fuse
+            buf = SpillableBuildBuffer(self.pool, "join-build", rkeys,
+                                       self.spill_partitions)
+            builds.bufs.append(buf)
+            for b in self.run(nd.right):
+                buf.add(b)
+            build = buf.finish()
+            if build is None or isinstance(build, HostPartitionStore):
+                return False
+            summary = self._build_summary(build, rkeys)
+            if int(summary[0]) == 0:
+                return False
+            scap = bucket_capacity(max(int(summary[0]), 1))
+            if scap < build.capacity:
+                build = build.compact(scap, check=False)
+            prep = self._prepare_join_build(build, rkeys, summary,
+                                            nd.key_bounds)
+            payload = tuple(range(len(nd.right.fields)))
+            dyn_keys: Tuple[int, ...] = ()
+            dyn_val: Tuple[Tuple[int, int], ...] = ()
+            if nd.join_type == "inner" and dyn_enabled:
+                bounds = self._summary_bounds(summary, nd.left_keys)
+                dyn_keys = tuple(k for k, _, _ in bounds)
+                dyn_val = tuple((lo, hi) for _, lo, hi in bounds)
+                pre_rows.extend((src_map[k], lo, hi) for k, lo, hi in bounds
+                                if k in src_map)
+            stages.append(JoinStage(
+                lkeys=tuple(nd.left_keys), rkeys=tuple(rkeys),
+                payload=payload, names=tuple(f"$b{i}" for i in payload),
+                join_type=nd.join_type,
+                out_fields=tuple((f.name, f.type) for f in nd.fields),
+                dyn_keys=dyn_keys))
+            builds.preps.append(prep)
+            builds.builds.append(build)
+            builds.sorted_cols.append(
+                sorted_payload(build, payload, prep)
+                if is_direct_prepared(prep) else None)
+            builds.dyns.append(dyn_val)
+        return True
+
+    # -- per-operator joins ---------------------------------------------------
     def _join_once(self, node: JoinNode) -> Iterator[Batch]:
         payload = list(range(len(node.right.fields)))
         payload_names = [f"$b{i}" for i in payload]
@@ -834,10 +1087,35 @@ class _Executor:
     def _join_probe(self, node: JoinNode, probe_ex, payload, payload_names,
                     residual_fn, residual_outer,
                     dyn_on: bool) -> Iterator[Batch]:
-        """Drain the build, then stream the probe side (from the producer
-        thread's exchange when prefetched) through the probe kernels."""
+        """Drain the build through a SpillableBuildBuffer, then stream the
+        probe side (from the producer thread's exchange when prefetched)
+        through the probe kernels, or, when the build spilled, join
+        partition by partition."""
+        buf = SpillableBuildBuffer(self.pool, "join-build",
+                                   list(node.right_keys),
+                                   self.spill_partitions)
+        try:
+            for b in self.run(node.right):
+                buf.add(b)
+            build = buf.finish()
+            probes = probe_ex.consumer(0) if probe_ex is not None \
+                else self.run(node.left)
+            if isinstance(build, HostPartitionStore):
+                yield from self._partitioned_join(
+                    node, build, payload, payload_names, residual_fn,
+                    residual_outer, probes)
+                return
+            yield from self._join_build(node, build, probes, payload,
+                                        payload_names, residual_fn,
+                                        residual_outer, dyn_on)
+        finally:
+            buf.close()
+
+    def _join_build(self, node: JoinNode, build: Optional[Batch], probes,
+                    payload, payload_names, residual_fn, residual_outer,
+                    dyn_on: bool) -> Iterator[Batch]:
+        """Probe a device-resident build with every probe batch."""
         lkeys, rkeys = list(node.left_keys), list(node.right_keys)
-        build = self._drain(node.right)
         dyn = prep = sorted_cols = maxk = None
         unique = node.build_unique
         if build is not None:
@@ -867,8 +1145,6 @@ class _Executor:
         full_acc = ({"m": None} if track_full and residual_outer is not None
                     else None)
         compact = self._compactor()
-        probes = probe_ex.consumer(0) if probe_ex is not None \
-            else self.run(node.left)
         for probe in probes:
             if build is None:
                 if node.join_type != "inner":
@@ -938,6 +1214,72 @@ class _Executor:
                  for k, lo, hi in dyn if k in mapping]
         if extra:
             self.dynamic_pushdown.setdefault(node, []).extend(extra)
+
+    def _partitioned_join(self, node: JoinNode, store: HostPartitionStore,
+                          payload, payload_names, residual_fn,
+                          residual_outer, probes) -> Iterator[Batch]:
+        """Spilled-build probe: stage the probe side host-partitioned by
+        the same key hash, then join partition by partition, so one build
+        partition and one probe chunk are on the device at a time
+        (reference GenericPartitioningSpiller.java's probe protocol).
+        Partitions probe over the sorted build path: a direct-address
+        table per partition would add the very memory that forced the
+        spill. Each probe row hashes to one partition, so per-partition
+        outer semantics compose to the global outer join."""
+        lkeys, rkeys = list(node.left_keys), list(node.right_keys)
+        full = node.join_type == "full"
+        pstore: Optional[HostPartitionStore] = None
+        try:
+            for probe in probes:
+                if pstore is None:
+                    pstore = HostPartitionStore(probe.schema, store.n,
+                                                pool=self.pool)
+                pstore.add(probe, lkeys)
+            if pstore is None:
+                if full:
+                    # no probe rows at all: every build row is unmatched
+                    for p in range(store.n):
+                        bpart = store.partition_batch(p)
+                        if bpart is not None:
+                            yield self._null_extend_build(bpart, node, None)
+                return
+            for p in range(store.n):
+                bpart = store.partition_batch(p)
+                matched = prep = maxk = None
+                for probe_p in pstore.partition_batches(
+                        p, self.rows_per_batch):
+                    if bpart is None:
+                        if node.join_type in ("left", "full"):
+                            yield self._null_extend(probe_p, node)
+                        continue
+                    if prep is None:
+                        prep = prepare_build(bpart, rkeys)
+                        if not node.build_unique:
+                            maxk = self._build_multiplicity(prep)
+                    probe_p = keys_in_build_vocab(probe_p, bpart, lkeys,
+                                                  rkeys)
+                    if residual_outer is not None:
+                        acc = {"m": None} if full else None
+                        yield from self._probe_outer_residual(
+                            node, probe_p, bpart, payload, payload_names,
+                            prep, None, residual_outer, acc, maxk)
+                        m = acc["m"] if acc is not None else None
+                    else:
+                        for out in self._probe_batches(
+                                node, probe_p, bpart, payload,
+                                payload_names, prep, None, maxk,
+                                node.build_unique):
+                            yield residual_fn(out) \
+                                if residual_fn is not None else out
+                        m = (build_match_mask(probe_p, bpart, lkeys, rkeys,
+                                              prep) if full else None)
+                    if m is not None:
+                        matched = m if matched is None else matched | m
+                if full and bpart is not None:
+                    yield self._null_extend_build(bpart, node, matched)
+        finally:
+            if pstore is not None:
+                pstore.close()
 
     def _build_summary(self, build: Batch, keys) -> List[int]:
         """Host copy of [live_count, lo_0, hi_0, ...] over the integer key

@@ -14,8 +14,10 @@ runtime:
   whose own reservation fails spills itself (``try_reserve`` returns
   False); ``reserve`` raises when revoking others did not make room.
 
-The port has no spill yet: the disk tier's settings are kept on the pool
-for the spill slice and read by nothing.
+The spill buffers (``exec/spill.py``) hold revocable reservations; the
+pool also carries the second spill tier's budget (``disk_threshold``,
+compared with ``host_staged_bytes``, the host bytes staged by all of the
+query's spill stores) and its directory.
 """
 from __future__ import annotations
 
@@ -64,8 +66,11 @@ class QueryMemoryPool:
                  spill_dir: Optional[str] = None):
         self.limit = limit_bytes if limit_bytes is not None else UNLIMITED
         # the second (disk) spill tier's budget and directory
+        # (reference NodeSpillConfig.maxSpillPerNode + spiller-spill-path)
         self.disk_threshold = disk_threshold
         self.spill_dir = spill_dir
+        # host bytes currently staged by ALL of this query's spill stores
+        self.host_staged_bytes = 0
         self.reserved = 0
         self.stats = MemoryStats()
         self._contexts: List["OperatorMemoryContext"] = []

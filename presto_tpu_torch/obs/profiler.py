@@ -25,6 +25,11 @@ account:
   pair and charged to the kernel's record and to the current operator.
   On a CPU device the host clock stands in for the events. Off (the
   default) the cost is one contextvar load per frame and per launch.
+  A fused join chain (``exec/fused.py``) runs its head and tail inside
+  the head join's frames, so its device time and its probe launches are
+  charged to that join (the role of the reference's ``_TimedEntry``
+  around its fused executables); the chain's interior joins, filters and
+  projections never run on their own and get no frame.
 - **HBM telemetry** (``sample_hbm``): the caching allocator's
   ``allocated_bytes.all.current`` / ``.peak`` and the card's memory size
   as gauges. A CPU device has none and gives ``[]``.

@@ -132,8 +132,8 @@ def test_smoke_files_phase_data(tmp_path):
         # are held, the type displays differ
         assert_rows_match(r.execute(sql).rows, tpch.execute(sql).rows,
                           1e-12)
-    config5 = smoke.CONFIG5_SQL.replace("1000000 and 1060000",
-                                        "10000 and 10600")
+    config5 = smoke.config5_sql(SF)
+    assert "between 10000\n  and 10600 " in config5
     cm = CatalogManager()
     cm.register("orc", OrcConnector(str(tmp_path / "orc")))
     r = LocalRunner(catalogs=cm, catalog="orc", device="cpu")

@@ -44,6 +44,8 @@ def test_sources_found():
     assert {"proto.py", "thrift_compact.py", "orc_meta.py", "orc_rle.py",
             "orc.py", "orc_writer.py", "parquet.py", "decodestats.py",
             "filebase.py", "profiler.py"} <= names
+    # the fused-chain and spill slice
+    assert {"fused.py", "spill.py", "pages.py", "exchange.py"} <= names
 
 
 def test_runner_without_device_needs_a_gpu(monkeypatch):

@@ -148,11 +148,27 @@ def test_repeated_subplan_runs_once(runners, monkeypatch):
     assert_results_match(got, jax_runner.execute(sql), 1e-12)
 
 
+@pytest.mark.parametrize("sql,props", [
+    ("select n_name, count(*) c from nation join region "
+     "on n_regionkey = r_regionkey group by n_name order by n_name",
+     {"query_max_memory": 1 << 20}),
+    ("select o_orderpriority, count(*) c from orders join customer "
+     "on o_custkey = c_custkey group by o_orderpriority order by 1",
+     {"spill_partitions": 4, "query_max_memory": 60_000}),
+], ids=["query_max_memory", "spill_partitions"])
+def test_spill_properties_run(runners, sql, props):
+    """Sessions that set the spill properties run their joins and return
+    the reference's rows under the same properties."""
+    jax_runner, torch_runner = runners
+    got = torch_runner.execute(sql, properties=props)
+    want = jax_runner.execute(sql, properties=props)
+    assert got.rows
+    assert_results_match(got, want, 1e-12)
+    assert torch_runner.session.last_memory_stats.peak_bytes <= \
+        props["query_max_memory"]
+
+
 @pytest.mark.parametrize("sql,props,what", [
-    ("select count(*) from nation", {"query_max_memory": 1 << 20},
-     "spilled, partitioned builds"),
-    ("select count(*) from nation", {"spill_partitions": 4},
-     "spilled, partitioned builds"),
     ("explain (type validate) select 1", {}, "TYPE VALIDATE"),
     ("start transaction", {}, "StartTransaction"),
 ])

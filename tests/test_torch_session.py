@@ -108,6 +108,21 @@ def test_cancel_event_stops_the_query(runner):
     assert runner.execute("select count(*) from region").rows == [(5,)]
 
 
-def test_spill_properties_still_raise(runner):
-    with pytest.raises(NotImplementedError, match="query_max_memory"):
-        runner.execute("select 1", properties={"query_max_memory": 1 << 30})
+def test_spill_properties_set_by_session_run(runner):
+    """SET SESSION of the spill properties reaches the query's pool: a
+    budget this small spills the ORDER BY, and the rows are the
+    reference's under the same properties."""
+    from presto_tpu.exec.runner import LocalRunner as JRunner
+    sql = "select c_custkey, c_name from customer order by c_name desc"
+    for stmt in ("set session query_max_memory = 30000",
+                 "set session spill_partitions = 4",
+                 "set session spill_to_disk_bytes = 10000"):
+        runner.execute(stmt)
+    got = runner.execute(sql)
+    stats = runner.session.last_memory_stats
+    assert stats.spilled_bytes > 0 and stats.disk_spilled_bytes > 0
+    assert stats.peak_bytes <= 30000
+    want = JRunner(tpch_sf=0.01).execute(sql, properties={
+        "query_max_memory": 30000, "spill_partitions": 4,
+        "spill_to_disk_bytes": 10000})
+    assert got.rows == [tuple(r) for r in want.rows]
