@@ -120,7 +120,37 @@ result line):
    and that with the port's ``device="cpu"`` run; fails if a budgeted
    run's pool peak exceeds its budget or it spilled nothing, if a disk
    run wrote no page or left a file, or if the segment sum never
-   launched in the phase.
+   launched in the phase;
+11. statements: the runner's statement surface at STATEMENTS_SF (1) on
+   ``cuda``, against the port's ``device="cpu"`` runner where that is
+   cheap: Q3 as a view and Q6 as PREPARE ... EXECUTE USING equal the
+   literal queries' CPU rows, DESCRIBE OUTPUT lists Q3's columns;
+   CREATE TABLE memory.default.li AS lineitem, START TRANSACTION,
+   INSERT of the rows shipped from 1998, ROLLBACK (the count, read twice
+   with the scan cache on, is the CTAS count again), the INSERT again
+   and COMMIT; INSERT with a reordered column list; with the role manager
+   enforcing, a user without the SELECT grant is refused Q6 and gets its
+   rows after the grant; ``system.runtime.queries`` counts the phase's
+   own statements by state, a profiled Q3 leaves its
+   ``completed_queries`` record and ``operator_stats`` rows with device
+   seconds, ``executables`` lists both kernels with launches and
+   ``nodes`` names the card; customer written into a SQLite file in a
+   temporary directory joins ``tpch.orders`` on the card (equal to the
+   same join over the TPC-H catalog, and the probe launches); EXPLAIN
+   (FORMAT JSON / GRAPHVIZ, TYPE IO / VALIDATE) of Q3 equal the CPU
+   runner's text; a warm Q3 timed with the tracer off and on (three
+   runs each, in turns), EXPLAIN ANALYZE's trace section, and one traced
+   Q3 written as a Chrome trace that parses back with its ``query``,
+   ``plan`` and ``device-sync`` spans; Q1 and SPILL_QUERIES[0] with
+   ``dense_grouping=false`` under ``task_concurrency`` 1 and 4 (equal
+   rows, the segment sum launching under both, warm walls printed);
+   orders and lineitem written as ORC partitioned by orderkey % 8 and
+   joined on (orderkey, b) with ``grouped_execution`` on and off (equal
+   rows, the pool peak lower in buckets, the probe launching in the
+   buckets); and the ``Verifier`` over the 22 TPC-H queries at
+   VERIFY_SF (0.1), the CPU runner as control and the card runner as
+   test (doubles within rel 1e-9), which must report 22 MATCH. Fails if
+   a check fails or a kernel never launched in the phase.
 
 Every breakdown line times the plan's table scans twice: with the scan
 cache cleared (host generation and the copy to the card) and as a warm
@@ -132,8 +162,8 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 ``python3 chip_smoke.py --kernels-only`` runs phases 1 and 2 alone and
 prints the kernels line; ``--surface-only`` runs phases 1 and 7 alone,
 ``--files-only`` phases 1 and 8, ``--chains-only`` phases 1 and 9,
-``--spill-only`` phases 1 and 10 (each computes its CPU reference rows
-itself).
+``--spill-only`` phases 1 and 10, ``--statements-only`` phases 1 and 11
+(each computes its CPU reference rows itself).
 Either times whichever ``presto_tpu_torch`` sits beside the script, so
 a copy of the script placed in a checkout of another commit measures
 that commit (turn by turn with this one, in one call, to compare them).
@@ -1557,10 +1587,362 @@ def phase_spill(torch):
     return launches
 
 
+#: the statements phase: TPC-H at STATEMENTS_SF on the card; the
+#: verifier's 22 queries at VERIFY_SF on the CPU and on the card; the
+#: grouped-execution tables partitioned into GROUPED_BUCKETS buckets by
+#: orderkey
+STATEMENTS_SF = 1
+VERIFY_SF = 0.1
+GROUPED_BUCKETS = 8
+#: Q6 with its five literals as parameters, and the benchmark's values
+Q6_PREPARED = """
+select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= ?
+  and l_shipdate < ? + interval '1' year
+  and l_discount between ? - 0.01 and ? + 0.01
+  and l_quantity < ?
+"""
+Q6_USING = "date '1994-01-01', date '1994-01-01', 0.06, 0.06, 24"
+#: the orders of each customer by nation: the SQLite catalog's customer
+#: against the TPC-H catalog's
+SQLITE_JOIN = """
+select c_nationkey, count(*) n, sum(o_orderkey) s, max(o_custkey) m
+from {customer} join tpch.default.orders on c_custkey = o_custkey
+group by c_nationkey order by c_nationkey
+"""
+#: the co-partitioned join of the grouped-execution check
+GROUPED_JOIN = """
+select count(*) n, sum(l_quantity) q, sum(o_custkey) c
+from li_p join ord_p on l_orderkey = o_orderkey and li_p.b = ord_p.b
+"""
+
+
+def _kernel_calls(device: str):
+    """Launches of each kernel on the card; on the CPU (a rehearsal of
+    the phase) the calls of each kernel's plain version."""
+    if device == "cuda":
+        return _launch_counts()
+    from presto_tpu_torch.obs.profiler import KERNELS
+    return {k["name"]: k["plain_calls"] for k in KERNELS.snapshot()}
+
+
+def phase_statements(torch, tpch_cpu_rows=None, sf=STATEMENTS_SF,
+                     verify_sf=VERIFY_SF, device="cuda"):
+    """The runner's statement surface, catalogs, tracer, history and
+    local parallelism on the card (``device="cpu"`` rehearses it on the
+    CPU at a small ``sf``). Returns the launches of the phase."""
+    import collections
+    import tempfile
+
+    from presto_tpu_torch.connectors.orc import OrcConnector
+    from presto_tpu_torch.connectors.spi import CatalogManager
+    from presto_tpu_torch.connectors.sqlite import SqliteConnector
+    from presto_tpu_torch.connectors.tpch import TpchConnector
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.scancache import CACHE
+    from presto_tpu_torch.obs.trace import TRACER, write_chrome_trace
+    from presto_tpu_torch.server.security import AccessDeniedError
+    from presto_tpu_torch.verifier import Verifier
+    queries = _queries()
+    cuda = device == "cuda"
+    card = torch.cuda.get_device_name(0) if cuda else "cpu"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def calls():
+        return _kernel_calls(device)
+
+    def delta(before):
+        now = calls()
+        return {k: now[k] - before.get(k, 0) for k in now}
+
+    def text(res):
+        return "\n".join(r[0] for r in res.rows)
+
+    t_phase = time.perf_counter()
+    _reset_launches()
+    start = calls()
+    gpu = LocalRunner(tpch_sf=sf, device=device,
+                      rows_per_batch=ROWS_PER_BATCH)
+    cpu = LocalRunner(tpch_sf=sf, device="cpu", rows_per_batch=ROWS_PER_BATCH)
+    ran = collections.Counter()
+
+    def run(sql, **kw):
+        """One statement on the card runner, counted for the query-log
+        check; returns (result, wall seconds)."""
+        t0 = time.perf_counter()
+        try:
+            res = gpu.execute(sql, **kw)
+        except Exception:
+            ran["FAILED"] += 1
+            raise
+        sync()
+        ran["FINISHED"] += 1
+        return res, time.perf_counter() - t0
+
+    if tpch_cpu_rows is None:
+        tpch_cpu_rows = {}
+    for name in ("q3", "q6", "q1"):
+        if name not in tpch_cpu_rows:
+            tpch_cpu_rows[name] = cpu.execute(queries[name]).rows
+
+    # -- views and prepared statements
+    run("create view q3v as " + queries["q3"])
+    res, wall = run("select * from q3v order by revenue desc, o_orderdate, "
+                    "l_orderkey")
+    _same_rows(res.rows, tpch_cpu_rows["q3"], 1e-9)
+    run("prepare q6p from " + Q6_PREPARED)
+    res6, wall6 = run(f"execute q6p using {Q6_USING}")
+    _same_rows(res6.rows, tpch_cpu_rows["q6"], 1e-9)
+    run("prepare q3p from " + queries["q3"])
+    out = [r[0] for r in run("describe output q3p")[0].rows]
+    if out != ["l_orderkey", "revenue", "o_orderdate", "o_shippriority"]:
+        raise AssertionError(f"DESCRIBE OUTPUT of Q3: {out}")
+    print(f"statements views: Q3 as a view {wall:.3f} s, Q6 prepared "
+          f"{wall6:.3f} s, both equal the literal queries' cpu rows; "
+          f"DESCRIBE OUTPUT {out}", flush=True)
+
+    # -- transactions over the memory catalog, the scan cache on
+    def count(table="memory.default.li"):
+        return int(run(f"select count(*) from {table}")[0].rows[0][0])
+    CACHE.clear()
+    n_ctas = int(run("create table memory.default.li as "
+                     "select * from lineitem")[0].rows[0][0])
+    n_src = int(cpu.execute("select count(*) from lineitem").rows[0][0])
+    warm = [count(), count()]
+    if n_ctas != n_src or warm != [n_src, n_src]:
+        raise AssertionError(f"CTAS {n_ctas} rows, counts {warm}, "
+                             f"lineitem {n_src}")
+    late = "select * from lineitem where l_shipdate >= date '1998-01-01'"
+    run("start transaction")
+    n_ins = int(run("insert into memory.default.li " + late)[0].rows[0][0])
+    inside = count()
+    run("rollback")
+    after_rollback = [count(), count()]
+    run("start transaction")
+    run("insert into memory.default.li " + late)
+    run("commit")
+    committed = [count(), count()]
+    if not (n_ins > 0 and inside == n_ctas + n_ins
+            and after_rollback == [n_ctas] * 2
+            and committed == [n_ctas + n_ins] * 2):
+        raise AssertionError(
+            f"transactions: ctas {n_ctas} insert {n_ins} inside {inside} "
+            f"after rollback {after_rollback} committed {committed}")
+    run("create table memory.default.t as select 1 a, cast(2 as bigint) b")
+    run("insert into memory.default.t (b, a) select 10, 20")
+    got = [tuple(int(v) for v in r) for r in
+           run("select a, b from memory.default.t order by a")[0].rows]
+    if got != [(1, 2), (20, 10)]:
+        raise AssertionError(f"INSERT with a column list: {got}")
+    print(f"statements transactions: CTAS {n_ctas} rows, INSERT {n_ins} "
+          f"rows, count inside {inside}, after ROLLBACK {after_rollback} "
+          f"(scan cache on), after COMMIT {committed}; INSERT (b, a) "
+          f"stored {got[1]}", flush=True)
+
+    # -- roles: SELECT needs a grant while the role manager enforces
+    gpu.roles.enforce = True
+    gpu.roles.user_roles["boss"] = {"admin"}
+    try:
+        try:
+            run(queries["q6"], user="carol")
+            raise AssertionError("carol read lineitem without a grant")
+        except AccessDeniedError as e:
+            denied = str(e)
+        run("grant select on lineitem to carol", user="boss")
+        granted = run(queries["q6"], user="carol")[0]
+        _same_rows(granted.rows, tpch_cpu_rows["q6"], 1e-9)
+    finally:
+        gpu.roles.enforce = False
+    print(f"statements roles: before the grant: {denied}; after it carol "
+          "gets Q6's rows", flush=True)
+
+    # -- the system catalog
+    want = dict(ran)
+    res = run("select state, count(*) from system.runtime.queries "
+              "group by state order by state")[0]
+    states = {r[0]: int(r[1]) for r in res.rows}
+    if states != {**want, "RUNNING": 1}:
+        raise AssertionError(f"system.runtime.queries {states}, the phase "
+                             f"ran {want} and this query")
+    run(queries["q3"], properties={"profile": True})
+    qid = gpu.query_log[-1].query_id
+    rec = run("select state, rows, plan_summary from "
+              "system.runtime.completed_queries where query_id = "
+              f"'{qid}'")[0].rows
+    ops = run("select operator, batches, device_time_s, hbm_bytes from "
+              "system.runtime.operator_stats where query_id = "
+              f"'{qid}'")[0].rows
+    dev_s = sum(float(r[2]) for r in ops)
+    if len(rec) != 1 or rec[0][0] != "FINISHED" or not ops or dev_s <= 0:
+        raise AssertionError(f"history of {qid}: {rec}, operators {ops}")
+    exes = {r[0]: int(r[1]) for r in run(
+        "select name, invocations from system.runtime.executables")[0].rows}
+    nodes = run("select node_id, uri, hbm_in_use_bytes from "
+                "system.runtime.nodes")[0].rows
+    if cuda and min(exes.get(k, 0) for k in
+                    ("segment_sum_sorted_i64", "direct_probe")) <= 0:
+        raise AssertionError(f"system.runtime.executables {exes}")
+    if [r[1] for r in nodes] != [card]:
+        raise AssertionError(f"system.runtime.nodes {nodes}")
+    print(f"statements system: queries {states}; Q3 {qid} {rec[0][2]!r}, "
+          f"{len(ops)} operator rows, device {dev_s:.4f} s; executables "
+          f"{exes}; nodes {[(r[0], r[1], int(r[2])) for r in nodes]}",
+          flush=True)
+
+    # -- SQLite: customer written into a SQLite file, joined on the card
+    with tempfile.TemporaryDirectory(prefix="sqlite_") as tmp:
+        cat = CatalogManager()
+        cat.register("tpch", TpchConnector(sf=sf))
+        cat.register("sq", SqliteConnector(os.path.join(tmp, "tpch.db")))
+        sq = LocalRunner(catalogs=cat, device=device,
+                         rows_per_batch=ROWS_PER_BATCH)
+        t0 = time.perf_counter()
+        n_cust = int(sq.execute("create table sq.default.customer as "
+                                "select * from tpch.default.customer"
+                                ).rows[0][0])
+        write_s = time.perf_counter() - t0
+        before = calls()
+        t0 = time.perf_counter()
+        got = sq.execute(SQLITE_JOIN.format(customer="sq.default.customer"))
+        sync()
+        join_s = time.perf_counter() - t0
+        d = delta(before)
+        ref = sq.execute(SQLITE_JOIN.format(
+            customer="tpch.default.customer"))
+        _same_rows(got.rows, ref.rows, 0.0)
+        if d["direct_probe"] <= 0:
+            raise AssertionError(f"the SQLite join launched no probe: {d}")
+    print(f"statements sqlite: {n_cust} customers written in {write_s:.3f} "
+          f"s; the join {join_s:.3f} s, {len(got.rows)} rows equal the "
+          f"TPC-H catalog's; calls {d}", flush=True)
+
+    # -- EXPLAIN's other forms against the CPU runner's text
+    for opt in ("format json", "format graphviz", "type io",
+                "type validate"):
+        sql = f"explain ({opt}) {queries['q3']}"
+        if run(sql)[0].rows != cpu.execute(sql).rows:
+            raise AssertionError(f"EXPLAIN ({opt}) differs from the cpu's")
+    run(queries["q3"])                   # warm the splits for the timings
+    walls = {False: [], True: []}
+    TRACER.clear()
+    try:
+        for on in (False, True, True, False, False, True):
+            TRACER.enable(on)
+            walls[on].append(run(queries["q3"])[1])
+        TRACER.enable(True)
+        analyzed = text(run("explain analyze " + queries["q3"])[0])
+        if "Trace (spans by name):" not in analyzed:
+            raise AssertionError("EXPLAIN ANALYZE has no trace section")
+        TRACER.clear()
+        run(queries["q3"])
+        spans = TRACER.export()
+    finally:
+        TRACER.enable(False)
+    with tempfile.TemporaryDirectory(prefix="trace_") as tmp:
+        path = write_chrome_trace(os.path.join(tmp, "q3.json"), spans)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    names = collections.Counter(e["name"] for e in events if e["ph"] == "X")
+    if not {"query", "plan", "device-sync"} <= set(names):
+        raise AssertionError(f"Chrome trace spans {dict(names)}")
+    trace = analyzed[analyzed.index("Trace (spans by name):"):]
+    print("statements explain: JSON, GRAPHVIZ, IO and VALIDATE equal the "
+          "cpu runner's; warm Q3 tracer off "
+          f"{statistics.median(walls[False]):.4f} s, on "
+          f"{statistics.median(walls[True]):.4f} s (medians of 3); "
+          f"Chrome trace spans {dict(names)}\n"
+          + "\n".join(trace.split("\n")[:12]), flush=True)
+
+    # -- local parallelism: the sort-path partials on 1 and 4 drivers
+    for name, sql in (("q1", queries["q1"]), ("l_orderkey",
+                                              SPILL_QUERIES[0])):
+        rows = {}
+        for tc in (1, 4):
+            props = {"dense_grouping": False, "task_concurrency": tc}
+            run(sql, properties=props)                  # warm the splits
+            before = calls()
+            res, wall = run(sql, properties=props)
+            d = delta(before)
+            if d["segment_sum_sorted_i64"] <= 0:
+                raise AssertionError(f"{name} task_concurrency={tc}: no "
+                                     "segment sum")
+            rows[tc] = res.rows
+            print(f"statements parallel {name} task_concurrency={tc}: warm "
+                  f"{wall:.4f} s | calls {d}", flush=True)
+        _same_rows(rows[4], rows[1], 1e-9)
+
+    # -- grouped execution over co-partitioned ORC tables
+    with tempfile.TemporaryDirectory(prefix="grouped_") as tmp:
+        cat = CatalogManager()
+        cat.register("tpch", TpchConnector(sf=sf))
+        cat.register("orc", OrcConnector(tmp))
+        orc = LocalRunner(catalogs=cat, catalog="orc", device=device,
+                          rows_per_batch=ROWS_PER_BATCH)
+        t0 = time.perf_counter()
+        orc.execute("create table ord_p with (partitioned_by = array['b']) "
+                    "as select o_orderkey, o_custkey, o_orderkey % "
+                    f"{GROUPED_BUCKETS} b from tpch.default.orders")
+        orc.execute("create table li_p with (partitioned_by = array['b']) "
+                    "as select l_orderkey, l_quantity, l_orderkey % "
+                    f"{GROUPED_BUCKETS} b from tpch.default.lineitem")
+        write_s = time.perf_counter() - t0
+        out = {}
+        for grouped in (True, False):
+            before = calls()
+            t0 = time.perf_counter()
+            res = orc.execute(GROUPED_JOIN,
+                              properties={"grouped_execution": grouped})
+            sync()
+            out[grouped] = (res.rows, time.perf_counter() - t0,
+                            orc.session.last_memory_stats.peak_bytes,
+                            delta(before))
+    _same_rows(out[True][0], out[False][0], 1e-9)
+    (_, g_s, g_peak, g_calls), (_, p_s, p_peak, p_calls) = \
+        out[True], out[False]
+    print(f"statements grouped: ORC written in {write_s:.3f} s; "
+          f"{GROUPED_BUCKETS} buckets {g_s:.3f} s, pool peak {g_peak} B, "
+          f"calls {g_calls}; whole {p_s:.3f} s, pool peak {p_peak} B, "
+          f"calls {p_calls}; rows "
+          f"{[tuple(v.item() for v in r) for r in out[True][0]]}",
+          flush=True)
+    if not g_peak < p_peak:
+        raise AssertionError(f"grouped peak {g_peak} not below {p_peak}")
+    if g_calls["direct_probe"] <= 0:
+        raise AssertionError("no probe in the lifespan buckets")
+
+    # -- the verifier: the 22 TPC-H queries, CPU runner against card runner
+    t0 = time.perf_counter()
+    results = Verifier(
+        LocalRunner(tpch_sf=verify_sf, device="cpu",
+                    rows_per_batch=ROWS_PER_BATCH),
+        LocalRunner(tpch_sf=verify_sf, device=device,
+                    rows_per_batch=ROWS_PER_BATCH),
+        rel_tol=1e-9).run(list(queries.values()))
+    status = collections.Counter(r.status for r in results)
+    print(f"statements verifier SF{verify_sf}: {dict(status)} in "
+          f"{time.perf_counter() - t0:.3f} s (control "
+          f"{sum(r.control_ms for r in results) / 1e3:.3f} s, test "
+          f"{sum(r.test_ms for r in results) / 1e3:.3f} s)", flush=True)
+    if status != {"MATCH": len(queries)}:
+        raise AssertionError("; ".join(f"{r.status} {r.detail}"
+                                       for r in results
+                                       if r.status != "MATCH"))
+    launches = delta(start)
+    print(f"statements launches: {json.dumps(launches)} | phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError("a kernel never launched in the phase")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     flags = ("--kernels-only", "--surface-only", "--files-only",
-             "--chains-only", "--spill-only")
+             "--chains-only", "--spill-only", "--statements-only")
     if sys.argv[1:] and (len(sys.argv) != 2 or sys.argv[1] not in flags):
         fail("device", f"unknown arguments {sys.argv[1:]}")
     only = sys.argv[1] if len(sys.argv) == 2 else None
@@ -1581,7 +1963,9 @@ def main() -> None:
     for flag, name, phase in (("--surface-only", "surface", phase_surface),
                               ("--files-only", "files", phase_files),
                               ("--chains-only", "chains", phase_chains),
-                              ("--spill-only", "spill", phase_spill)):
+                              ("--spill-only", "spill", phase_spill),
+                              ("--statements-only", "statements",
+                               phase_statements)):
         if only == flag:
             try:
                 phase(torch)
@@ -1631,13 +2015,17 @@ def main() -> None:
         spill_launches = phase_spill(torch)
     except Exception as e:  # noqa: BLE001
         fail("spill", f"{type(e).__name__}: {e}")
+    try:
+        statements_launches = phase_statements(torch, dict(tpch_cpu_rows))
+    except Exception as e:  # noqa: BLE001
+        fail("statements", f"{type(e).__name__}: {e}")
     for entry in entries:
         # launches over every phase that drives the engine: path, tpch,
-        # tpcds, scan, surface, files, chains and spill
+        # tpcds, scan, surface, files, chains, spill and statements
         entry["launches"] = sum(p[entry["name"]] for p in (
             launches, tpch_launches, tpcds_launches, scan_launches,
             surface_launches, files_launches, chains_launches,
-            spill_launches))
+            spill_launches, statements_launches))
     print(f"total wall {time.perf_counter() - t_start:.3f} s", flush=True)
     # the card line again, so a log kept only from its tail still has it
     print(card, flush=True)

@@ -49,6 +49,9 @@ _sp("fused_pipeline", "boolean", True,
     "run chains of unique-build inner/left joins (with the filters and "
     "projections between them) as one head/tail program pair "
     "(exec/fused.py)")
+_sp("grouped_execution", "boolean", True,
+    "run a join of two tables co-partitioned on its keys one partition "
+    "(lifespan) at a time")
 _sp("join_dense_path", "boolean", True,
     "stats-driven dense-key direct-address join builds")
 _sp("probe_prefetch", "boolean", True,
@@ -63,6 +66,8 @@ _sp("push_partial_aggregation_through_join", "boolean", True,
 _sp("query_max_memory", "integer", None,
     "per-query memory pool limit in bytes (join builds, aggregation "
     "states and sorts spill beyond it)")
+_sp("role", "varchar", None,
+    "active role for access-control checks (SET ROLE)")
 _sp("scan_cache", "boolean", True,
     "serve repeated scans from the device-resident scan cache")
 _sp("scan_pad_batches", "boolean", True,
@@ -86,6 +91,8 @@ _sp("spill_to_disk_bytes", "integer", 4 << 30,
     "compressed pages to disk")
 _sp("stats_bounded_grouping", "boolean", True,
     "attach hard per-key bounds from connector stats to aggregations")
+_sp("task_concurrency", "integer", 1,
+    "driver threads running a grouped aggregation's partial step")
 
 _TRUE = ("true", "1", "on", "yes")
 _FALSE = ("false", "0", "off", "no")

@@ -6,7 +6,10 @@ MemoryConnectorFactory.java, MemoryMetadata.java, MemoryPagesStore.java):
 CREATE TABLE AS and INSERT append device batches to a per-table store;
 scans serve them back on the device the caller names. Every write bumps
 the table's data version and notifies ``spi.notify_data_change``, which
-invalidates the scan cache. Transactions are not ported.
+invalidates the scan cache. The catalog is transactional
+(``transaction.py``): a snapshot is the table lists, and a restore bumps
+the version of every table it touches, so a warm scan after ROLLBACK
+misses the cache instead of replaying rows that no longer exist.
 """
 from __future__ import annotations
 
@@ -102,6 +105,21 @@ class MemoryConnector(Connector):
         reads the contents from before the insert."""
         return MemoryPageSource(list(self.tables.get(split.table.table, [])),
                                 columns, resolve_device(device))
+
+    # -- transactions (reference spi ConnectorTransactionHandle role) -------
+    def transaction_snapshot(self):
+        """Batches are never written in place, so shallow copies of the
+        table lists capture the whole state."""
+        return ({t: list(bs) for t, bs in self.tables.items()},
+                dict(self.schemas))
+
+    def transaction_restore(self, snap) -> None:
+        tables, schemas = snap
+        touched = set(self.tables) | set(tables)
+        self.tables = {t: list(bs) for t, bs in tables.items()}
+        self.schemas = dict(schemas)
+        for t in touched:            # a rollback changes data too
+            self._data_changed(t)
 
     # -- write surface (reference spi/connector/ConnectorPageSink.java) ------
     def create_table(self, name: str, schema: Schema,

@@ -42,6 +42,17 @@ without that thread. Shared subplans are memoized within the query's
 Unique-build joins probe through the CUDA direct-address probe kernel
 (``ops/probe.py``) whenever the build gets a direct-address table, and
 through binary search over the sorted build otherwise.
+
+Local parallelism: under ``task_concurrency`` > 1 a grouped
+aggregation's partial step runs on that many driver threads
+(``local_exchange.parallel_drivers``). Grouped (lifespan) execution: an
+inner join of two tables partitioned on its keys runs one partition at a
+time (``_lifespan_partitions``), each partition's scans restricted to
+its splits and its dynamic bounds kept to that partition. With the
+tracer on (``obs/trace.py``) every operator is an ``op:*`` span and each
+host readback the executor makes (error flags, compaction and fused
+liveness counts, build summaries and multiplicities) a ``device-sync``
+span.
 """
 from __future__ import annotations
 
@@ -69,6 +80,7 @@ from ..expr.rewrite import rewrite as ir_rewrite
 from ..memory import QueryMemoryPool, batch_device_bytes
 from ..obs import profiler
 from ..obs.metrics import REGISTRY
+from ..obs.trace import TRACER
 from ..ops.aggregation import (
     AggSpec, dense_path_selected, global_aggregate, grouped_aggregate,
     mark_distinct_flags, percentile_drains,
@@ -96,7 +108,7 @@ from .fused import (
     FilterStage, JoinStage, ProjectStage, fused_pipeline, fused_prefilter,
     keys_in_build_vocab,
 )
-from .local_exchange import exchange_source
+from .local_exchange import exchange_source, parallel_drivers
 from .spill import (
     AggSpillBuffer, HostPartitionStore, SortSpillBuffer,
     SpillableBuildBuffer,
@@ -301,6 +313,20 @@ def unnest_expand(b: Batch, exprs, ordinality: bool, schema: Schema):
     return Batch(schema, cols, out_mask), err
 
 
+def _without_key_pairs(node: JoinNode, drop) -> JoinNode:
+    """``node`` joining on its key pairs outside ``drop`` (their build-key
+    bounds with them); ``node`` itself when no pair would remain."""
+    keep = [i for i, kp in enumerate(zip(node.left_keys, node.right_keys))
+            if kp not in drop]
+    if not keep or len(keep) == len(node.left_keys):
+        return node
+    return dataclasses.replace(
+        node, left_keys=tuple(node.left_keys[i] for i in keep),
+        right_keys=tuple(node.right_keys[i] for i in keep),
+        key_bounds=tuple(node.key_bounds[i] for i in keep)
+        if node.key_bounds else ())
+
+
 def _pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
     """Zero-pad the element axis (axis 1) of ``t`` to ``width``."""
     pad = t.new_zeros((t.shape[0], width - t.shape[1]) + tuple(t.shape[2:]))
@@ -384,6 +410,10 @@ class _Executor:
         #: runtime (dynamic-filter) scan bounds: scan node ->
         #: [(column, lo, hi)]
         self.dynamic_pushdown: Dict[PlanNode, List[Tuple]] = {}
+        #: grouped (lifespan) execution: scan node -> the splits of the
+        #: one partition it is restricted to (reference
+        #: execution/Lifespan.java:26, scheduler/group/LifespanScheduler)
+        self.lifespan_splits: Dict[PlanNode, List] = {}
         # device int32 scalars from error-checking kernels; reduced to one
         # host sync by check_errors() after the plan drains
         self.error_flags: List[torch.Tensor] = []
@@ -450,7 +480,8 @@ class _Executor:
         """Raise the highest-coded row error seen this query (one sync)."""
         if not self.error_flags:
             return
-        code = int(torch.stack(self.error_flags).max())
+        with TRACER.span("device-sync", what="error-flags"):
+            code = int(torch.stack(self.error_flags).max())
         self.error_flags = []
         if code:
             raise QueryError(code)
@@ -480,6 +511,11 @@ class _Executor:
         it = m(node)
         if self.stats is not None:
             it = self.stats.wrap(node, it)
+        if TRACER.enabled:
+            # operator span: first batch to exhaustion, its children's
+            # time included (the Chrome viewer nests them by time)
+            it = TRACER.wrap_iter(
+                "op:" + type(node).__name__.replace("Node", ""), it)
         return it
 
     def _run_memoized(self, node: PlanNode, m) -> Iterator[Batch]:
@@ -492,6 +528,10 @@ class _Executor:
         it = m(node)
         if self.stats is not None:
             it = self.stats.wrap(node, it)
+        if TRACER.enabled:
+            it = TRACER.wrap_iter(
+                "op:" + type(node).__name__.replace("Node", ""), it,
+                memoized=True)
         out: List[Batch] = []
         for b in it:
             if not self.pool.try_reserve(batch_device_bytes(b), ctx):
@@ -540,7 +580,10 @@ class _Executor:
         order does not change run to run."""
         conn = self.session.catalogs.get(node.catalog)
         opts = scancache.options_from_session(self.session)
-        splits = conn.split_manager.splits(node.table, max(opts.threads, 1))
+        splits = self.lifespan_splits.get(node)
+        if splits is None:
+            splits = conn.split_manager.splits(node.table,
+                                               max(opts.threads, 1))
         t_query0 = time.perf_counter()
 
         def record_split(i: int, t0: float, batches: int) -> None:
@@ -579,7 +622,8 @@ class _Executor:
         def maybe_compact(b: Batch) -> Batch:
             if not state["check"] or b.capacity <= (1 << 17):
                 return b
-            tgt = bucket_capacity(b.host_count())
+            with TRACER.span("device-sync", what="compaction-liveness"):
+                tgt = bucket_capacity(b.host_count())
             if tgt * 4 <= b.capacity:
                 return b.compact(tgt, check=False)
             state["check"] = False
@@ -767,15 +811,21 @@ class _Executor:
             merge_every=self.MERGE_EVERY, key_bounds=kb, allow_dense=allow,
             flag_bounds=lambda b: self._flag_bounds(b, key_idx, aggs, kb,
                                                     allow))
+        def partial(b: Batch) -> Batch:
+            self._flag_bounds(b, group, aggs, kb, allow)
+            return grouped_aggregate(b, group, aggs, mode="partial",
+                                     key_bounds=kb, allow_dense=allow)
         try:
-            for b in self.run(child):
-                if step == "final":
-                    part = b
-                else:
-                    self._flag_bounds(b, group, aggs, kb, allow)
-                    part = grouped_aggregate(b, group, aggs, mode="partial",
-                                             key_bounds=kb,
-                                             allow_dense=allow)
+            if step == "final":
+                partials = self.run(child)
+            else:
+                # task_concurrency > 1: the partials run on that many
+                # driver threads over a round-robin local exchange
+                # (reference AddLocalExchanges + multi-driver pipelines)
+                partials = parallel_drivers(
+                    self.run(child), partial,
+                    int(self.session.properties.get("task_concurrency", 1)))
+            for part in partials:
                 buf.add_partial(part)
             yield from buf.results(final=step != "partial")
         finally:
@@ -836,12 +886,93 @@ class _Executor:
             yield pend[0] if len(pend) == 1 else concat_batches(pend)
 
     def _join_dispatch(self, node: JoinNode) -> Iterator[Batch]:
-        if bool_property(self.session, "fused_pipeline", True):
+        lifespan = self._lifespan_partitions(node)
+        if lifespan is None and bool_property(self.session,
+                                              "fused_pipeline", True):
             fused = self._try_fused_chain(node)
             if fused is not None:
                 yield from fused
                 return
-        yield from self._join_once(node)
+        if lifespan is None:
+            yield from self._join_once(node)
+            return
+        ls, rs, part_pairs, buckets = lifespan
+        bucket_node = _without_key_pairs(node, part_pairs)
+        for lsplits, rsplits in buckets:
+            self.lifespan_splits[ls] = lsplits
+            self.lifespan_splits[rs] = rsplits
+            # dynamic-filter bounds are bucket-local: bounds pushed while
+            # joining bucket k must not prune bucket k+1
+            saved_dyn = dict(self.dynamic_pushdown)
+            try:
+                yield from self._join_once(bucket_node)
+            finally:
+                self.lifespan_splits.pop(ls, None)
+                self.lifespan_splits.pop(rs, None)
+                self.dynamic_pushdown = saved_dyn
+
+    def _lifespan_partitions(self, node: JoinNode):
+        """Partition-wise (grouped, lifespan) execution check: when both
+        sides of an inner join scan Hive-partitioned tables whose
+        partition keys are covered pairwise by the equi-join keys, rows
+        match only within equal partition values, so the join runs one
+        partition at a time and its build holds one partition's rows
+        (reference execution/Lifespan.java:26,
+        scheduler/group/LifespanScheduler.java). Such a join never takes
+        the fused chain. Returns (left scan, right scan, the (left key,
+        right key) pairs on partition columns, [(left splits, right
+        splits)] of the common partition values in order), or None.
+
+        Unlike the reference, a bucket joins on the other key pairs
+        alone: every row of both sides holds the bucket's partition value
+        (a file catalog's partition values are the directory names, never
+        NULL), so the dropped pairs are equal on every row pair, and a
+        join left with one integer key probes a direct-address table
+        through the probe kernel instead of a multi-key binary search."""
+        if node.join_type != "inner" or not bool_property(
+                self.session, "grouped_execution", True):
+            return None
+
+        def unwrap(n):
+            while isinstance(n, FilterNode):
+                n = n.child
+            return n if isinstance(n, TableScanNode) else None
+
+        ls, rs = unwrap(node.left), unwrap(node.right)
+        if ls is None or rs is None or ls is rs:
+            return None
+        # a memoized (shared) scan would cache its first bucket's output
+        if any(n in self._ever_shared
+               for n in (ls, rs, node.left, node.right)):
+            return None
+
+        def partition_info(scan: TableScanNode):
+            conn = self.session.catalogs.get(scan.catalog)
+            keys_fn = getattr(conn, "partition_keys", None)
+            keys = keys_fn(scan.table.table) if keys_fn is not None else None
+            if not keys:
+                return None
+            try:
+                idx = [scan.columns.index(k) for k in keys]
+            except ValueError:
+                return None     # a partition column not even scanned
+            # one split listing per side; a bucket is then a dict lookup
+            by_value: Dict[Tuple, List] = {}
+            for sp in conn.split_manager.splits(scan.table, 1):
+                if len(sp.info) > 1:
+                    by_value.setdefault(tuple(sp.info[1]), []).append(sp)
+            return idx, by_value
+
+        li, ri = partition_info(ls), partition_info(rs)
+        if li is None or ri is None or len(li[0]) != len(ri[0]):
+            return None
+        # every partition-key position must be an equi-join pair
+        pairs = set(zip(node.left_keys, node.right_keys))
+        part_pairs = set(zip(li[0], ri[0]))
+        if not part_pairs <= pairs:
+            return None
+        common = sorted(li[1].keys() & ri[1].keys())
+        return ls, rs, part_pairs, [(li[1][v], ri[1][v]) for v in common]
 
     # -- fused join chains ----------------------------------------------------
     def _try_fused_chain(self, top: JoinNode):
@@ -941,7 +1072,9 @@ class _Executor:
         def drain_pend() -> List[Batch]:
             if not pend:
                 return []
-            counts = torch.stack([c for _, c in pend]).cpu().tolist()
+            with TRACER.span("device-sync", what="fused-liveness",
+                             batches=len(pend)):
+                counts = torch.stack([c for _, c in pend]).cpu().tolist()
             _FUSED_READBACKS.inc()
             outs, shrunk = [], False
             for (b, _), live in zip(pend, counts):
@@ -1298,7 +1431,8 @@ class _Executor:
             data = c.data.to(torch.int64)
             out.append(torch.where(ok, data, i64.max).min())
             out.append(torch.where(ok, data, i64.min).max())
-        return torch.stack(out).tolist()
+        with TRACER.span("device-sync", what="build-summary"):
+            return torch.stack(out).tolist()
 
     @staticmethod
     def _summary_bounds(summary, out_keys):
@@ -1357,7 +1491,8 @@ class _Executor:
         SKEW_MATCH_LIMIT: sizing every batch by the hottest key would push
         all of them into the chunked skew path, so those batches count
         their own matches instead."""
-        m = int(max_multiplicity(prepared))
+        with TRACER.span("device-sync", what="build-multiplicity"):
+            m = int(max_multiplicity(prepared))
         return m if m <= self.SKEW_MATCH_LIMIT else None
 
     def _skew_chunks(self, probe: Batch, build: Batch, lkeys, rkeys,

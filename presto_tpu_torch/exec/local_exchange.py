@@ -6,41 +6,55 @@ push device batches into bounded per-consumer queues and consumer
 iterators drain them. On one card the parallelism this buys is on the
 host: a join's probe side is generated, copied and filtered on a
 producer thread while the build side drains (``exchange_source``), the
-role of the reference's build and probe pipelines running at once.
+role of the reference's build and probe pipelines running at once; and
+``parallel_drivers`` runs a grouped aggregation's partial step on
+``task_concurrency`` driver threads (the reference's multi-driver
+pipelines), whose kernels still serialize on the card.
 
 Modes:
 - single:      every batch to consumer 0
 - broadcast:   every batch to every consumer (batches are never mutated)
 - round_robin: batch i to consumer i % n (FIXED_ARBITRARY's role)
+- hash:        consumer c gets the sub-batch of rows whose key columns
+               hash to c (FIXED_HASH), by ``parallel/exchange.py``'s
+               ``hash_partition_ids``, the row hash the spill and the
+               distributed exchange use
 - passthrough: producer p feeds consumer p (FIXED_PASSTHROUGH)
 
-The hash mode (FIXED_HASH over ``parallel/exchange.py``'s row hash) and
-``parallel_drivers`` (``task_concurrency``) are not ported yet.
+Every thread started here runs in a copy of its starter's context, so a
+profiled query's frames and the tracer's span parentage follow the work
+onto it. A new thread launches on the default CUDA stream of the device
+(torch keeps the current stream per thread, and no thread of the engine
+sets another), the stream the consumer's kernels use too.
 """
 from __future__ import annotations
 
 import contextvars
 import queue as _queue
 import threading
-from typing import Callable, Iterator, List, Optional
+import time
+from typing import Callable, Iterator, List, Optional, Sequence
 
 from ..batch import Batch
 from ..obs import profiler
+from ..parallel.exchange import hash_partition_ids
 
 _DONE = object()
 
-MODES = ("single", "broadcast", "round_robin", "passthrough")
+MODES = ("single", "broadcast", "round_robin", "hash", "passthrough")
 
 
 class LocalExchange:
     def __init__(self, mode: str, n_consumers: int,
+                 key_cols: Optional[Sequence[int]] = None,
                  buffer_batches: int = 4):
-        if mode == "hash":
-            raise NotImplementedError("the hash local exchange is not ported")
         if mode not in MODES:
             raise ValueError(f"unknown local exchange mode {mode!r}")
+        if mode == "hash" and not key_cols:
+            raise ValueError("hash mode needs key columns")
         self.mode = mode
         self.n = n_consumers
+        self.key_cols = list(key_cols or ())
         self._queues = [_queue.Queue(maxsize=buffer_batches)
                         for _ in range(n_consumers)]
         self._rr = 0
@@ -60,8 +74,13 @@ class LocalExchange:
         elif self.mode == "round_robin":
             self._put(self._rr % self.n, batch)
             self._rr += 1
-        else:    # passthrough
+        elif self.mode == "passthrough":
             self._put(producer % self.n, batch)
+        else:    # hash
+            pid = hash_partition_ids(batch, self.key_cols, self.n)
+            for c in range(self.n):
+                self._put(c, Batch(batch.schema, batch.columns,
+                                   batch.row_mask & (pid == c)))
 
     def finish(self, error: Optional[BaseException] = None) -> None:
         """Signal end of stream (or a failure) to every consumer."""
@@ -138,10 +157,11 @@ class LocalExchange:
 
 
 def exchange_source(batches: Iterator[Batch], mode: str, n_consumers: int,
+                    key_cols: Optional[Sequence[int]] = None,
                     buffer_batches: int = 4) -> LocalExchange:
     """Start a producer thread draining ``batches`` into a LocalExchange,
     the driver-decoupling shape of LocalExchangeSourceOperator."""
-    ex = LocalExchange(mode, n_consumers, buffer_batches)
+    ex = LocalExchange(mode, n_consumers, key_cols, buffer_batches)
 
     def produce() -> None:
         try:
@@ -162,3 +182,76 @@ def exchange_source(batches: Iterator[Batch], mode: str, n_consumers: int,
 
     ex.start_producer(produce)
     return ex
+
+
+def parallel_drivers(batches: Iterator[Batch],
+                     driver_fn: Callable[[Batch], Batch],
+                     concurrency: int,
+                     buffer_batches: int = 4) -> Iterator[Batch]:
+    """Fan ``batches`` over ``concurrency`` driver threads, each applying
+    ``driver_fn``, and yield the results as they complete, in no fixed
+    order (the multi-driver pipeline of reference SqlTaskExecution). One
+    driver, or fewer, runs ``driver_fn`` inline.
+
+    Each driver applies ``driver_fn`` in a frame of the operator that
+    started the drivers (``profiler.resumed_frame``), so a profiled
+    query charges the drivers' device time to that operator; while the
+    calling thread waits for a result it gives up its frame lock
+    (``profiler.blocking``)."""
+    if concurrency <= 1:
+        for b in batches:
+            yield driver_fn(b)
+        return
+    ex = exchange_source(batches, "round_robin", concurrency,
+                         buffer_batches=buffer_batches)
+    out: _queue.Queue = _queue.Queue(maxsize=concurrency * 2)
+    errors: List[BaseException] = []
+
+    def drive(c: int) -> None:
+        try:
+            for b in ex.consumer(c):
+                with profiler.resumed_frame():
+                    r = driver_fn(b)
+                out.put(("row", r))
+        except BaseException as e:   # re-raised on the calling thread
+            errors.append(e)
+        finally:
+            out.put(("done", None))
+
+    drivers: List[threading.Thread] = []
+    for c in range(concurrency):
+        # one context copy per driver (a Context cannot be entered by two
+        # threads at once)
+        ctx = contextvars.copy_context()
+        t = threading.Thread(target=ctx.run, args=(drive, c), daemon=True,
+                             name=f"local-driver-{c}")
+        drivers.append(t)
+        t.start()
+    done = 0
+    try:
+        while done < concurrency:
+            try:
+                kind, item = out.get_nowait()
+            except _queue.Empty:
+                with profiler.blocking():
+                    kind, item = out.get()
+            if kind == "done":
+                done += 1
+                continue
+            yield item
+    finally:
+        with profiler.blocking():
+            ex.close()
+            # an early exit (LIMIT, an error) may leave drivers blocked on
+            # a full ``out``: drain it until they see the closed exchange
+            deadline = time.monotonic() + 5.0
+            while any(t.is_alive() for t in drivers) \
+                    and time.monotonic() < deadline:
+                try:
+                    out.get_nowait()
+                except _queue.Empty:
+                    time.sleep(0.01)
+            for t in drivers:
+                t.join(timeout=1.0)
+    if errors:
+        raise errors[0]

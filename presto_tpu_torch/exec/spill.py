@@ -25,6 +25,10 @@ Each staged chunk is bucketed once at staging time (a stable argsort of
 its partition ids), so reading a partition back is slicing, not a
 rescan. The spilled ORDER BY sorts on the host with one ``np.lexsort``
 over operands that reproduce ``ops/sort._sortable``.
+
+With the tracer on (``obs/trace.py``), a revocation is a ``spill-revoke``
+span naming its buffer kind and a flush to disk a ``spill-to-disk``
+span.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from ..batch import (
 )
 from ..memory import QueryMemoryPool, batch_device_bytes
 from ..obs.metrics import REGISTRY
+from ..obs.trace import TRACER
 from ..ops.aggregation import AggSpec, grouped_aggregate
 from ..ops.sort import SortKey, sort_batch
 from ..parallel.exchange import hash_partition_ids
@@ -218,11 +223,13 @@ class HostPartitionStore:
         return nb_dev
 
     def _flush_to_disk(self) -> None:
-        self._file = SpillFile(
-            None if self.pool is None else self.pool.spill_dir)
-        for ch in self.chunks:
-            self._flush_chunk(ch)
-        self.chunks = []
+        with TRACER.span("spill-to-disk", chunks=len(self.chunks),
+                         host_bytes=self.host_bytes):
+            self._file = SpillFile(
+                None if self.pool is None else self.pool.spill_dir)
+            for ch in self.chunks:
+                self._flush_chunk(ch)
+            self.chunks = []
         if self.pool is not None:
             self.pool.host_staged_bytes -= self.host_bytes
         self.host_bytes = 0
@@ -307,6 +314,9 @@ class _SpillBuffer:
     unsynchronized revoke both stages batches and leaves them visible to
     a concurrent consumer (duplicated rows)."""
 
+    #: the ``buffer`` attribute of this kind's ``spill-revoke`` span
+    KIND = "join-build"
+
     def __init__(self, pool: QueryMemoryPool, name: str,
                  key_cols: Sequence[int], n_partitions: int):
         self.ctx = pool.context(name, revoke_cb=self._spill_all)
@@ -339,12 +349,14 @@ class _SpillBuffer:
 
     def _spill_all(self) -> int:
         _SPILL_REVOCATIONS.inc()
-        freed = 0
-        for b in self.device:
-            freed += self._stage(b)
-        self.device = []
-        self.spilled = True
-        return freed
+        with TRACER.span("spill-revoke", buffer=self.KIND,
+                         batches=len(self.device)):
+            freed = 0
+            for b in self.device:
+                freed += self._stage(b)
+            self.device = []
+            self.spilled = True
+            return freed
 
     def _pin(self) -> Tuple[bool, List[Batch]]:
         """End revocability (the consumer holds the state from here on)
@@ -393,6 +405,8 @@ class AggSpillBuffer(_SpillBuffer):
     ``flag_bounds(states)`` is called on every batch a merge or final
     aggregates: the executor's stats-bounds check (a merge whose larger
     capacity takes the dense, clamping path owes a violation flag)."""
+
+    KIND = "hash-agg"
 
     def __init__(self, pool: QueryMemoryPool, name: str,
                  key_idx: Sequence[int], aggs: Sequence[AggSpec],
@@ -457,6 +471,8 @@ class SortSpillBuffer(_SpillBuffer):
     the two tiers) and the final order is one np.lexsort over operands
     replicating ``ops/sort._sortable`` (reference OrderByOperator spill;
     the host takes the role of FileSingleStreamSpiller's disk)."""
+
+    KIND = "order-by"
 
     def __init__(self, pool: QueryMemoryPool, name: str,
                  keys: Sequence[SortKey]):

@@ -9,12 +9,23 @@ here touches the device.
 
 Dotted names carry a label after the family (``scan_cache_resident_bytes.
 cuda`` is the family ``scan_cache_resident_bytes`` for device ``cuda``).
+
+Beside the registry: ``TASKS`` and ``NODES``, the feeds of
+``system.runtime.tasks`` and ``system.runtime.nodes``. A cluster
+coordinator fills them; one process holds no task rows, and the nodes
+table then lists the runner's own device. ``attach_event_listeners``
+hangs the query and split completion counters and histograms on a
+runner's ``events.EventListenerManager``.
 """
 from __future__ import annotations
 
 import bisect
 import threading
-from typing import Dict, List, Tuple
+import time
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+from .._devtools.lockcheck import checked_lock
 
 _INF = float("inf")
 
@@ -193,3 +204,127 @@ class MetricsRegistry:
 
 #: the process-wide registry
 REGISTRY = MetricsRegistry()
+
+
+# -- task registry (system.runtime.tasks) ------------------------------------
+
+_TERMINAL_TASK_STATES = ("FINISHED", "FAILED", "ABORTED")
+
+
+class TaskRegistry:
+    """Bounded registry of worker-task states: the feed of the
+    ``system.runtime.tasks`` table (reference SqlTaskManager's task info
+    map behind server/TaskResource.java)."""
+
+    def __init__(self, max_tasks: int = 1000):
+        self._tasks: "OrderedDict[str, Dict]" = OrderedDict()
+        self._max = max_tasks
+        self._lock = checked_lock("metrics.tasks")
+
+    def update(self, task_id: str, **fields) -> None:
+        evicted = 0
+        with self._lock:
+            t = self._tasks.get(task_id)
+            if t is None:
+                t = self._tasks[task_id] = {
+                    "task_id": task_id, "created": time.time()}
+            t.update(fields)
+            # over the cap: the oldest terminal task goes first, so a
+            # RUNNING entry stays visible; only when every task is live
+            # does the oldest one go (the counter makes either loss
+            # visible)
+            while len(self._tasks) > self._max:
+                victim = next(
+                    (k for k, v in self._tasks.items()
+                     if v.get("state") in _TERMINAL_TASK_STATES), None)
+                if victim is None:
+                    victim = next(iter(self._tasks))
+                del self._tasks[victim]
+                evicted += 1
+        if evicted:
+            REGISTRY.counter("task_registry_evicted_total").inc(evicted)
+
+    def snapshot(self) -> List[Dict]:
+        with self._lock:
+            return [dict(t) for t in self._tasks.values()]
+
+    def reset(self) -> None:
+        with self._lock:
+            self._tasks.clear()
+
+
+TASKS = TaskRegistry()
+
+
+# -- node registry (system.runtime.nodes) -------------------------------------
+
+class NodeRegistry:
+    """A coordinator's view of its cluster's nodes: the feed of the
+    ``system.runtime.nodes`` table (reference connector/system/
+    NodesSystemTable over DiscoveryNodeManager). Heartbeat age is worked
+    out at read time, so a stalled poller shows as a growing age."""
+
+    def __init__(self):
+        self._nodes: Dict[str, Dict] = {}
+        self._lock = checked_lock("metrics.nodes")
+
+    def update(self, node_id: str, seen: bool = True, drop=(),
+               **fields) -> None:
+        """Merge ``fields`` into the node's doc; ``drop`` removes keys a
+        fresh heartbeat no longer carries."""
+        with self._lock:
+            n = self._nodes.setdefault(node_id, {"node_id": node_id})
+            n.update(fields)
+            for k in drop:
+                n.pop(k, None)
+            if seen:
+                n["last_seen"] = time.monotonic()
+
+    def snapshot(self, now: Optional[float] = None) -> List[Dict]:
+        """Node docs with ``heartbeat_age_s`` from one clock read."""
+        if now is None:
+            now = time.monotonic()
+        with self._lock:
+            out = []
+            for n in self._nodes.values():
+                doc = dict(n)
+                seen = doc.pop("last_seen", None)
+                doc["heartbeat_age_s"] = (
+                    round(now - seen, 3) if seen is not None else _INF)
+                out.append(doc)
+            return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._nodes.clear()
+
+
+NODES = NodeRegistry()
+
+
+# -- EventListenerManager sink -----------------------------------------------
+
+def attach_event_listeners(events,
+                           registry: Optional[MetricsRegistry] = None
+                           ) -> None:
+    """Register metrics-feeding listeners on an EventListenerManager:
+    query-completion state counters and the latency histogram, split
+    completion counters (the sink half of the metrics; the other half is
+    direct instrumentation)."""
+    reg = registry if registry is not None else REGISTRY
+
+    def on_query_completed(ev) -> None:
+        state = str(getattr(ev, "state", "unknown")).lower()
+        reg.counter(f"queries_{state}_total").inc()
+        reg.histogram("query_seconds").observe(
+            getattr(ev, "elapsed_ms", 0.0) / 1e3)
+
+    def on_split_completed(ev) -> None:
+        reg.counter("splits_completed_total").inc()
+        reg.counter("split_batches_total").inc(
+            getattr(ev, "batches", 0) or 0)
+        reg.histogram("split_seconds").observe(
+            (getattr(ev, "wall_ms", 0.0) or 0.0) / 1e3)
+
+    events.register(on_query_completed)
+    events.register_split_listener(on_split_completed)

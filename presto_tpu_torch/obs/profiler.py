@@ -52,9 +52,10 @@ stall then counts. Profile mode trades overlap for truth, as in the
 reference; it is a per-query session property (``profile``), on under
 EXPLAIN ANALYZE, and never on for plain queries.
 
-Not ported: the device-trace merging of ``--profile-out`` (it needs the
-span tracer and the CLI), the ``system.runtime.executables`` table and
-the history sink's device columns.
+``KERNELS`` feeds ``system.runtime.executables``
+(``connectors/system.py``), and the per-operator frame seconds and kernel
+bytes feed the query history's device columns (``obs/history.py``). Not
+ported: the device-trace merging of ``--profile-out`` (it needs the CLI).
 """
 from __future__ import annotations
 

@@ -1,13 +1,18 @@
 """Plan printer for EXPLAIN and EXPLAIN ANALYZE.
 
-The counterpart of the text half of ``presto_tpu/planner/printer.py``
-(reference presto-main/.../sql/planner/planprinter/PlanPrinter.java,
-textLogicalPlan). Under EXPLAIN ANALYZE each executed node carries its
-profiled device time and its kernels' bytes (``[device ...]``), and the
-runner appends the skew, scan-cache, kernels (``format_executables_summary``)
-and verdict (``format_cost_verdict``) sections. The JSON, Graphviz,
-distributed and IO renderings and the sections that read the mesh and
-the result cache are not ported.
+The counterpart of ``presto_tpu/planner/printer.py`` (reference
+presto-main/.../sql/planner/planprinter/: PlanPrinter.java's
+textLogicalPlan, JsonRenderer.java, GraphvizPrinter.java,
+IoPlanPrinter.java): the text plan, EXPLAIN (FORMAT JSON)
+(``plan_json``), (FORMAT GRAPHVIZ) (``plan_graphviz``) and (TYPE IO)
+(``plan_io``), each equal to the reference's for the same plan. Under
+EXPLAIN ANALYZE each executed node carries its profiled device time and
+its kernels' bytes (``[device ...]``), and the runner appends the trace
+(``format_trace_summary``, with the tracer on), skew, scan-cache,
+kernels (``format_executables_summary``) and verdict
+(``format_cost_verdict``) sections. The distributed rendering needs the
+fragmenter, and the sections that read the mesh and the result cache
+need their planes: none of them is ported.
 """
 from __future__ import annotations
 
@@ -19,6 +24,67 @@ from .plan import (
     TableScanNode, TopNNode, UnionNode, ValuesNode,
 )
 from .planner import LogicalPlan
+
+
+def plan_json(plan: LogicalPlan) -> dict:
+    """Plan tree as a JSON-able dict — EXPLAIN (FORMAT JSON) (reference
+    planprinter/JsonRenderer.java)."""
+    def node_doc(n: PlanNode) -> dict:
+        return {
+            "name": type(n).__name__.replace("Node", ""),
+            "label": _label(n),
+            "outputs": [{"symbol": f.name, "type": f.type.display()}
+                        for f in n.fields],
+            "children": [node_doc(c) for c in n.children],
+        }
+    doc = node_doc(plan.root)
+    if plan.init_plans:
+        doc["initPlans"] = [node_doc(p) for p in plan.init_plans]
+    return doc
+
+
+def plan_graphviz(plan: LogicalPlan) -> str:
+    """dot digraph — EXPLAIN (FORMAT GRAPHVIZ) (reference
+    planprinter/GraphvizPrinter.java)."""
+    lines = ["digraph logical_plan {", "  node [shape=box];"]
+    counter = [0]
+
+    def walk(n: PlanNode) -> int:
+        my_id = counter[0]
+        counter[0] += 1
+        label = _label(n).replace('"', "'")
+        lines.append(f'  n{my_id} [label="{label}"];')
+        for c in n.children:
+            cid = walk(c)
+            lines.append(f"  n{my_id} -> n{cid};")
+        return my_id
+
+    walk(plan.root)
+    for p in plan.init_plans:
+        walk(p)
+    lines.append("}")
+    return "\n".join(lines)
+
+
+def plan_io(plan: LogicalPlan) -> dict:
+    """Catalog/table access summary — EXPLAIN (TYPE IO) (reference
+    planprinter/IoPlanPrinter.java)."""
+    tables = []
+
+    def walk(n: PlanNode) -> None:
+        if isinstance(n, TableScanNode):
+            tables.append({
+                "catalog": n.catalog,
+                "schema": n.table.schema,
+                "table": n.table.table,
+                "columns": list(n.columns)})
+        for c in n.children:
+            walk(c)
+
+    walk(plan.root)
+    for p in plan.init_plans:
+        walk(p)
+    return {"inputTableColumnInfos": tables}
 
 
 def print_plan(plan: LogicalPlan, stats=None) -> str:
@@ -33,6 +99,27 @@ def print_plan(plan: LogicalPlan, stats=None) -> str:
         lines.append(
             f"Total: {stats.total_wall_s * 1e3:,.0f}ms "
             f"(planning {stats.planning_s * 1e3:,.0f}ms)")
+    return "\n".join(lines)
+
+
+def format_trace_summary(spans) -> str:
+    """Trace section appended to EXPLAIN ANALYZE when the tracer is on:
+    spans aggregated by name (count, total/max ms), compile and
+    device-sync work called out the way the reference's query stats
+    separate blocked/compile time from operator wall."""
+    agg = {}
+    for s in spans:
+        name = s.get("name", "?")
+        dur = (float(s.get("end", 0.0)) - float(s.get("start", 0.0)))
+        st = agg.setdefault(name, [0, 0.0, 0.0])
+        st[0] += 1
+        st[1] += dur
+        st[2] = max(st[2], dur)
+    lines = ["Trace (spans by name):"]
+    for name in sorted(agg, key=lambda n: -agg[n][1]):
+        n, total, peak = agg[name]
+        lines.append(f"  {name:<32} x{n:<5} total "
+                     f"{total * 1e3:,.1f}ms, max {peak * 1e3:,.1f}ms")
     return "\n".join(lines)
 
 

@@ -46,6 +46,14 @@ def test_sources_found():
             "filebase.py", "profiler.py"} <= names
     # the fused-chain and spill slice
     assert {"fused.py", "spill.py", "pages.py", "exchange.py"} <= names
+    # the statement, catalog and observability slice
+    assert {"lockcheck.py", "security.py", "events.py", "transaction.py",
+            "verifier.py", "trace.py", "log.py", "history.py", "system.py",
+            "sqlite.py"} <= names
+    assert (ROOT / "presto_tpu_torch" / "_devtools" / "lockcheck.py") \
+        in _SOURCES
+    assert (ROOT / "presto_tpu_torch" / "server" / "security.py") \
+        in _SOURCES
 
 
 def test_runner_without_device_needs_a_gpu(monkeypatch):
@@ -54,3 +62,28 @@ def test_runner_without_device_needs_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LocalRunner(tpch_sf=0.001)
     assert LocalRunner(tpch_sf=0.001, device="cpu").device.type == "cpu"
+
+
+def test_sqlite_catalog_and_verifier_need_a_gpu(monkeypatch, tmp_path):
+    """With no device named and no GPU, a SQLite catalog's scan and a
+    verifier's card runner raise as LocalRunner does; nothing falls back
+    to the CPU."""
+    from presto_tpu_torch.connectors.spi import CatalogManager, TableHandle
+    from presto_tpu_torch.connectors.sqlite import SqliteConnector
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.verifier import Verifier
+    db = SqliteConnector(str(tmp_path / "t.db"))
+    cpu = LocalRunner(tpch_sf=0.001, device="cpu")
+    cat = CatalogManager()
+    cat.register("sq", db)
+    LocalRunner(catalogs=cat, catalog="sq", device="cpu").execute(
+        "create table sq.default.t as select 1 a")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    split = db.split_manager.splits(TableHandle("sq", "default", "t"))[0]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        db.page_source(split, ["a"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalRunner(catalogs=cat, catalog="sq")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Verifier(cpu, LocalRunner(tpch_sf=0.001))
+    assert db.page_source(split, ["a"], device="cpu") is not None

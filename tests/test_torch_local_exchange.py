@@ -180,7 +180,8 @@ def test_passthrough_and_unported_modes():
     ex.push("b", producer=0)
     ex.finish()
     assert [list(c) for c in ex.consumers()] == [["b"], ["a"]]
-    with pytest.raises(NotImplementedError, match="hash"):
+    # the hash mode is ported (test_torch_parallel.py); it needs keys
+    with pytest.raises(ValueError, match="hash mode needs key columns"):
         LocalExchange("hash", 2)
     with pytest.raises(ValueError, match="unknown"):
         LocalExchange("scatter", 2)

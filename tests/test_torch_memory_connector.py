@@ -151,8 +151,12 @@ def test_page_source_selects_columns_on_the_device_asked_for():
 
 
 def test_write_statements_outside_the_port_raise(runners):
-    _, tr = runners
-    with pytest.raises(NotImplementedError, match="column list"):
-        tr.execute("insert into memory.nope (a) select 1")
-    with pytest.raises(NotImplementedError, match="StartTransaction"):
-        tr.execute("start transaction")
+    """INSERT with a column list and START TRANSACTION are ported: an
+    INSERT into a missing table raises the reference's KeyError, and a
+    transaction begins and rolls back."""
+    jr, tr = runners
+    for r in (jr, tr):
+        with pytest.raises(KeyError, match="'nope' does not exist"):
+            r.execute("insert into memory.nope (a) select 1")
+    assert tr.execute("start transaction").rows[0][0].startswith("tx_")
+    assert tr.execute("rollback").rows == [(True,)]
