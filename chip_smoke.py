@@ -151,6 +151,40 @@ result line):
    VERIFY_SF (0.1), the CPU runner as control and the card runner as
    test (doubles within rel 1e-9), which must report 22 MATCH. Fails if
    a check fails or a kernel never launched in the phase.
+12. mesh: SPMD execution (``exec/distributed.py``) with the card seen as
+   MESH_SLOTS (4) mesh slots (``PRESTO_TPU_TORCH_MESH_SLOTS``, set only
+   for this phase, so the earlier phases stay on one slot), every query
+   with ``mesh_execution=on``: the 22 TPC-H queries at MESH_SF (1)
+   against the path and tpch phases' CPU rows (in order; per query the
+   wall, the flight rounds and the dominant bucket); BASELINE config 3,
+   Q3 at MESH_BIG_SF (10; SF100 in BASELINE.json, cut for the time
+   limit, widths and query untouched), cold and warm on the mesh, then
+   cold and warm on one device (``mesh_execution=off``; the scan cache's
+   limit raised to MESH_CACHE_BYTES for these runs, since Q3's splits
+   at SF10 outgrow the default 2 GiB), the mesh rows
+   against the single-device warm run, with the walls, the repartition
+   rounds and bytes shipped, ``torch.cuda.max_memory_allocated`` over
+   the mesh runs and the flight recorder's bucket split; the TPC-DS
+   battery and q27 at TPCDS_SF against the tpcds phase's CPU rows (as
+   multisets: ORDER BY ties may reorder); EXPLAIN (TYPE DISTRIBUTED) of
+   Q3 equal to a CPU runner's text; EXPLAIN ANALYZE of Q3 with its mesh
+   rounds section and ``system.runtime.mesh_rounds`` rows under its
+   query id; ``mesh.repartition=error:boom,times:1`` armed, the next
+   mesh Q3 raising ``FailpointError`` and the one after it returning
+   equal rows; Q6 and Q1 on two threads under the fair scheduler, rows
+   equal, the scheduler's accounts printed (each is one output batch,
+   so one quantum: they run one after the other); then the scheduler's
+   arbitration: a long mesh scan of about 370 batches and a short one
+   started once the long one reached level 1, every quantum held at
+   least FAIR_FLOOR_MS, and from the scheduler's quantum spans no two
+   quanta overlapping, the short one at level 0 finishing before the
+   long one with at most one long quantum between two of its own, rows
+   equal to the single-device runs. Launches count in the mesh runs
+   only (not the single-device reference runs), and per slot in each
+   slot's shard bodies. Fails if a check fails, the segment sum never
+   launched in the mesh runs or on any one slot; prints the probe's
+   launches and the phase wall. The kernels line carries each kernel's
+   mesh launches and their split over the slots.
 
 Every breakdown line times the plan's table scans twice: with the scan
 cache cleared (host generation and the copy to the card) and as a warm
@@ -162,14 +196,16 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 ``python3 chip_smoke.py --kernels-only`` runs phases 1 and 2 alone and
 prints the kernels line; ``--surface-only`` runs phases 1 and 7 alone,
 ``--files-only`` phases 1 and 8, ``--chains-only`` phases 1 and 9,
-``--spill-only`` phases 1 and 10, ``--statements-only`` phases 1 and 11
-(each computes its CPU reference rows itself).
+``--spill-only`` phases 1 and 10, ``--statements-only`` phases 1 and 11,
+``--mesh-only`` phases 1 and 12 (each computes its reference rows
+itself; the mesh phase's are the card's single-device runs).
 Either times whichever ``presto_tpu_torch`` sits beside the script, so
 a copy of the script placed in a checkout of another commit measures
 that commit (turn by turn with this one, in one call, to compare them).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -340,6 +376,28 @@ SPILL_QUERIES = (
     "order by l_returnflag, l_linestatus",
 )
 SPILL_ROWS_PER_BATCH = 1 << 20
+#: the mesh phase: one card seen as this many mesh slots
+#: (PRESTO_TPU_TORCH_MESH_SLOTS, set only for the phase), TPC-H at
+#: MESH_SF on the mesh, BASELINE config 3 (TPC-H Q3 with a partitioned
+#: exchange; SF100 in BASELINE.json) cut to MESH_BIG_SF so the script
+#: stays inside its time limit (widths and the query untouched), and the
+#: TPC-DS battery at TPCDS_SF
+MESH_SLOTS = 4
+MESH_SF, MESH_BIG_SF = 1, 10
+#: the scan cache's limit for config 3's runs (the default is 2 GiB)
+MESH_CACHE_BYTES = 12 << 30
+#: the fair scheduler's arbitration check: rows a slot takes per batch at
+#: SF1 (scaled with the scale factor), so the long scan below runs about
+#: 370 quanta and the short one about 10; and the modeled device-service
+#: floor of each quantum during the check (taskexec.set_service_floor_ms),
+#: so the long scan climbs to level 1 (1 s billed over 4 slots) after
+#: about 63 quanta on any host: warm quanta of these scans take well
+#: under a millisecond, which would leave it at level 0
+FAIR_ROWS_PER_BATCH = 1 << 12
+FAIR_FLOOR_MS = 4.0
+FAIR_LONG_SQL = ("select l_orderkey, l_linenumber from lineitem "
+                 "where l_quantity = 1 and l_discount = 0")
+FAIR_SHORT_SQL = "select c_custkey from customer where c_acctbal > 9900"
 #: the join and the ORDER BY also run with the disk tier; the ORDER BY
 #: stages about 29 MiB, so the host tier is cut to 16 MiB for both
 SPILL_DISK_QUERIES = (1, 4)
@@ -910,7 +968,8 @@ def _tpcds_queries():
 
 def phase_tpcds(torch):
     """q27 and the TPC-DS battery at TPCDS_SF on the card, each against the
-    port's CPU run; then q55 and q27 at SF10, cold and warm."""
+    port's CPU run; then q55 and q27 at SF10, cold and warm. Returns the
+    launches, the SF10 CPU rows and the battery's CPU rows."""
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.exec.scancache import CACHE
     from presto_tpu_torch.ops import probe, scan
@@ -942,10 +1001,11 @@ def phase_tpcds(torch):
     scan.launches = 0
     probe.launches = 0
     gpu, cpu = runners(TPCDS_SF)
-    walls = {}
+    walls, battery_rows = {}, {}
     for name, sql in queries.items():
         res, walls[name], peak_gb, counts = on_card(gpu, sql)
         ref, cpu_s = on_cpu(cpu, sql)
+        battery_rows[name] = ref.rows
         _same_rows(res.rows, ref.rows, 1e-9)
         if not res.rows:
             print(f"tpcds {name}: no rows on cuda, none on cpu either",
@@ -981,7 +1041,7 @@ def phase_tpcds(torch):
     print(f"tpcds launches: {json.dumps(launches)}", flush=True)
     if launches["direct_probe"] <= 0:
         raise AssertionError("the probe kernel never launched in the phase")
-    return launches, cpu_rows
+    return launches, cpu_rows, battery_rows
 
 
 def phase_scan(torch, tpch_cpu_rows, tpcds_cpu_rows):
@@ -1939,10 +1999,385 @@ def phase_statements(torch, tpch_cpu_rows=None, sf=STATEMENTS_SF,
     return launches
 
 
+def _mesh_rows(rows):
+    """Rows sorted by value: the TPC-DS battery's ORDER BYs leave ties
+    whose order a mesh does not fix (q73 at SF 0.01 has two), so its
+    rows compare as multisets."""
+    def key(r):
+        return tuple((v is None, type(v).__name__,
+                      round(float(v), 6) if isinstance(v, float) else v)
+                     for v in (x.item() if hasattr(x, "item") else x
+                               for x in r))
+    return sorted(rows, key=key)
+
+
+@contextlib.contextmanager
+def _slot_launches(device, per_slot):
+    """Adds to ``per_slot[name][i]`` the launches of each kernel made
+    while a shard body of slot i runs (the DistributedExecutor enters
+    ``_in_slot(i)`` around each slot's body; nested entries count once)."""
+    from presto_tpu_torch.exec.distributed import DistributedExecutor
+    plain = DistributedExecutor._in_slot
+    depth = [0]
+
+    @contextlib.contextmanager
+    def in_slot(self, i):
+        depth[0] += 1
+        before = _kernel_calls(device) if depth[0] == 1 else None
+        try:
+            with plain(self, i):
+                yield
+        finally:
+            depth[0] -= 1
+            if before is not None:
+                for k, v in _kernel_calls(device).items():
+                    per_slot[k][i] += v - before.get(k, 0)
+    DistributedExecutor._in_slot = in_slot
+    try:
+        yield
+    finally:
+        DistributedExecutor._in_slot = plain
+
+
+def _fair_arbitration(runner, props, sf):
+    """The fair scheduler arbitrating a long mesh scan (about 370 output
+    batches, one quantum each) and a short one started once the long one
+    has climbed to level 1, every quantum held for at least
+    FAIR_FLOOR_MS. From the scheduler's ``quantum`` spans it
+    requires: no two quanta overlap (the device is granted to one query
+    at a time); the long query reached level 1 or above and the short one
+    stayed at level 0; each billed at least 2 quanta; the short one
+    finished before the long one's last quantum, with at most one long
+    quantum between two of its own (the level-0 query wins each grant
+    while both wait). Returns (long, short): each query's rows, wall,
+    quanta and levels."""
+    import threading
+
+    from presto_tpu_torch.exec.taskexec import set_service_floor_ms
+    from presto_tpu_torch.obs.trace import TRACER
+    was_on, old_rows = TRACER.enabled, runner.rows_per_batch
+    runner.rows_per_batch = max(16, int(FAIR_ROWS_PER_BATCH * sf))
+    got, errors, walls = {}, [], {}
+
+    def worker(name, sql):
+        t0 = time.perf_counter()
+        try:
+            got[name] = runner.execute(sql, properties=props).rows
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+        walls[name] = time.perf_counter() - t0
+
+    def quanta():
+        return sorted((q for q in TRACER.export() if q["name"] == "quantum"),
+                      key=lambda q: q["start"])
+    TRACER.clear()
+    TRACER.enable(True)
+    old_floor = set_service_floor_ms(FAIR_FLOOR_MS)
+    try:
+        long_t = threading.Thread(target=worker, args=("long", FAIR_LONG_SQL))
+        long_t.start()
+        deadline = time.perf_counter() + 300
+        while not any(q["attrs"]["level"] >= 1 for q in quanta()):
+            if not long_t.is_alive() or time.perf_counter() > deadline:
+                raise AssertionError("the long query never reached level 1 "
+                                     "of the fair scheduler")
+            time.sleep(0.002)
+        short_t = threading.Thread(target=worker,
+                                   args=("short", FAIR_SHORT_SQL))
+        short_t.start()
+        for t in (short_t, long_t):
+            t.join(timeout=300)
+        if errors or long_t.is_alive() or short_t.is_alive():
+            raise AssertionError(f"the fair-scheduling queries failed: "
+                                 f"{errors}")
+        qs = quanta()
+    finally:
+        set_service_floor_ms(old_floor)
+        TRACER.enable(was_on)
+        TRACER.clear()
+        runner.rows_per_batch = old_rows
+    tasks = list(dict.fromkeys(q["attrs"]["task"] for q in qs))
+    if len(tasks) != 2:
+        raise AssertionError(f"expected the quanta of 2 queries, got "
+                             f"{len(tasks)}")
+    long_q = [q for q in qs if q["attrs"]["task"] == tasks[0]]
+    short_q = [q for q in qs if q["attrs"]["task"] == tasks[1]]
+    for a, b in zip(qs, qs[1:]):
+        if b["start"] < a["end"]:
+            raise AssertionError("two quanta held the device at once")
+    if len(long_q) < 2 or len(short_q) < 2:
+        raise AssertionError(f"quanta billed: long {len(long_q)}, short "
+                             f"{len(short_q)}; each needs 2")
+    if max(q["attrs"]["level"] for q in long_q) < 1 \
+            or max(q["attrs"]["level"] for q in short_q) != 0:
+        raise AssertionError("the levels did not separate the queries")
+    if short_q[-1]["end"] > long_q[-1]["start"]:
+        raise AssertionError("the short query waited for the long one")
+    between = sum(short_q[0]["start"] <= q["start"] <= short_q[-1]["end"]
+                  for q in long_q)
+    if between > len(short_q) - 1:
+        raise AssertionError(f"{between} long quanta ran among the short "
+                             f"query's {len(short_q)}")
+    return tuple({"rows": got[n], "wall": walls[n], "quanta": len(q),
+                  "levels": sorted({x["attrs"]["level"] for x in q}),
+                  "between": between}
+                 for n, q in (("long", long_q), ("short", short_q)))
+
+
+def phase_mesh(torch, tpch_cpu_rows=None, tpcds_cpu_rows=None,
+               device="cuda", sf=MESH_SF, big_sf=MESH_BIG_SF,
+               ds_sf=TPCDS_SF):
+    """SPMD execution on one card seen as MESH_SLOTS mesh slots: the 22
+    TPC-H queries, BASELINE config 3's Q3 at ``big_sf`` cold and warm
+    against the card's single-device run, the TPC-DS battery, EXPLAIN
+    (TYPE DISTRIBUTED) and EXPLAIN ANALYZE of Q3, system.runtime.
+    mesh_rounds, an armed mesh.repartition failpoint, two concurrent
+    queries under the fair scheduler and its arbitration of a long and a
+    short scan. Reference rows not given are the card's single-device
+    run's (``device="cpu"`` rehearses the phase on the CPU at small
+    scale factors). Launches count in the mesh runs only (the
+    single-device reference runs and config 3's ``mesh_execution=off``
+    runs are outside them). Returns those launches and, per kernel, its
+    launches in each slot's shard bodies."""
+    import collections
+    import threading
+
+    from presto_tpu_torch.exec.failpoints import FAILPOINTS, FailpointError
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.scancache import CACHE, DEFAULT_CACHE_BYTES
+    from presto_tpu_torch.obs.flight import FLIGHTS
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+    old_slots = os.environ.get("PRESTO_TPU_TORCH_MESH_SLOTS")
+    os.environ["PRESTO_TPU_TORCH_MESH_SLOTS"] = str(MESH_SLOTS)
+    mesh = {"mesh_execution": "on", "mesh_devices": MESH_SLOTS}
+    local = {"mesh_execution": "off"}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    mesh_n = collections.Counter()
+    per_slot = collections.defaultdict(lambda: [0] * MESH_SLOTS)
+
+    @contextlib.contextmanager
+    def on_mesh():
+        """Adds the launches made inside the block to the mesh runs'."""
+        before = _kernel_calls(device)
+        try:
+            yield
+        finally:
+            for k, v in _kernel_calls(device).items():
+                mesh_n[k] += v - before.get(k, 0)
+
+    def run(runner, sql, props):
+        t0 = time.perf_counter()
+        with on_mesh() if props is mesh else contextlib.nullcontext():
+            res = runner.execute(sql, properties=props)
+            sync()
+        return res, time.perf_counter() - t0
+
+    def flight_of(runner):
+        fl = runner.last_stats.mesh_flight
+        if fl is None or fl.n_devices != MESH_SLOTS:
+            raise AssertionError("the query did not run on the mesh")
+        return fl.attribution
+
+    slot_tally = contextlib.ExitStack()
+    try:
+        slot_tally.enter_context(_slot_launches(device, per_slot))
+        # -- the 22 TPC-H queries --------------------------------------------
+        queries = _queries()
+        gpu = LocalRunner(tpch_sf=sf, rows_per_batch=ROWS_PER_BATCH,
+                          device=device)
+        for name, sql in queries.items():
+            res, wall = run(gpu, sql, mesh)
+            a = flight_of(gpu)
+            want, one = (tpch_cpu_rows or {}).get(name), ""
+            if want is None:
+                ref, ref_s = run(gpu, sql, local)
+                want, one = ref.rows, f" | one device {ref_s:.3f} s"
+            _same_rows(res.rows, want, 1e-9)
+            print(f"mesh tpch sf{sf} {name}: {wall:.3f} s{one} | "
+                  f"{len(res.rows)} rows match | {a['rounds']} rounds, "
+                  f"dominant {a['dominant_bucket']}", flush=True)
+
+        # -- BASELINE config 3: Q3 with a partitioned exchange ---------------
+        big = LocalRunner(tpch_sf=big_sf, rows_per_batch=ROWS_PER_BATCH,
+                          device=device)
+        q3 = queries["q3"]
+        CACHE.clear()
+        # Q3's SF10 splits (about 2 GiB as 4 shards, as much again as the
+        # single device's 2 splits) outgrow the cache's default 2 GiB; a
+        # larger limit for these runs keeps the warm runs warm
+        CACHE.set_limit(MESH_CACHE_BYTES)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        walls, attrs = [], []
+        try:
+            for _ in range(2):                   # cold, then warm
+                res, wall = run(big, q3, mesh)
+                walls.append(wall)
+                attrs.append(flight_of(big))
+            fl = FLIGHTS.last()
+            mesh_peak = (torch.cuda.max_memory_allocated() / 2**30
+                         if cuda else 0)
+            one = [run(big, q3, local) for _ in range(2)]
+        finally:
+            CACHE.clear()
+            CACHE.set_limit(DEFAULT_CACHE_BYTES)
+        _same_rows(res.rows, one[1][0].rows, 1e-9)
+        if not res.rows:
+            raise AssertionError("config 3 returned no rows")
+        reparts = [r for r in fl.records() if r["kind"] == "repartition"]
+        if not reparts:
+            raise AssertionError("config 3 shipped no hash exchange")
+        print(f"mesh config 3 (Q3 sf{big_sf}, {MESH_SLOTS} slots): cold "
+              f"{walls[0]:.3f} s warm {walls[1]:.3f} s | single device "
+              f"cold {one[0][1]:.3f} s warm {one[1][1]:.3f} s | "
+              f"{len(res.rows)} rows match the single-device warm run | "
+              f"warm: {len(reparts)} repartition rounds, "
+              f"{sum(r['bytes'] for r in reparts)} B shipped, "
+              f"{attrs[1]['rounds']} rounds | peak {mesh_peak:.2f} GiB "
+              f"(max_memory_allocated over the mesh runs) | scan cache "
+              f"limit {MESH_CACHE_BYTES >> 30} GiB for these runs",
+              flush=True)
+        for label, a in (("cold", attrs[0]), ("warm", attrs[1])):
+            split = {b: round(v, 6) for b, v in a["buckets"].items()}
+            print(f"mesh config 3 {label} buckets (s): {json.dumps(split)} "
+                  f"| dominant {a['dominant_bucket']} | "
+                  f"{a['reconciled_pct']}% of {a['wall_s']} s attributed "
+                  f"| critical path shard "
+                  f"{a['critical_path']['slowest_shard']}", flush=True)
+        del big
+
+        # -- the TPC-DS battery ----------------------------------------------
+        ds = LocalRunner(tpch_sf=ds_sf, catalog="tpcds",
+                         rows_per_batch=ROWS_PER_BATCH, device=device)
+        for name, sql in _tpcds_queries().items():
+            res, wall = run(ds, sql, mesh)
+            a = flight_of(ds)
+            want, one = (tpcds_cpu_rows or {}).get(name), ""
+            if want is None:
+                ref, ref_s = run(ds, sql, local)
+                want, one = ref.rows, f" | one device {ref_s:.3f} s"
+            _same_rows(_mesh_rows(res.rows), _mesh_rows(want), 1e-9)
+            print(f"mesh tpcds sf{ds_sf} {name}: {wall:.3f} s{one} | "
+                  f"{len(res.rows)} rows match | {a['rounds']} rounds, "
+                  f"dominant {a['dominant_bucket']}", flush=True)
+        del ds
+
+        # -- EXPLAIN (TYPE DISTRIBUTED), EXPLAIN ANALYZE, mesh_rounds --------
+        text = [r[0] for r in gpu.execute(
+            "explain (type distributed) " + q3).rows]
+        cpu_text = [r[0] for r in LocalRunner(
+            tpch_sf=sf, device="cpu").execute(
+            "explain (type distributed) " + q3).rows]
+        if text != cpu_text:
+            raise AssertionError("EXPLAIN (TYPE DISTRIBUTED) differs from "
+                                 "the CPU run's")
+        with on_mesh():
+            analyze = "\n".join(r[0] for r in gpu.execute(
+                "explain analyze " + q3, properties=mesh).rows)
+        if "Mesh rounds:" not in analyze:
+            raise AssertionError("EXPLAIN ANALYZE has no mesh rounds")
+        qid = gpu.query_log[-1].query_id
+        n_rounds = gpu.execute(
+            "select count(*) from system.runtime.mesh_rounds where "
+            f"query_id = '{qid}'", properties=local).rows[0][0]
+        if not n_rounds:
+            raise AssertionError(f"mesh_rounds holds no row of {qid}")
+        print(f"mesh explain: distributed text {len(text)} lines equal to "
+              f"the cpu run's; analyze "
+              f"{[ln for ln in analyze.splitlines() if ln.startswith('Mesh')]};"
+              f" mesh_rounds holds {n_rounds} rows of {qid}", flush=True)
+
+        # -- an armed failpoint ----------------------------------------------
+        want = run(gpu, q3, mesh)[0].rows
+        FAILPOINTS.configure_from_spec("mesh.repartition=error:boom,times:1")
+        try:
+            try:
+                run(gpu, q3, mesh)
+            except FailpointError as e:
+                print(f"mesh failpoint: the armed run raised {e}",
+                      flush=True)
+            else:
+                raise AssertionError("the armed mesh Q3 did not raise")
+            _same_rows(run(gpu, q3, mesh)[0].rows, want, 1e-9)
+        finally:
+            FAILPOINTS.clear()
+        print("mesh failpoint: the next run returned equal rows", flush=True)
+
+        # -- fair scheduling: Q6 and Q1 on two threads -----------------------
+        names = ("q6", "q1")
+        wants = {n: run(gpu, queries[n], mesh)[0].rows for n in names}
+        got, errors = {}, []
+
+        def worker(n):
+            try:
+                got[n] = gpu.execute(queries[n], properties=mesh)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+        threads = [threading.Thread(target=worker, args=(n,))
+                   for n in names]
+        t0 = time.perf_counter()
+        with on_mesh():
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+        both_s = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"concurrent queries failed: {errors}")
+        for n in names:
+            _same_rows(got[n].rows, wants[n], 1e-9)
+        accounts = [s.scheduler for s in gpu.live_stats.values()
+                    if getattr(s, "scheduler", None)][-2:]
+        # each of these aggregations is one output batch, so one quantum
+        # (and the closing one): they run one after the other
+        print(f"mesh fair scheduling: q6 and q1 together {both_s:.3f} s, "
+              f"rows equal; scheduler accounts {accounts}", flush=True)
+
+        # -- fair scheduling: the arbitration of a long and a short scan -----
+        with on_mesh():
+            long_r, short_r = _fair_arbitration(gpu, mesh, sf)
+        for r, sql in ((long_r, FAIR_LONG_SQL), (short_r, FAIR_SHORT_SQL)):
+            _same_rows(_mesh_rows(r["rows"]),
+                       _mesh_rows(run(gpu, sql, local)[0].rows), 1e-9)
+        print(f"mesh fair arbitration: long scan {long_r['wall']:.3f} s, "
+              f"{long_r['quanta']} quanta at levels {long_r['levels']}; "
+              f"short scan started at level 1 of the long one, "
+              f"{short_r['wall']:.3f} s, {short_r['quanta']} quanta at "
+              f"levels {short_r['levels']}, {long_r['between']} long quanta "
+              f"among them; no two quanta overlapped; rows equal to the "
+              f"single-device runs", flush=True)
+    finally:
+        slot_tally.close()
+        if old_slots is None:
+            os.environ.pop("PRESTO_TPU_TORCH_MESH_SLOTS", None)
+        else:
+            os.environ["PRESTO_TPU_TORCH_MESH_SLOTS"] = old_slots
+    launches = {k: mesh_n[k] for k in _kernel_calls(device)}
+    slots = {k: per_slot[k] for k in launches}
+    print(f"mesh launches (mesh runs only): {json.dumps(launches)} | in "
+          f"each slot's shard bodies: {json.dumps(slots)} | phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    if launches["segment_sum_sorted_i64"] <= 0:
+        raise AssertionError("the segment sum never launched in the mesh "
+                             "runs")
+    idle = [i for i, v in enumerate(slots["segment_sum_sorted_i64"])
+            if v <= 0]
+    if idle:
+        raise AssertionError(f"the segment sum never launched on slots "
+                             f"{idle}")
+    return launches, slots
+
+
 def main() -> None:
     t_start = time.perf_counter()
     flags = ("--kernels-only", "--surface-only", "--files-only",
-             "--chains-only", "--spill-only", "--statements-only")
+             "--chains-only", "--spill-only", "--statements-only",
+             "--mesh-only")
     if sys.argv[1:] and (len(sys.argv) != 2 or sys.argv[1] not in flags):
         fail("device", f"unknown arguments {sys.argv[1:]}")
     only = sys.argv[1] if len(sys.argv) == 2 else None
@@ -1965,7 +2400,8 @@ def main() -> None:
                               ("--chains-only", "chains", phase_chains),
                               ("--spill-only", "spill", phase_spill),
                               ("--statements-only", "statements",
-                               phase_statements)):
+                               phase_statements),
+                              ("--mesh-only", "mesh", phase_mesh)):
         if only == flag:
             try:
                 phase(torch)
@@ -1990,7 +2426,8 @@ def main() -> None:
     except Exception as e:  # noqa: BLE001
         fail("tpch", f"{type(e).__name__}: {e}")
     try:
-        tpcds_launches, tpcds_cpu_rows = phase_tpcds(torch)
+        tpcds_launches, tpcds_cpu_rows, battery_cpu_rows = \
+            phase_tpcds(torch)
     except Exception as e:  # noqa: BLE001
         fail("tpcds", f"{type(e).__name__}: {e}")
     try:
@@ -2019,13 +2456,21 @@ def main() -> None:
         statements_launches = phase_statements(torch, dict(tpch_cpu_rows))
     except Exception as e:  # noqa: BLE001
         fail("statements", f"{type(e).__name__}: {e}")
+    try:
+        mesh_launches, mesh_slots = phase_mesh(
+            torch, {**tpch_cpu_rows, **tpch_cpu_more}, battery_cpu_rows)
+    except Exception as e:  # noqa: BLE001
+        fail("mesh", f"{type(e).__name__}: {e}")
     for entry in entries:
         # launches over every phase that drives the engine: path, tpch,
-        # tpcds, scan, surface, files, chains, spill and statements
+        # tpcds, scan, surface, files, chains, spill, statements and mesh
         entry["launches"] = sum(p[entry["name"]] for p in (
             launches, tpch_launches, tpcds_launches, scan_launches,
             surface_launches, files_launches, chains_launches,
-            spill_launches, statements_launches))
+            spill_launches, statements_launches, mesh_launches))
+        # the mesh runs' share, and its split over the slots
+        entry["mesh_launches"] = mesh_launches[entry["name"]]
+        entry["mesh_slot_launches"] = mesh_slots[entry["name"]]
     print(f"total wall {time.perf_counter() - t_start:.3f} s", flush=True)
     # the card line again, so a log kept only from its tail still has it
     print(card, flush=True)

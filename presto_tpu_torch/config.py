@@ -6,11 +6,17 @@ session property that the port's code reads, with its type, default and
 meaning. ``SET SESSION`` on an unknown or mistyped name raises instead of
 storing a value no code will ever read. The config-file loaders of the
 JAX package are not ported.
+
+Environment defaults (read where the property is resolved, when the
+session leaves it unset): ``PRESTO_TPU_TORCH_MESH_EXECUTION`` for
+``mesh_execution`` and ``PRESTO_TPU_TORCH_MESH_FLIGHT`` for
+``mesh_flight`` (``exec/distributed.py``); ``PRESTO_TPU_TORCH_MESH_SLOTS``
+sets the mesh slots per visible device (``parallel/mesh.py``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,6 +25,8 @@ class SessionProperty:
     type: str           # boolean | integer | double | varchar
     default: object     # documentation only; read sites supply defaults
     doc: str
+    #: canonicalizes (or rejects) an already type-coerced value
+    validator: Optional[Callable] = None
 
 
 class SessionPropertyError(ValueError):
@@ -30,8 +38,10 @@ class SessionPropertyError(ValueError):
 SESSION_PROPERTIES: Dict[str, SessionProperty] = {}
 
 
-def _sp(name: str, type_: str, default, doc: str) -> None:
-    SESSION_PROPERTIES[name] = SessionProperty(name, type_, default, doc)
+def _sp(name: str, type_: str, default, doc: str,
+        validator: Optional[Callable] = None) -> None:
+    SESSION_PROPERTIES[name] = SessionProperty(name, type_, default, doc,
+                                               validator)
 
 
 _sp("broadcast_join_row_limit", "integer", 4_000_000,
@@ -41,6 +51,8 @@ _sp("dense_grouping", "boolean", True,
     "allow the stats-bounded dense (scatter-path) GROUP BY plan")
 _sp("enable_dynamic_filtering", "boolean", True,
     "build-side key bounds filter the probe side at runtime")
+_sp("fair_scheduling", "boolean", True,
+    "time-slice concurrent queries through the device scheduler")
 _sp("fused_compact_floor", "integer", 1 << 17,
     "skip fused-chain compaction below this batch capacity")
 _sp("fused_compact_window", "integer", 4,
@@ -54,6 +66,58 @@ _sp("grouped_execution", "boolean", True,
     "(lifespan) at a time")
 _sp("join_dense_path", "boolean", True,
     "stats-driven dense-key direct-address join builds")
+
+
+def _valid_mesh_execution(v):
+    m = str(v).lower()
+    if m not in ("auto", "on", "off"):
+        raise SessionPropertyError(
+            f"mesh_execution must be auto, on or off, got {v!r}")
+    return m
+
+
+_sp("mesh_execution", "varchar", "auto",
+    "SPMD execution on a mesh of device slots: auto runs SQL on the "
+    "mesh whenever more than one slot is visible and the plan "
+    "fragments into mesh stages, on forces it, off pins the "
+    "single-device path (PRESTO_TPU_TORCH_MESH_EXECUTION overrides the "
+    "unset default)", _valid_mesh_execution)
+_sp("mesh_devices", "integer", 0,
+    "slots in the execution mesh (0 = every visible slot); 1 behaves "
+    "like mesh_execution=off under auto")
+def _valid_fused_exchange(v):
+    if isinstance(v, bool):
+        return v
+    m = str(v).strip().lower()
+    if m == "auto":
+        return m
+    if m in _TRUE + _FALSE:
+        return m in _TRUE
+    raise SessionPropertyError(
+        f"mesh_fused_exchange must be auto, true or false, got {v!r}")
+
+
+_sp("mesh_fused_exchange", "varchar", "auto",
+    "fused SPMD exchange (exec/distributed.py): compute + bucket-count "
+    "+ ship collapse into one program per round, stats-bounded "
+    "aggregation stages run several rounds in one dispatch, and "
+    "control scalars are fetched once per stage; false is the "
+    "per-round host control plane. auto (the default) is true except "
+    "for the hash exchange's ship when slots share a device, which "
+    "takes the counted plane there (the fused quota would hold n^2 x C "
+    "lanes on the shared device); true forces the fused ship",
+    _valid_fused_exchange)
+_sp("mesh_fused_loop_rounds", "integer", 32,
+    "cap on chunks one fused aggregation wave may take (bounds resident "
+    "memory: the wave holds every chunk on the device at once); "
+    "minimum 1")
+_sp("mesh_flight", "boolean", True,
+    "mesh flight recorder (obs/flight.py): record every round of a "
+    "mesh-path query (dispatch, staging, control sync, repartition, "
+    "stall) for the post-query wall-clock attribution surfaced in "
+    "EXPLAIN ANALYZE, system.runtime.mesh_rounds and the mesh_attr_* "
+    "metric families; off skips recording entirely "
+    "(PRESTO_TPU_TORCH_MESH_FLIGHT overrides the unset default)")
 _sp("probe_prefetch", "boolean", True,
     "run a join's probe side on a producer thread while its build side "
     "drains")
@@ -131,6 +195,10 @@ def validate_session_property(name: str, value):
             out = cast(value.strip() if isinstance(value, str) else value)
         except (TypeError, ValueError):
             raise bad() from None
-    elif sp.type == "varchar" and not isinstance(value, str):
+    elif sp.type == "varchar" and not isinstance(value, str) \
+            and not (isinstance(value, bool) and sp.validator is not None):
+        # a validated varchar may also take booleans (mesh_fused_exchange)
         raise bad()
+    if sp.validator is not None:
+        out = sp.validator(out)
     return out

@@ -37,10 +37,12 @@ Tables, with the reference's columns:
   from XLA's cost and memory analysis in the reference and have no
   counterpart for a kernel built by nvcc: they are NULL.
 
-``timeseries``, ``slo``, ``alerts`` and ``resource_groups`` wait for the
-serving and observability planes, ``mesh_rounds`` for the distributed
-executor: they keep their schemas, and a scan of one raises naming the
-module it waits for.
+``mesh_rounds`` holds the round timeline of the most recent mesh
+queries (``obs/flight.FLIGHTS``, one row per flight round in
+``flight.ROUND_COLUMNS`` order, the rows EXPLAIN ANALYZE's mesh section
+prints). ``timeseries``, ``slo``, ``alerts`` and ``resource_groups``
+wait for the serving and observability planes: they keep their schemas,
+and a scan of one raises naming the module it waits for.
 """
 from __future__ import annotations
 
@@ -131,7 +133,6 @@ _WAITING = {
     "timeseries": "obs/timeseries.py",
     "slo": "obs/slo.py",
     "alerts": "obs/slo.py",
-    "mesh_rounds": "obs/flight.py",
     "resource_groups": "serving/groups.py",
 }
 
@@ -298,6 +299,10 @@ class SystemConnector(Connector):
         return [(node_id, "active", True, 0.0, 0, 0,
                  int(h.get("bytes_in_use", 0)),
                  int(h.get("peak_bytes_in_use", 0)), name)]
+
+    def _rows_mesh_rounds(self) -> List[tuple]:
+        from ..obs.flight import FLIGHTS
+        return FLIGHTS.rows()
 
     def _rows_completed_queries(self) -> List[tuple]:
         from ..obs.history import HISTORY

@@ -175,10 +175,34 @@ def execute_plan(plan: LogicalPlan, session: Session, device,
     """Run a planned query on ``device`` and decode its rows.
     ``stats`` (a StatsCollector) records per-node and per-split stats;
     ``collect_rows=False`` drains without decoding (EXPLAIN ANALYZE);
-    a set ``cancel_event`` stops the query between batches."""
-    ex = _Executor(session, rows_per_batch, torch.device(device),
-                   stats=stats)
+    a set ``cancel_event`` stops the query between batches.
+
+    Mesh routing (``exec/distributed.select_mesh``): under
+    ``mesh_execution`` the plan runs on a mesh of slots of ``device``'s
+    type through the DistributedExecutor, billed to the fair scheduler
+    per slot, with the mesh flight recorder installed for the query
+    (``stats.mesh_flight``). Every output batch is one
+    quantum of the fair device scheduler (``exec/taskexec.py``) unless
+    ``fair_scheduling`` is off."""
+    from ..obs import flight as _flight
+    from ..obs.trace import current_span_ids
+    from .distributed import (
+        DistributedExecutor, mesh_flight_on, select_mesh,
+    )
+    from .taskexec import GLOBAL as scheduler
+    mesh = select_mesh(session, plan, device)
+    if mesh is not None:
+        ex = DistributedExecutor(session, rows_per_batch, mesh,
+                                 stats=stats)
+        n_slots = mesh.size
+    else:
+        ex = _Executor(session, rows_per_batch, torch.device(device),
+                       stats=stats)
+        n_slots = 1
     ex.cancel_event = cancel_event
+    # quanta are billed per slot: a mesh query's quantum holds every slot
+    handle = (scheduler.task(name=str(id(ex)), devices=n_slots)
+              if bool_property(session, "fair_scheduling", True) else None)
     # device-time profiling (obs/profiler.py): per-operator frames timed
     # on the device and kernel launches bracketed. On under the `profile`
     # session property, and always under EXPLAIN ANALYZE, which already
@@ -186,27 +210,62 @@ def execute_plan(plan: LogicalPlan, session: Session, device,
     # one contextvar load per frame and launch
     profile_on = stats is not None and (
         bool_property(session, "profile", False) or stats.count_rows)
+    # mesh flight recorder (obs/flight.py): a mesh query records its
+    # rounds for the post-query attribution unless mesh_flight=off
+    flight = fl_token = None
+    if mesh is not None and mesh_flight_on(session):
+        qid = (str(current_span_ids().get("query_id") or "")
+               or f"mesh_{_flight.next_seq():06d}")
+        flight = _flight.FlightRecorder(qid, mesh.size)
+        fl_token = _flight.CURRENT_FLIGHT.set(flight)
+    t_flight0 = time.perf_counter()
     root = plan.root
     out: List[Batch] = []
-    with profiler.profiled(profile_on, ex.device):
-        run_init_plans(ex, plan)
-        it = ex.run(root.child)
-        try:
-            for b in it:
-                ex._check_cancel()
-                if collect_rows:
-                    out.append(b)
-        finally:
-            # closing the root generator runs every suspended finally
-            # below it (the threaded scan's stop and join) on error,
-            # cancel or LIMIT
-            close = getattr(it, "close", None)
-            if close is not None:
-                close()
-    ex.check_errors()
-    return QueryResult(names=[f.name for f in root.fields],
-                       types=[f.type for f in root.fields],
-                       rows=[r for b in out for r in b.to_pylist()])
+    sentinel = object()
+    try:
+        with profiler.profiled(profile_on, ex.device):
+            run_init_plans(ex, plan)
+            it = ex.run(root.child)
+            try:
+                while True:
+                    ex._check_cancel()
+                    # one quantum per output batch: concurrent queries
+                    # interleave at batch granularity by cumulative
+                    # device time
+                    b = scheduler.run_quantum(handle,
+                                              lambda: next(it, sentinel))
+                    if b is sentinel:
+                        break
+                    if collect_rows:
+                        out.append(b)
+            finally:
+                # closing the root generator runs every suspended finally
+                # below it (the threaded scan's stop and join) on error,
+                # cancel or LIMIT
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+        ex.check_errors()
+        if flight is not None:
+            with flight.timed("drain"):
+                rows = [r for b in out for r in b.to_pylist()]
+        else:
+            rows = [r for b in out for r in b.to_pylist()]
+        return QueryResult(names=[f.name for f in root.fields],
+                           types=[f.type for f in root.fields], rows=rows)
+    finally:
+        if flight is not None:
+            _flight.CURRENT_FLIGHT.reset(fl_token)
+            flight.finish(time.perf_counter() - t_flight0)
+            if stats is not None:
+                stats.mesh_flight = flight
+        if handle is not None:
+            handle.close()
+            if stats is not None:
+                stats.scheduler = {"level": handle.level,
+                                   "device_seconds": handle.device_seconds,
+                                   "quanta": handle.quanta,
+                                   "devices": handle.devices}
 
 
 def _plan_schema(node: PlanNode) -> Schema:
@@ -611,13 +670,17 @@ class _Executor:
         yield Batch(Schema([]), [], torch.arange(
             bucket_capacity(max(n, 1)), device=self.device) < n)
 
+    #: the mesh executor turns this off: compacting a global batch would
+    #: re-deal its rows across the shards
+    compact_streams = True
+
     def _compactor(self):
         """Per-operator adaptive compaction (one host sync per checked
         batch; reference operator/project/PageProcessor.java compacted
         output pages): a selective filter or join leaves mostly-dead
         lanes that every later sort pays for. After the first batch that
         does not shrink 4x it stops checking."""
-        state = {"check": True}
+        state = {"check": self.compact_streams}
 
         def maybe_compact(b: Batch) -> Batch:
             if not state["check"] or b.capacity <= (1 << 17):

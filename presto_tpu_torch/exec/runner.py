@@ -8,9 +8,10 @@ reference's statement dispatch (its DataDefinitionTask role):
 - queries, views (CREATE [OR REPLACE] VIEW, DROP VIEW) and prepared
   statements (PREPARE, EXECUTE ... USING, DEALLOCATE, DESCRIBE INPUT /
   OUTPUT);
-- EXPLAIN as text, (FORMAT JSON), (FORMAT GRAPHVIZ), (TYPE IO) and
-  (TYPE VALIDATE); EXPLAIN ANALYZE profiles the operators' device time
-  and appends the trace (tracer on), kernels and verdict sections;
+- EXPLAIN as text, (FORMAT JSON), (FORMAT GRAPHVIZ), (TYPE IO),
+  (TYPE VALIDATE) and (TYPE DISTRIBUTED); EXPLAIN ANALYZE profiles the
+  operators' device time and appends the trace (tracer on), mesh rounds
+  (a mesh query), kernels and verdict sections;
 - SET / RESET / SHOW SESSION, SHOW CATALOGS / TABLES / COLUMNS;
 - CREATE TABLE AS, INSERT INTO (with a column list naming every column
   of the table) and DROP TABLE on the writable catalogs, inside or
@@ -24,6 +25,10 @@ line when ``obs/log.LOG`` is on, and a ``query`` span when
 ``obs/trace.TRACER`` is on. The serving caches of the reference (parsed
 statements, compiled and template plans, results) are not ported: each
 statement is parsed and planned anew.
+
+A query runs on a mesh of device slots when ``mesh_execution`` routes it
+there (``exec/distributed.py``; ``PRESTO_TPU_TORCH_MESH_SLOTS`` makes one
+device several slots).
 
 The runner works on ``cuda`` unless the caller passes ``device="cpu"``;
 with no device given and no GPU present it raises rather than carry on
@@ -49,6 +54,7 @@ from ..connectors.tpch import TpchConnector
 from ..device import resolve_device
 from ..events import EventListenerManager, SplitCompletedEvent, \
     completed_event
+from ..obs.flight import history_fields
 from ..obs.history import attach_history
 from ..obs.log import LOG
 from ..obs.metrics import REGISTRY, attach_event_listeners
@@ -57,9 +63,9 @@ from ..planner.optimizer import optimize
 from ..planner.plan import TableScanNode
 from ..planner.planner import LogicalPlan, Session, _schema_exists, plan_query
 from ..planner.printer import (
-    format_cost_verdict, format_executables_summary,
+    format_cost_verdict, format_executables_summary, format_mesh_rounds,
     format_scan_cache_summary, format_skew_summary, format_trace_summary,
-    plan_graphviz, plan_io, plan_json, print_plan,
+    plan_graphviz, plan_io, plan_json, print_distributed_plan, print_plan,
 )
 from ..server.security import AccessControl, RoleManager, SecuredCatalogs
 from ..sql import ast as A
@@ -243,7 +249,7 @@ class LocalRunner:
                     planning_ms += dur
                 elif s.get("name") == "device-sync":
                     device_sync_ms += dur
-        return {
+        record = {
             "query_id": entry.query_id, "query": entry.query,
             "user": user, "state": entry.state, "error": entry.error,
             "error_code": error_code, "create_time": entry.create_time,
@@ -257,6 +263,17 @@ class LocalRunner:
             "plan_summary": " -> ".join(by_kind),
             "operators": operators,
         }
+        # a mesh query carries the flight recorder's attribution
+        fl = stats.mesh_flight
+        if fl is not None:
+            # re-stamp the runner's query id (with the tracer off the
+            # flight had a synthetic mesh_* id) so mesh_rounds joins
+            # completed_queries
+            fl.query_id = entry.query_id
+            if fl.attribution is not None:
+                fl.attribution["query_id"] = entry.query_id
+            record.update(history_fields(fl.attribution))
+        return record
 
     # -- statement dispatch ---------------------------------------------------
     def _execute_stmt(self, stmt: A.Node, properties, user: str,
@@ -288,7 +305,7 @@ class LocalRunner:
                     self.session.last_memory_stats = \
                         session.last_memory_stats
         if isinstance(stmt, A.Explain):
-            return self._explain(stmt, session, cancel_event)
+            return self._explain(stmt, session, cancel_event, stats)
         if isinstance(stmt, A.ShowCatalogs):
             return QueryResult(["Catalog"], [T.VARCHAR],
                                [(c,) for c in session.catalogs.names()])
@@ -398,7 +415,7 @@ class LocalRunner:
         return prepared
 
     def _explain(self, stmt: A.Explain, session: Session,
-                 cancel_event) -> QueryResult:
+                 cancel_event, stmt_stats: StatsCollector) -> QueryResult:
         if not isinstance(stmt.statement, A.Query):
             raise ValueError("EXPLAIN requires a query")
         if stmt.analyze and (stmt.type != "logical"
@@ -412,9 +429,10 @@ class LocalRunner:
         if stmt.type == "io":
             return _lines(json.dumps(plan_io(plan), indent=2))
         if stmt.type == "distributed":
-            raise NotImplementedError(
-                "EXPLAIN (TYPE DISTRIBUTED) needs planner/fragmenter.py, "
-                "which is not ported")
+            if stmt.format != "text":
+                raise ValueError(
+                    "EXPLAIN (TYPE DISTRIBUTED) only supports FORMAT TEXT")
+            return _lines(print_distributed_plan(plan))
         if stmt.format == "json":
             return _lines(json.dumps(plan_json(plan), indent=2))
         if stmt.format == "graphviz":
@@ -433,6 +451,9 @@ class LocalRunner:
                              stats=stats, collect_rows=False,
                              cancel_event=cancel_event)
             stats.total_wall_s = time.perf_counter() - t1
+            # the statement's history record carries the analyzed run's
+            # mesh attribution, under the statement's query id
+            stmt_stats.mesh_flight = stats.mesh_flight
             tid = getattr(sp, "trace_id", None)
             if TRACER.enabled and tid is not None:
                 trace_spans = TRACER.export(tid)
@@ -441,6 +462,7 @@ class LocalRunner:
             text += "\n" + format_trace_summary(trace_spans)
         if stats is not None:
             for section in (format_skew_summary(stats),
+                            format_mesh_rounds(stats),
                             format_scan_cache_summary(stats, self.device),
                             format_executables_summary(stats),
                             format_cost_verdict(stats)):

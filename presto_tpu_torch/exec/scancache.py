@@ -48,8 +48,13 @@ Metrics: ``scan_cache_{hit,miss,insert,invalidated}_total``,
 (``CACHE.set_limit``), never a session property: one session must not
 evict every other session's cache.
 
-Not ported yet: the fair device scheduler's stall credit
-(``exec/taskexec.py``), the mesh flight recorder and the failpoints.
+Every consumer-side stall is also credited back to the fair device
+scheduler (``exec/taskexec.GLOBAL.note_stall``: waiting on the prefetcher
+is not device time) and recorded as a ``stall`` round of the mesh flight
+recorder when one is active (``obs/flight.py``). The ``scan.decode``
+failpoint (``exec/failpoints.py``) fires before each decoded batch is
+staged, so an injected decode failure never leaves a partial split in
+the cache.
 """
 from __future__ import annotations
 
@@ -65,9 +70,12 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 from ..batch import Batch, bucket_capacity
 from ..connectors import spi
 from ..memory import QueryMemoryPool, batch_device_bytes
+from ..obs import flight as _flight
 from ..obs import profiler
 from ..obs.metrics import REGISTRY
 from ..planner.planner import bool_property
+from . import taskexec
+from .failpoints import FAILPOINTS
 
 _HITS = REGISTRY.counter("scan_cache_hit_total")
 _MISSES = REGISTRY.counter("scan_cache_miss_total")
@@ -446,8 +454,13 @@ def scan_splits(conn, catalog: str, columns: Sequence[str],
 
     def stall(dt: float) -> None:
         _STALL.observe(dt)
+        # stalled is not computing: credited back to the fair scheduler
+        taskexec.GLOBAL.note_stall(dt)
         if stats is not None:
             stats.record_stall(dt)
+        mfl = _flight.current_flight()
+        if mfl is not None:
+            mfl.record("stall", wall=dt)
 
     def replay(i: int, cached, t0: float) -> Iterator[Batch]:
         if stats is not None:
@@ -527,6 +540,11 @@ def scan_splits(conn, catalog: str, columns: Sequence[str],
             nb = 0
             try:
                 for b in src.batches():
+                    # an aborted decode must never reach the put() below:
+                    # a partial split is not a cache entry
+                    FAILPOINTS.hit("scan.decode",
+                                   key=f"{catalog}.{split.table.table}.{i}",
+                                   split=i, batch=nb)
                     b = stage(b)
                     nb += 1
                     if acc is not None:

@@ -55,6 +55,14 @@ class StatsCollector:
         self.cache_hits = 0
         self.cache_misses = 0
         self.prefetch_stall_s = 0.0
+        #: the mesh flight recorder of a mesh-path run (obs/flight.py),
+        #: else None: EXPLAIN ANALYZE's mesh rounds and the history's
+        #: mesh_* columns read it
+        self.mesh_flight = None
+        #: the fair scheduler's account of the run (exec/taskexec.py):
+        #: level, billed device seconds, quanta and slots, or None when
+        #: fair_scheduling was off
+        self.scheduler = None
         #: plan node -> {KernelRecord: [launches, device_s, bytes]}: the
         #: hand kernels each operator launched while profiled
         self.exe_by_node: Dict[object, Dict[object, list]] = {}

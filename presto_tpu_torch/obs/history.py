@@ -33,8 +33,8 @@ from collections import deque
 from typing import Dict, List, Optional
 
 #: flattened columns of system.runtime.completed_queries, in order. The
-#: mesh_* tail belongs to the mesh flight recorder, which is not ported:
-#: NULL or zero in every record of the port.
+#: mesh_* tail is the mesh flight recorder's attribution
+#: (obs/flight.history_fields): NULL for a query that never flew.
 RECORD_COLUMNS = (
     "query_id", "state", "user", "query", "error", "error_code",
     "create_time", "elapsed_ms", "cpu_ms", "device_sync_ms",

@@ -9,6 +9,8 @@ here touches the device.
 
 Dotted names carry a label after the family (``scan_cache_resident_bytes.
 cuda`` is the family ``scan_cache_resident_bytes`` for device ``cuda``).
+The mesh, flight-recorder and scheduler families are registered up front
+(``MESH_COUNTERS``, ``SCHEDULER_COUNTERS``).
 
 Beside the registry: ``TASKS`` and ``NODES``, the feeds of
 ``system.runtime.tasks`` and ``system.runtime.nodes``. A cluster
@@ -204,6 +206,35 @@ class MetricsRegistry:
 
 #: the process-wide registry
 REGISTRY = MetricsRegistry()
+
+#: families registered up front, so ``system.runtime.metrics`` lists them
+#: (at zero) before the first mesh query or scheduler quantum. The mesh
+#: router and exchange (``exec/distributed.py``): queries routed onto the
+#: mesh, hot-bucket re-splits, shard-program dispatches (the dotted tail
+#: names the stage kind), exchange rounds. The flight recorder
+#: (``obs/flight.py``): flights, rounds, round seconds, the recorder's
+#: host overhead and the seconds of each attribution bucket. The fair
+#: device scheduler (``exec/taskexec.py``): billed device seconds, quanta,
+#: quanta weighted by the slots they hold, the wait for a turn, and the
+#: quanta given back while blocked on input.
+MESH_COUNTERS = (
+    "mesh_path_selected_total", "mesh_repartition_resplit_total",
+    "mesh_dispatches_total", "exchange_repartitions_total",
+    "mesh_flight_queries_total", "mesh_rounds_total",
+    "mesh_flight_overhead_seconds_total",
+    "mesh_attr_device_compute_seconds_total",
+    "mesh_attr_dispatch_overhead_seconds_total",
+    "mesh_attr_host_staging_seconds_total",
+    "mesh_attr_control_sync_seconds_total",
+    "mesh_attr_repartition_seconds_total",
+    "mesh_attr_stall_seconds_total")
+SCHEDULER_COUNTERS = (
+    "scheduler_device_seconds_total", "scheduler_quanta_total",
+    "scheduler_chip_quanta_total", "device_stall_release_total")
+for _name in MESH_COUNTERS + SCHEDULER_COUNTERS:
+    REGISTRY.counter(_name)
+for _name in ("mesh_round_seconds", "scheduler_wait_seconds"):
+    REGISTRY.histogram(_name)
 
 
 # -- task registry (system.runtime.tasks) ------------------------------------

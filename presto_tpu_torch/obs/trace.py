@@ -22,9 +22,12 @@ Perfetto JSON format (one "X" complete event per span, processes keyed
 by node, threads keyed by query).
 
 Enable with ``TRACER.enable()`` or ``PRESTO_TPU_TORCH_TRACE=1``; write a
-query's spans with ``write_chrome_trace(path, TRACER.export())``. The
-re-parenting of spans carried over the wire (``task_span``,
-``import_spans``) belongs to the distributed executor and is not ported.
+query's spans with ``write_chrome_trace(path, TRACER.export())``. A mesh
+query's flight recorder rounds (``obs/flight.chrome_events``) join its
+spans in the Chrome trace as a "mesh rounds" process, one lane per
+attribution bucket. The re-parenting of spans carried over the wire
+(``task_span``, ``import_spans``) belongs to the cluster and server
+planes and is not ported.
 """
 from __future__ import annotations
 
@@ -227,12 +230,14 @@ def current_span_ids() -> Dict:
 
 # -- Chrome-trace (chrome://tracing / Perfetto) export -----------------------
 
-def chrome_trace(spans: List[Dict]) -> Dict:
+def chrome_trace(spans: List[Dict], flights=None) -> Dict:
     """Render exported spans as the Chrome Trace Event JSON object
     format: one complete ("X") event per span with microsecond
     timestamps, processes keyed by node, lanes (tids) keyed by
     task/query so concurrent work stacks readably, plus "M" metadata
-    events naming both."""
+    events naming both. ``flights`` (mesh flight recorders; by default
+    those of ``obs/flight.FLIGHTS`` whose query id a span carries) add
+    their round tracks."""
     pids: Dict[str, int] = {}
     tids: Dict[tuple, int] = {}
     events: List[Dict] = []
@@ -270,10 +275,18 @@ def chrome_trace(spans: List[Dict]) -> Dict:
                      "spanId": s.get("spanId"),
                      "parentId": s.get("parentId"), **attrs},
         })
+    from . import flight as _flight
+    if flights is None:
+        qids = {str((s.get("attrs") or {}).get("query_id"))
+                for s in spans} - {"None"}
+        flights = [fl for fl in _flight.FLIGHTS.snapshot()
+                   if fl.query_id in qids]
+    for k, fl in enumerate(flights):
+        events.extend(_flight.chrome_events(fl, pid=len(pids) + 1 + k))
     return {"traceEvents": events, "displayTimeUnit": "ms"}
 
 
-def write_chrome_trace(path: str, spans: List[Dict]) -> str:
+def write_chrome_trace(path: str, spans: List[Dict], flights=None) -> str:
     with open(path, "w") as f:
-        json.dump(chrome_trace(spans), f)
+        json.dump(chrome_trace(spans, flights), f)
     return path

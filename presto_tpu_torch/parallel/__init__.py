@@ -1,3 +1,3 @@
-"""Placement of rows across partitions (the counterpart of
-``presto_tpu/parallel``). Only the value hash that spill partitioning
-shares with the exchange is ported so far."""
+"""Placement of rows across partitions and mesh slots (the counterpart of
+``presto_tpu/parallel``): the mesh of device slots (``mesh.py``) and the
+value hash and collectives of the exchange (``exchange.py``)."""

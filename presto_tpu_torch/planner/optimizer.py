@@ -28,6 +28,7 @@ from ..expr.rewrite import (
     combine_conjuncts, conjuncts, referenced_inputs, remap_inputs,
 )
 from ..sql.analyzer import Field
+from .fragmenter import _agg_state_fields
 from .plan import (
     AggregationNode, DistinctNode, FilterNode, JoinNode, LimitNode,
     OutputNode, PlanNode, ProjectNode, SemiJoinNode, SortNode,
@@ -36,19 +37,6 @@ from .plan import (
 from .planner import LogicalPlan, Session, bool_property
 
 BROADCAST_ROW_LIMIT = 2_000_000
-
-
-def _agg_state_fields(node: AggregationNode) -> Tuple[Field, ...]:
-    """Output schema of the PARTIAL step: group keys + state columns
-    (the fragmenter's helper of the same name; the port has no
-    fragmenter)."""
-    from ..ops.aggregation import AggSpec
-    child = node.child
-    fields: List[Field] = [child.fields[i] for i in node.group_indices]
-    for a in node.aggs:
-        spec = AggSpec(a.fn, a.arg, a.output_type, a.name)
-        fields.extend(Field(n, t) for n, t in spec.state_types())
-    return tuple(fields)
 
 
 def optimize(plan: LogicalPlan, session: Session) -> LogicalPlan:

@@ -5,14 +5,16 @@ presto-main/.../sql/planner/planprinter/: PlanPrinter.java's
 textLogicalPlan, JsonRenderer.java, GraphvizPrinter.java,
 IoPlanPrinter.java): the text plan, EXPLAIN (FORMAT JSON)
 (``plan_json``), (FORMAT GRAPHVIZ) (``plan_graphviz``) and (TYPE IO)
-(``plan_io``), each equal to the reference's for the same plan. Under
+(``plan_io``), (TYPE DISTRIBUTED) (``print_distributed_plan``: the
+fragmenter's stages with their partitioning and output spec), each
+equal to the reference's for the same plan. Under
 EXPLAIN ANALYZE each executed node carries its profiled device time and
 its kernels' bytes (``[device ...]``), and the runner appends the trace
 (``format_trace_summary``, with the tracer on), skew, scan-cache,
 kernels (``format_executables_summary``) and verdict
-(``format_cost_verdict``) sections. The distributed rendering needs the
-fragmenter, and the sections that read the mesh and the result cache
-need their planes: none of them is ported.
+(``format_cost_verdict``) sections, and for a mesh query the mesh
+rounds (``format_mesh_rounds``: the flight recorder's attribution and
+round table). The result-cache section waits for the serving plane.
 """
 from __future__ import annotations
 
@@ -64,6 +66,31 @@ def plan_graphviz(plan: LogicalPlan) -> str:
         walk(p)
     lines.append("}")
     return "\n".join(lines)
+
+
+def print_distributed_plan(plan: LogicalPlan) -> str:
+    """Fragmented plan with per-fragment partitioning and output spec:
+    EXPLAIN (TYPE DISTRIBUTED) (reference PlanPrinter.textDistributedPlan
+    over PlanFragmenter output)."""
+    from .fragmenter import fragment_plan
+    lines: List[str] = []
+
+    def render(root: PlanNode) -> None:
+        fp = fragment_plan(root)
+        for frag in fp.fragments:
+            out = frag.output
+            spec = "" if out is None else (
+                f" => {out.kind}" + (f"{list(out.keys)}"
+                                     if out.kind == "partition" else ""))
+            lines.append(f"Fragment {frag.id} [{frag.partitioning}]{spec}")
+            _walk(frag.root, 1, lines)
+            lines.append("")
+
+    render(plan.root)
+    for i, init in enumerate(plan.init_plans):
+        lines.append(f"InitPlan[{i}]:")
+        render(init)
+    return "\n".join(lines).rstrip()
 
 
 def plan_io(plan: LogicalPlan) -> dict:
@@ -210,6 +237,61 @@ def format_cost_verdict(stats) -> str:
     return (f"Verdict: {v['verdict']} "
             f"(device compute {v['compute_s'] * 1e3:,.1f}ms vs input "
             f"{v['input_s'] * 1e3:,.1f}ms scan+stall)")
+
+
+#: round rows the EXPLAIN ANALYZE mesh section prints before it points at
+#: system.runtime.mesh_rounds
+_MESH_ROUND_ROWS = 48
+
+
+def format_mesh_rounds(stats) -> str:
+    """Mesh-rounds section of EXPLAIN ANALYZE for a mesh-path query: the
+    flight recorder's wall-clock attribution (bucket seconds and share
+    of wall), the per-shard critical path, and the per-round table,
+    rendered from the same row shape as ``system.runtime.mesh_rounds``
+    (obs/flight.round_rows). Closes with the dominant-bucket verdict.
+    Empty when the query never flew (single-device path or
+    ``mesh_flight=off``)."""
+    fl = getattr(stats, "mesh_flight", None)
+    if fl is None or fl.attribution is None:
+        return ""
+    from ..obs.flight import BUCKETS, round_rows
+    a = fl.attribution
+    wall = max(a["wall_s"], 1e-9)
+    lines = [
+        f"Mesh rounds: {a['rounds']} rounds on {a['n_devices']} "
+        f"device{'s' if a['n_devices'] != 1 else ''}, wall "
+        f"{a['wall_s'] * 1e3:,.1f}ms, {a['reconciled_pct']:.1f}% "
+        f"attributed"]
+    for b in BUCKETS:
+        s = a["buckets"][b]
+        if s:
+            lines.append(f"  {b:<18} {s * 1e3:>10,.1f}ms "
+                         f"{s / wall * 100.0:5.1f}%")
+    cp = a["critical_path"]
+    if cp["per_shard_s"]:
+        lines.append(f"  critical path: shard {cp['slowest_shard']} "
+                     f"({max(cp['per_shard_s']) * 1e3:,.1f}ms)")
+    rows = round_rows(fl.query_id, fl.records())
+    if rows:
+        lines.append("  round stage kind         bucket             "
+                     "wall_ms       rows      bytes loads  dev_rounds")
+        for r in rows[:_MESH_ROUND_ROWS]:
+            (_qid, rnd, stage, kind, bucket, _t, wall_s, nrows,
+             nbytes, loads, _blocking, dev_rounds) = r
+            lines.append(
+                f"  {rnd:>5} {stage:>5} {kind:<12} {bucket:<18} "
+                f"{wall_s * 1e3:>7,.1f} {nrows:>10} {nbytes:>10} "
+                f"{loads} {dev_rounds:>3}")
+        if len(rows) > _MESH_ROUND_ROWS:
+            lines.append(
+                f"  ... {len(rows) - _MESH_ROUND_ROWS} more rounds "
+                f"(system.runtime.mesh_rounds has the full timeline)")
+    lines.append(
+        f"Mesh verdict: {a['dominant_bucket']} dominates "
+        f"({a['buckets'][a['dominant_bucket']] / wall * 100.0:.0f}% "
+        f"of wall)")
+    return "\n".join(lines)
 
 
 def _si(v: float) -> str:

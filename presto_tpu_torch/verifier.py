@@ -11,9 +11,12 @@ rounding to ``precision`` decimal places, as in the reference, or, with
 ``rel_tol`` set, within that relative tolerance. The port's CUDA runner
 sums doubles with atomic adds in no fixed order, so a sum near 1e9
 differs from the CPU's by up to about 1e-4, which moves its sixth
-decimal: a comparison of the two runners passes ``rel_tol``. The
-command-line entry of the reference drives the distributed runner and
-is not ported.
+decimal: a comparison of the two runners passes ``rel_tol``.
+
+``python -m presto_tpu_torch.verifier QUERIES_FILE`` verifies a
+``;``-separated query file with a LocalRunner as control and, by
+default, a DistributedRunner over the same catalogs as test (the
+reference verifier CLI's shape); ``--device cpu`` runs both on the CPU.
 """
 from __future__ import annotations
 
@@ -98,3 +101,44 @@ class Verifier:
 
     def run(self, queries: Sequence[str]) -> List[VerifyResult]:
         return [self.verify_one(q) for q in queries]
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """CLI: verify a ;-separated query file, local control vs
+    distributed (or local) test; exit status 1 unless every query
+    matches."""
+    import argparse
+
+    from .exec.runner import LocalRunner
+
+    p = argparse.ArgumentParser(description="presto_tpu_torch verifier")
+    p.add_argument("queries", help="file of ;-separated SQL statements")
+    p.add_argument("--tpch-sf", type=float, default=0.01)
+    p.add_argument("--test", choices=["distributed", "local"],
+                   default="distributed")
+    p.add_argument("--device", default=None,
+                   help="torch device of both runners (default: the GPU)")
+    p.add_argument("--rel-tol", type=float, default=None,
+                   help="compare doubles within this relative tolerance")
+    args = p.parse_args(argv)
+    with open(args.queries, encoding="utf-8") as f:
+        queries = [q.strip() for q in f.read().split(";") if q.strip()]
+    control = LocalRunner(tpch_sf=args.tpch_sf, device=args.device)
+    if args.test == "distributed":
+        from .exec.distributed import DistributedRunner
+        test = DistributedRunner(catalogs=control.session.catalogs,
+                                 device=args.device)
+    else:
+        test = LocalRunner(tpch_sf=args.tpch_sf, device=args.device)
+    results = Verifier(control, test, rel_tol=args.rel_tol).run(queries)
+    for r in results:
+        print(f"{r.status:15s} {r.control_ms:8.1f}ms {r.test_ms:8.1f}ms  "
+              f"{r.query[:80]!r}" + (f"  -- {r.detail}" if r.detail
+                                     else ""))
+    failed = sum(r.status != "MATCH" for r in results)
+    print(f"{len(results) - failed}/{len(results)} MATCH")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

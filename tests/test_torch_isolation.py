@@ -50,6 +50,12 @@ def test_sources_found():
     assert {"lockcheck.py", "security.py", "events.py", "transaction.py",
             "verifier.py", "trace.py", "log.py", "history.py", "system.py",
             "sqlite.py"} <= names
+    # the mesh slice: SPMD execution, the fragmenter, the flight
+    # recorder, failpoints and the fair device scheduler
+    assert {"distributed.py", "mesh.py", "fragmenter.py", "flight.py",
+            "failpoints.py", "taskexec.py"} <= names
+    assert (ROOT / "presto_tpu_torch" / "parallel" / "mesh.py") \
+        in _SOURCES
     assert (ROOT / "presto_tpu_torch" / "_devtools" / "lockcheck.py") \
         in _SOURCES
     assert (ROOT / "presto_tpu_torch" / "server" / "security.py") \

@@ -175,10 +175,15 @@ def test_spill_properties_run(runners, sql, props):
 def test_unported_surface_raises(sql, props, what):
     """EXPLAIN (TYPE VALIDATE) and START TRANSACTION, which raised until
     the port took them, now run; what the port still does not run raises
-    NotImplementedError naming the module it waits for."""
+    NotImplementedError naming the module it waits for (EXPLAIN (TYPE
+    DISTRIBUTED) did until the fragmenter came; the timeseries table
+    still does)."""
     runner = TLocalRunner(tpch_sf=0.01, device="cpu")
     runner.session.properties.update(props)
     (first,) = runner.execute(sql).rows[0]
     assert first is True or first.startswith("tx_"), (what, first)
-    with pytest.raises(NotImplementedError, match="planner/fragmenter.py"):
-        runner.execute("explain (type distributed) select 1")
+    assert runner.execute(
+        "explain (type distributed) select 1").rows[0][0].startswith(
+        "Fragment 0 [")
+    with pytest.raises(NotImplementedError, match="obs/timeseries.py"):
+        runner.execute("select count(*) from system.runtime.timeseries")

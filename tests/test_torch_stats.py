@@ -147,15 +147,9 @@ def test_recorders_exact_under_threads():
     ("explain (type io) select 1", "TYPE IO"),
 ])
 def test_other_explain_forms_raise(runners, sql, what):
-    """Of EXPLAIN's other forms only TYPE DISTRIBUTED still raises, naming
-    the fragmenter it needs; the JSON, Graphviz and IO documents are the
-    reference's (test_torch_statements.py holds them for every TPC-H
-    query)."""
+    """EXPLAIN's other forms, which raised until the port took them, now
+    print the reference's documents: JSON, Graphviz, IO, and the
+    fragments of TYPE DISTRIBUTED (test_torch_statements.py and
+    test_torch_fragmenter.py hold them for every TPC-H query)."""
     jr, tr = runners
-    if what == "TYPE DISTRIBUTED":
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(f"{what}) needs "
-                                           "planner/fragmenter.py")):
-            tr.execute(sql)
-        return
     assert tr.execute(sql).rows == jr.execute(sql).rows
