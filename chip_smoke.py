@@ -185,6 +185,34 @@ result line):
    launched in the mesh runs or on any one slot; prints the probe's
    launches and the phase wall. The kernels line carries each kernel's
    mesh launches and their split over the slots.
+13. serving: the serving and observability planes (``serving/``,
+   ``obs/timeseries.py``, ``obs/slo.py``, ``obs/exposition.py``) on
+   ``LocalRunner(tpch_sf=SERVING_SF (1), rows_per_batch=2**23)``: (a)
+   warm Q3 SERVING_RUNS (10) times with ``plan_cache=false`` and 10
+   times with it on, in turns (median wall, median planning seconds
+   from the tracer's ``plan`` span, plan-cache hits: 9), rows against
+   the path phase's CPU rows; (b) ``plan_template_cache``: a prepared Q6 form EXECUTEd
+   with 8 bindings (discount range and quantity vary, the shipdate range
+   fixed) must count 1 template build, 7 hits and 0 guard fallbacks, a
+   binding that moves the shipdate bound 1 guard fallback, then a Q3
+   form with 4 date bindings; every result equals the statement with
+   its literals inlined run with templates off on the card, and Q6's and
+   Q3's first binding the CPU rows; both kernels must launch in these
+   runs; (c) ``result_cache``: Q1 a miss then a hit (equal rows; the hit
+   launches neither kernel; both walls printed), a memory table read,
+   then an INSERT into it (the next run misses and shows the row), an
+   ORC table with a file appended (a partial hit that reads only the
+   appended split, rows equal to a run with the cache off), and a write
+   at the ``resultcache.stamp`` failpoint vetoing the insert; (d) four
+   concurrent Q1s admitted through a resource-group manager of two
+   groups, weights 2 and 1, each run with its ``QueryServingContext``
+   (rows equal, ``system.runtime.resource_groups`` rows, the scheduler's
+   device seconds per group, group memory back at 0; the phase records
+   each served wall as the statement server would); (e) after them
+   ``system.runtime.timeseries``, ``slo`` and ``alerts`` return rows and
+   ``render_exposition()`` parses back through ``parse_exposition``
+   with the plan, template and result cache counters. Fails if a check
+   fails; prints both kernels' launches and the phase wall.
 
 Every breakdown line times the plan's table scans twice: with the scan
 cache cleared (host generation and the copy to the card) and as a warm
@@ -197,8 +225,9 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 prints the kernels line; ``--surface-only`` runs phases 1 and 7 alone,
 ``--files-only`` phases 1 and 8, ``--chains-only`` phases 1 and 9,
 ``--spill-only`` phases 1 and 10, ``--statements-only`` phases 1 and 11,
-``--mesh-only`` phases 1 and 12 (each computes its reference rows
-itself; the mesh phase's are the card's single-device runs).
+``--mesh-only`` phases 1 and 12, ``--serving-only`` phases 1 and 13
+(each computes its reference rows itself; the mesh phase's are the
+card's single-device runs).
 Either times whichever ``presto_tpu_torch`` sits beside the script, so
 a copy of the script placed in a checkout of another commit measures
 that commit (turn by turn with this one, in one call, to compare them).
@@ -2373,11 +2402,388 @@ def phase_mesh(torch, tpch_cpu_rows=None, tpcds_cpu_rows=None,
     return launches, slots
 
 
+#: the serving phase: TPC-H at SERVING_SF in 2^23-row batches; Q3 ten
+#: times warm with the plan cache off, then on; the EXECUTE fleet's 8
+#: bindings of a Q6 form (discount range and quantity vary, the shipdate
+#: range fixed), then one that moves the shipdate bound; a Q3 form with 4
+#: date bindings
+SERVING_SF = 1
+SERVING_RUNS = 10
+Q6_FORM = ("select sum(l_extendedprice * l_discount) as revenue "
+           "from lineitem where l_shipdate >= ? and l_shipdate < ? "
+           "and l_discount between ? and ? and l_quantity < ?")
+Q6_DATES = "date '1994-01-01', date '1995-01-01'"
+#: (discount low, discount high, quantity): the first is Q6's own
+Q6_BINDINGS = (("0.05", "0.07", 24), ("0.02", "0.04", 25),
+               ("0.03", "0.05", 30), ("0.04", "0.06", 20),
+               ("0.06", "0.08", 24), ("0.01", "0.09", 40),
+               ("0.00", "0.03", 10), ("0.07", "0.10", 50))
+Q3_DATES = ("1995-03-15", "1995-03-01", "1995-03-31", "1995-02-14")
+#: the resource groups of the serving phase: two leaves under one root,
+#: scheduling weights 2 and 1; dash carries a latency objective every Q1
+#: misses (1 ms), so its burn pages and an alert transition is recorded
+SERVING_GROUPS = {
+    "rootGroups": [{
+        "name": "serving", "hardConcurrencyLimit": 4, "maxQueued": 16,
+        "subGroups": [
+            {"name": "dash", "hardConcurrencyLimit": 2,
+             "schedulingWeight": 2,
+             "slo": {"latencyTargetMs": 1, "latencyObjective": 0.95,
+                     "availabilityObjective": 0.99,
+                     "windows": [60, 300]}},
+            {"name": "adhoc", "hardConcurrencyLimit": 2,
+             "schedulingWeight": 1}]}],
+    "selectors": [{"user": "dash.*", "group": "serving.dash"},
+                  {"group": "serving.adhoc"}]}
+
+
+def _q3_form(day: str) -> str:
+    """Q3 with both of its date literals set to ``day``."""
+    return _queries()["q3"].replace("1995-03-15", day)
+
+
+def phase_serving(torch, tpch_cpu_rows=None, device="cuda", sf=SERVING_SF,
+                  rows_per_batch=ROWS_PER_BATCH):
+    """The serving and observability planes on the card (``device="cpu"``
+    rehearses the phase on the CPU at a small ``sf``): the plan cache on
+    warm Q3, the template cache on an EXECUTE fleet and a Q3 form, the
+    result cache (a Q1 hit, a memory-table write, an ORC append
+    maintained incrementally, a vetoed insert), four Q1s admitted through
+    two weighted resource groups, and the time-series, SLO and
+    exposition planes over all of it. Reference rows not given are a CPU
+    runner's. Returns the launches of the phase."""
+    import tempfile
+    import threading
+
+    from presto_tpu_torch.connectors.orc import OrcConnector
+    from presto_tpu_torch.exec.failpoints import FAILPOINTS
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.taskexec import GLOBAL
+    from presto_tpu_torch.obs.exposition import (
+        parse_exposition, render_exposition,
+    )
+    from presto_tpu_torch.obs.history import HISTORY
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    from presto_tpu_torch.obs.slo import SLO
+    from presto_tpu_torch.obs.timeseries import TIMESERIES
+    from presto_tpu_torch.obs.trace import TRACER
+    from presto_tpu_torch.server.resource_groups import ResourceGroupManager
+    from presto_tpu_torch.serving.groups import QueryServingContext
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+    queries = _queries()
+    tmp = tempfile.mkdtemp(prefix="serving_")
+    runner = LocalRunner(tpch_sf=sf, device=device,
+                         rows_per_batch=rows_per_batch)
+    runner.session.catalogs.register("orc", OrcConnector(tmp))
+    cpu = None
+    if tpch_cpu_rows is None or not cuda:
+        cpu = LocalRunner(tpch_sf=sf, device="cpu",
+                          rows_per_batch=rows_per_batch)
+
+    def cpu_rows(sql):
+        return cpu.execute(sql).rows
+
+    def counter(name):
+        return REGISTRY.counter(name).value
+
+    def timed(sql, props=None, **kw):
+        t0 = time.perf_counter()
+        res = runner.execute(sql, properties=props, **kw)
+        if cuda:
+            torch.cuda.synchronize()
+        return res.rows, time.perf_counter() - t0
+
+    base = _kernel_calls(device)
+
+    def launches_since(ref):
+        now = _kernel_calls(device)
+        return {k: now[k] - ref[k] for k in now}
+
+    # (a) the plan cache on warm Q3
+    q3 = queries["q3"]
+    want_q3 = (tpch_cpu_rows or {}).get("q3") if cuda else None
+    if want_q3 is None:
+        want_q3 = cpu_rows(q3)
+    timed(q3, {"plan_cache": False})           # warm the scan cache
+    TRACER.enable(True)
+    try:
+        # the two settings in turns (off, on, off, on, ...), so that
+        # neither gets the card in a better state than the other
+        walls, plan_ms = {False: [], True: []}, {False: [], True: []}
+        h0 = counter("plan_cache_hit_total")
+        for _ in range(SERVING_RUNS):
+            for on in (False, True):
+                rows, wall = timed(q3, {"plan_cache": on})
+                _same_rows(rows, want_q3, 1e-9)
+                walls[on].append(wall)
+                plan_ms[on].append(HISTORY.snapshot()[-1]["planning_ms"])
+        hits = counter("plan_cache_hit_total") - h0
+        for on in (False, True):
+            w, pm = walls[on], plan_ms[on]
+            print(f"serving plan cache {'on' if on else 'off'}: warm q3 "
+                  f"median wall {statistics.median(w):.4f} s (min "
+                  f"{min(w):.4f}), median planning "
+                  f"{statistics.median(pm) / 1e3:.4f} s", flush=True)
+        print(f"serving plan cache: {hits:.0f} hits in {SERVING_RUNS} "
+              "runs with it on", flush=True)
+        if hits != SERVING_RUNS - 1:
+            raise AssertionError(f"{hits} plan-cache hits in "
+                                 f"{SERVING_RUNS} runs, expected "
+                                 f"{SERVING_RUNS - 1}")
+    finally:
+        TRACER.enable(False)
+        TRACER.clear()
+
+    # (b) the template cache: an EXECUTE fleet, a guard fallback, a Q3 form
+    tprops = {"plan_template_cache": True}
+    runner.execute(f"prepare q6f from {Q6_FORM}")
+
+    def tcounts():
+        return {k: counter(f"plan_template_cache_{k}_total")
+                for k in ("hit", "miss", "guard_fallback")}
+
+    def inlined(lo, hi, qty, dates=("1994-01-01", "1995-01-01")):
+        return (f"select sum(l_extendedprice * l_discount) as revenue "
+                f"from lineitem where l_shipdate >= date '{dates[0]}' and "
+                f"l_shipdate < date '{dates[1]}' and l_discount between "
+                f"{lo} and {hi} and l_quantity < {qty}")
+
+    t0 = tcounts()
+    fleet_walls = []
+    for i, (lo, hi, qty) in enumerate(Q6_BINDINGS):
+        rows, wall = timed(f"execute q6f using {Q6_DATES}, {lo}, {hi}, "
+                           f"{qty}", tprops)
+        fleet_walls.append(wall)
+        _same_rows(rows, runner.execute(inlined(lo, hi, qty)).rows, 1e-9)
+        if i == 0:
+            want = ((tpch_cpu_rows or {}).get("q6") if cuda else None) \
+                or cpu_rows(inlined(lo, hi, qty))
+            _same_rows(rows, want, 1e-9)
+    t1 = tcounts()
+    fleet = {k: t1[k] - t0[k] for k in t1}
+    print(f"serving template fleet: 8 bindings of the Q6 form, walls "
+          f"{' '.join(f'{w:.4f}' for w in fleet_walls)} s; builds "
+          f"{fleet['miss']:.0f}, hits {fleet['hit']:.0f}, guard "
+          f"fallbacks {fleet['guard_fallback']:.0f}", flush=True)
+    if (fleet["miss"], fleet["hit"], fleet["guard_fallback"]) != (1, 7, 0):
+        raise AssertionError(f"template counters {fleet}, expected 1 "
+                             "build, 7 hits, 0 fallbacks")
+    rows, _ = timed("execute q6f using date '1995-01-01', "
+                    "date '1996-01-01', 0.05, 0.07, 24", tprops)
+    _same_rows(rows, runner.execute(inlined(
+        "0.05", "0.07", 24, ("1995-01-01", "1996-01-01"))).rows, 1e-9)
+    t2 = tcounts()
+    if t2["guard_fallback"] - t1["guard_fallback"] != 1:
+        raise AssertionError("moving the shipdate bound did not count one "
+                             "guard fallback")
+    print("serving template guard: a binding that moves the shipdate "
+          "bound counted 1 guard fallback", flush=True)
+    for i, day in enumerate(Q3_DATES):
+        rows, wall = timed(_q3_form(day), tprops)
+        _same_rows(rows, runner.execute(_q3_form(day)).rows, 1e-9)
+        if i == 0:
+            _same_rows(rows, want_q3, 1e-9)
+    t3 = tcounts()
+    print(f"serving template q3 form: 4 date bindings, counters "
+          f"{json.dumps({k: t3[k] - t2[k] for k in t3})}", flush=True)
+    miss_launches = launches_since(base)
+    print(f"serving launches in the plan and template runs: "
+          f"{json.dumps(miss_launches)}", flush=True)
+    if min(miss_launches.values()) <= 0:
+        raise AssertionError("a kernel never launched in the miss runs")
+
+    # (c) the result cache
+    rprops = {"result_cache": True}
+    q1 = queries["q1"]
+    m0, h0 = counter("result_cache_miss_total"), \
+        counter("result_cache_hit_total")
+    miss_rows, miss_wall = timed(q1, rprops)
+    before = _kernel_calls(device)
+    hit_rows, hit_wall = timed(q1, rprops)
+    hit_launches = launches_since(before)
+    if (counter("result_cache_miss_total") - m0,
+            counter("result_cache_hit_total") - h0) != (1, 1):
+        raise AssertionError("q1 was not one miss then one hit")
+    if hit_rows != miss_rows:
+        raise AssertionError("the result-cache hit's rows differ")
+    want_q1 = ((tpch_cpu_rows or {}).get("q1") if cuda else None) \
+        or cpu_rows(q1)
+    _same_rows(miss_rows, want_q1, 1e-9)
+    if any(hit_launches.values()):
+        raise AssertionError(f"the result-cache hit launched {hit_launches}")
+    print(f"serving result cache q1: miss {miss_wall:.4f} s, hit "
+          f"{hit_wall:.6f} s, hit launches {json.dumps(hit_launches)}",
+          flush=True)
+    runner.execute("create table memory.default.sv as select n_nationkey k, "
+                   "n_name name from nation")
+    mem_sql = "select count(*), max(k) from memory.default.sv"
+    first = runner.execute(mem_sql, properties=rprops).rows
+    runner.execute(mem_sql, properties=rprops)
+    m0 = counter("result_cache_miss_total")
+    runner.execute("insert into memory.default.sv select n_nationkey + 1000, "
+                   "n_name from nation where n_nationkey = 1")
+    after = runner.execute(mem_sql, properties=rprops).rows
+    if counter("result_cache_miss_total") - m0 != 1 or \
+            tuple(after[0]) != (first[0][0] + 1, 1001):
+        raise AssertionError(f"after the insert: {after} (before {first})")
+    print(f"serving result cache memory table: {first} -> {after} after "
+          "the insert (a miss)", flush=True)
+    n_orders = int(100_000 * sf) + 100
+    runner.execute(f"create table orc.default.sli as select l_orderkey k, "
+                   f"l_quantity q, l_returnflag f from tpch.default.lineitem "
+                   f"where l_orderkey < {n_orders}")
+    conn = runner.session.catalogs.get("orc")
+    old_files = set(conn.table_files("sli"))
+    orc_sql = ("select f, count(*), sum(q), max(k) from orc.default.sli "
+               "group by f order by f")
+    oprops = {"result_cache": True, "scan_cache": False}
+    runner.execute(orc_sql, properties=oprops)
+    # the appended file's columns carry the table's names (an INSERT
+    # into a file table writes the query's own column names)
+    runner.execute(f"insert into orc.default.sli select l_orderkey k, "
+                   f"l_quantity q, l_returnflag f from tpch.default.lineitem "
+                   f"where l_orderkey between {n_orders} and "
+                   f"{n_orders + n_orders // 10}")
+    new_files = set(conn.table_files("sli")) - old_files
+    read = []
+    source = conn.page_source
+
+    def recording(split, *a, **k):
+        read.append(split.info[0])
+        return source(split, *a, **k)
+
+    conn.page_source = recording
+    p0 = counter("result_cache_partial_total")
+    try:
+        rows, partial_wall = timed(orc_sql, oprops)
+    finally:
+        del conn.page_source
+    cold = runner.execute(orc_sql, properties={"scan_cache": False}).rows
+    if counter("result_cache_partial_total") - p0 != 1:
+        raise AssertionError("the appended ORC table was not a partial hit")
+    if not new_files or set(read) != new_files:
+        raise AssertionError(f"the partial hit read {sorted(read)}, the "
+                             f"appended files are {sorted(new_files)}")
+    _same_rows(rows, cold, 1e-9)
+    print(f"serving result cache orc append: partial hit {partial_wall:.4f}"
+          f" s, read {len(read)} appended split(s) of "
+          f"{len(old_files) + len(new_files)}", flush=True)
+    veto_sql = "select max(k), count(*) from memory.default.sv"
+    FAILPOINTS.configure(
+        "resultcache.stamp", action="callback", times=1,
+        callback=lambda **_: runner.execute(
+            "insert into memory.default.sv select n_nationkey + 2000, "
+            "n_name from nation where n_nationkey = 2"))
+    try:
+        vetoed = runner.execute(veto_sql, properties=rprops).rows
+    finally:
+        FAILPOINTS.clear("resultcache.stamp")
+    m0 = counter("result_cache_miss_total")
+    again = runner.execute(veto_sql, properties=rprops).rows
+    if counter("result_cache_miss_total") - m0 != 1 or again != vetoed:
+        raise AssertionError("the write at resultcache.stamp did not veto "
+                             "the insert")
+    print("serving result cache veto: a write at resultcache.stamp vetoed "
+          "the insert (the next run missed)", flush=True)
+
+    # (d) four Q1s admitted through two weighted resource groups
+    mgr = ResourceGroupManager(SERVING_GROUPS)
+    results, errors = {}, []
+
+    def serve(user):
+        try:
+            adm = mgr.submit(user=user)
+            if not adm.wait(120):
+                raise AssertionError(f"{user} was never admitted")
+            ctx = QueryServingContext(adm.group)
+            path = adm.group.path
+            t0 = time.perf_counter()
+            try:
+                results[user] = runner.execute(q1, serving=ctx).rows
+                REGISTRY.counter(f"serving_requests_total.{path}").inc()
+            finally:
+                # the front door's record of the served wall
+                REGISTRY.histogram(f"serving_latency_seconds.{path}"
+                                   ).observe(time.perf_counter() - t0)
+                ctx.close()
+                adm.release()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"{user}: {type(e).__name__}: {e}")
+
+    # the families the front door feeds, registered before the first
+    # sample so that the windows have a baseline point
+    for path in ("serving.dash", "serving.adhoc"):
+        REGISTRY.histogram(f"serving_latency_seconds.{path}")
+        REGISTRY.counter(f"serving_requests_total.{path}")
+        REGISTRY.counter(f"serving_errors_total.{path}")
+    TIMESERIES.sample()
+    users = ("dash-1", "adhoc-1", "dash-2", "adhoc-2")
+    threads = [threading.Thread(target=serve, args=(u,)) for u in users]
+    t_groups = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    groups_wall = time.perf_counter() - t_groups
+    if errors:
+        raise AssertionError("; ".join(errors))
+    for user in users:
+        _same_rows(results[user], want_q1, 1e-9)
+    shares = GLOBAL.group_shares()
+    dev_s = {g: shares.get(f"{mgr.scope}/serving.{g}", {}).get(
+        "device_seconds", 0.0) for g in ("dash", "adhoc")}
+    table = runner.execute("select \"group\", running, queued, "
+                           "memory_reserved_bytes, scheduling_weight, "
+                           "device_seconds, quanta from "
+                           "system.runtime.resource_groups").rows
+    mine = [r for r in table if r[0].startswith("serving")]
+    if len(mine) != 3:
+        raise AssertionError(f"resource_groups rows {table}")
+    reserved = [g["memoryReservedBytes"] for g in mgr.info()]
+    if any(reserved) or any(r[3] for r in mine):
+        raise AssertionError(f"group memory left charged: {mine}")
+    print(f"serving resource groups: 4 concurrent q1 in {groups_wall:.3f} s,"
+          f" scheduler device seconds dash (weight 2) {dev_s['dash']:.4f} "
+          f"adhoc (weight 1) {dev_s['adhoc']:.4f}; rows {json.dumps(mine, default=int)}",
+          flush=True)
+
+    # (e) the time-series, SLO and exposition planes over the phase
+    TIMESERIES.sample()
+    SLO.evaluate()
+    series = runner.execute("select count(*) from "
+                            "system.runtime.timeseries").rows[0][0]
+    slo = runner.execute("select group_path, objective, state, burn_short "
+                         "from system.runtime.slo").rows
+    alerts = runner.execute("select group_path, from_state, to_state, rule "
+                            "from system.runtime.alerts").rows
+    if not series or not slo or not alerts:
+        raise AssertionError(f"timeseries {series} slo {slo} alerts "
+                             f"{alerts}")
+    samples, types = parse_exposition(render_exposition())
+    fams = ("plan_cache_hit_total", "plan_template_cache_hit_total",
+            "plan_template_cache_guard_fallback_total",
+            "result_cache_hit_total", "result_cache_partial_total")
+    missing = [f for f in fams if types.get(f) != "counter"
+               or (f, ()) not in samples]
+    if missing:
+        raise AssertionError(f"the exposition lacks {missing}")
+    print(f"serving observability: {series} timeseries rows, slo "
+          f"{json.dumps(slo)}, alerts {json.dumps(alerts)}; exposition "
+          f"{len(samples)} samples, cache counters "
+          f"{json.dumps({f: samples[(f, ())] for f in fams})}", flush=True)
+    launches = launches_since(base)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"serving launches: {json.dumps(launches)} | phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s", flush=True)
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     flags = ("--kernels-only", "--surface-only", "--files-only",
              "--chains-only", "--spill-only", "--statements-only",
-             "--mesh-only")
+             "--mesh-only", "--serving-only")
     if sys.argv[1:] and (len(sys.argv) != 2 or sys.argv[1] not in flags):
         fail("device", f"unknown arguments {sys.argv[1:]}")
     only = sys.argv[1] if len(sys.argv) == 2 else None
@@ -2401,7 +2807,9 @@ def main() -> None:
                               ("--spill-only", "spill", phase_spill),
                               ("--statements-only", "statements",
                                phase_statements),
-                              ("--mesh-only", "mesh", phase_mesh)):
+                              ("--mesh-only", "mesh", phase_mesh),
+                              ("--serving-only", "serving",
+                               phase_serving)):
         if only == flag:
             try:
                 phase(torch)
@@ -2461,13 +2869,20 @@ def main() -> None:
             torch, {**tpch_cpu_rows, **tpch_cpu_more}, battery_cpu_rows)
     except Exception as e:  # noqa: BLE001
         fail("mesh", f"{type(e).__name__}: {e}")
+    try:
+        serving_launches = phase_serving(torch, dict(tpch_cpu_rows))
+    except Exception as e:  # noqa: BLE001
+        fail("serving", f"{type(e).__name__}: {e}")
     for entry in entries:
         # launches over every phase that drives the engine: path, tpch,
-        # tpcds, scan, surface, files, chains, spill, statements and mesh
+        # tpcds, scan, surface, files, chains, spill, statements, mesh
+        # and serving
         entry["launches"] = sum(p[entry["name"]] for p in (
             launches, tpch_launches, tpcds_launches, scan_launches,
             surface_launches, files_launches, chains_launches,
-            spill_launches, statements_launches, mesh_launches))
+            spill_launches, statements_launches, mesh_launches,
+            serving_launches))
+        entry["serving_launches"] = serving_launches[entry["name"]]
         # the mesh runs' share, and its split over the slots
         entry["mesh_launches"] = mesh_launches[entry["name"]]
         entry["mesh_slot_launches"] = mesh_slots[entry["name"]]

@@ -4,8 +4,10 @@ The counterpart of the registry half of ``presto_tpu/config.py`` (the
 reference's SystemSessionProperties.java role): one declaration per
 session property that the port's code reads, with its type, default and
 meaning. ``SET SESSION`` on an unknown or mistyped name raises instead of
-storing a value no code will ever read. The config-file loaders of the
-JAX package are not ported.
+storing a value no code will ever read. Of the JAX package's config-file
+loaders, only the node-config keys of the caches and the time-series
+plane are ported (``apply_node_config``); the rest wait for the
+statement server.
 
 Environment defaults (read where the property is resolved, when the
 session leaves it unset): ``PRESTO_TPU_TORCH_MESH_EXECUTION`` for
@@ -118,6 +120,15 @@ _sp("mesh_flight", "boolean", True,
     "EXPLAIN ANALYZE, system.runtime.mesh_rounds and the mesh_attr_* "
     "metric families; off skips recording entirely "
     "(PRESTO_TPU_TORCH_MESH_FLIGHT overrides the unset default)")
+_sp("plan_template_cache", "boolean", False,
+    "fingerprint the PARAMETERIZED statement shape (literals "
+    "hole-punched) so a fleet of bindings shares one optimized plan; "
+    "optimizer decisions that consulted a literal record equality "
+    "guards and fall back to per-binding fingerprints when a binding "
+    "flips them (serving/template.py)")
+_sp("plan_cache", "boolean", True,
+    "serve repeated statements from the compiled-plan cache "
+    "(fingerprinted bound AST; skips parse/plan/optimize)")
 _sp("probe_prefetch", "boolean", True,
     "run a join's probe side on a producer thread while its build side "
     "drains")
@@ -130,6 +141,11 @@ _sp("push_partial_aggregation_through_join", "boolean", True,
 _sp("query_max_memory", "integer", None,
     "per-query memory pool limit in bytes (join builds, aggregation "
     "states and sorts spill beyond it)")
+_sp("result_cache", "boolean", False,
+    "serve repeated statements from the versioned result cache "
+    "(serving/resultcache.py): stored host rows when every scanned "
+    "table's data_version matches, changed-split delta recompute + "
+    "distributive merge when a file table grew append-only")
 _sp("role", "varchar", None,
     "active role for access-control checks (SET ROLE)")
 _sp("scan_cache", "boolean", True,
@@ -202,3 +218,43 @@ def validate_session_property(name: str, value):
     if sp.validator is not None:
         out = sp.validator(out)
     return out
+
+
+# -- node config (config.properties) ------------------------------------------
+#: the node-config keys the port reads: the slice of the JAX package's
+#: ``NodeConfig`` that sizes the process-wide caches and the time-series
+#: sampler (the statement server's keys wait for it)
+NODE_CONFIG_KEYS: Dict[str, str] = {
+    "scan-cache.max-bytes": "device scan-cache resident limit per device "
+                            "(exec/scancache.py)",
+    "result-cache.max-bytes": "result-cache host-row budget "
+                              "(serving/resultcache.py; default 256 MiB)",
+    "timeseries.sample-interval-s": "time-series sampler cadence in "
+                                    "seconds (obs/timeseries.py; "
+                                    "default 5)",
+    "timeseries.retention-points": "bounded ring size per series "
+                                   "(default 360 = 30 min at the "
+                                   "default cadence)",
+}
+
+
+def apply_node_config(props: Dict[str, str]) -> None:
+    """Apply a parsed ``config.properties`` dict's cache and time-series
+    keys to the process-wide scan cache, result cache and time-series
+    store, as the JAX package's ``server_from_etc`` does at boot; an
+    absent key keeps the built-in default."""
+    raw = props.get("scan-cache.max-bytes")
+    if raw:
+        from .exec.scancache import CACHE
+        CACHE.set_limit(int(raw))
+    raw = props.get("result-cache.max-bytes")
+    if raw:
+        from .serving.resultcache import RESULTS
+        RESULTS.set_limit(int(raw))
+    raw_ts = props.get("timeseries.sample-interval-s")
+    raw_tr = props.get("timeseries.retention-points")
+    if raw_ts or raw_tr:
+        from .obs.timeseries import TIMESERIES
+        TIMESERIES.configure(
+            sample_interval_s=float(raw_ts) if raw_ts else None,
+            retention_points=int(raw_tr) if raw_tr else None)

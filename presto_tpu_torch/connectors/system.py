@@ -40,9 +40,15 @@ Tables, with the reference's columns:
 ``mesh_rounds`` holds the round timeline of the most recent mesh
 queries (``obs/flight.FLIGHTS``, one row per flight round in
 ``flight.ROUND_COLUMNS`` order, the rows EXPLAIN ANALYZE's mesh section
-prints). ``timeseries``, ``slo``, ``alerts`` and ``resource_groups``
-wait for the serving and observability planes: they keep their schemas,
-and a scan of one raises naming the module it waits for.
+prints). ``timeseries`` holds the derived series of the time-series
+store (``obs/timeseries.TIMESERIES``: counter rates, histogram windowed
+quantiles, gauge points), ``slo`` one row per declared resource-group
+objective and ``alerts`` the SLO alert transitions (``obs/slo.SLO``),
+``resource_groups`` every group of every live resource-group manager
+joined with the fair scheduler's per-group share
+(``serving/groups.group_snapshot``). ``metrics`` also carries the
+store's windowed quantiles (``.p95_5m`` rows) once the sampler has two
+points in the window.
 """
 from __future__ import annotations
 
@@ -126,14 +132,6 @@ _SCHEMAS: Dict[str, List] = {
         ("bytes_accessed", T.DOUBLE), ("arg_bytes", T.BIGINT),
         ("output_bytes", T.BIGINT), ("temp_bytes", T.BIGINT),
         ("generated_code_bytes", T.BIGINT)],
-}
-
-#: tables whose feeds are not ported yet -> the module they wait for
-_WAITING = {
-    "timeseries": "obs/timeseries.py",
-    "slo": "obs/slo.py",
-    "alerts": "obs/slo.py",
-    "resource_groups": "serving/groups.py",
 }
 
 
@@ -222,10 +220,6 @@ class SystemConnector(Connector):
         return self._splits
 
     def _rows(self, table: str) -> List[tuple]:
-        if table in _WAITING:
-            raise NotImplementedError(
-                f"system table {table!r} waits for {_WAITING[table]}, "
-                "which is not ported")
         return getattr(self, "_rows_" + table)()
 
     def _rows_catalogs(self) -> List[tuple]:
@@ -274,9 +268,37 @@ class SystemConnector(Connector):
 
     def _rows_metrics(self) -> List[tuple]:
         from ..obs.metrics import REGISTRY
+        from ..obs.timeseries import TIMESERIES
         sampled_at = time.time()   # ONE clock read per scan
-        return [(m["name"], m["kind"], float(m["value"]), sampled_at)
-                for m in REGISTRY.snapshot()]
+        out = [(m["name"], m["kind"], float(m["value"]), sampled_at)
+               for m in REGISTRY.snapshot()]
+        # windowed quantiles next to the lifetime ``.p95`` rows:
+        # ``.p95_5m`` means "over the last 5 minutes"
+        out += [(name, "histogram", value, sampled_at)
+                for name, value in TIMESERIES.window_quantile_rows(300.0)]
+        return out
+
+    def _rows_timeseries(self) -> List[tuple]:
+        from ..obs.timeseries import TIMESERIES
+        return TIMESERIES.rows()
+
+    def _rows_slo(self) -> List[tuple]:
+        from ..obs.slo import SLO
+        return SLO.snapshot_rows()
+
+    def _rows_alerts(self) -> List[tuple]:
+        from ..obs.slo import SLO
+        return SLO.alert_rows()
+
+    def _rows_resource_groups(self) -> List[tuple]:
+        from ..serving.groups import group_snapshot
+        return [(g["group"], g["state"], int(g["running"]),
+                 int(g["queued"]), int(g["memory_reserved_bytes"] or 0),
+                 None if g["soft_memory_limit_bytes"] is None
+                 else int(g["soft_memory_limit_bytes"]),
+                 int(g["scheduling_weight"]), float(g["device_seconds"]),
+                 float(g["device_share"]), int(g["quanta"]))
+                for g in group_snapshot()]
 
     def _rows_nodes(self) -> List[tuple]:
         from ..obs.metrics import NODES

@@ -1152,17 +1152,19 @@ class DistributedExecutor(_Executor):
         cap_out = bucket_capacity(plan.K + 1)
         key_idx = list(range(len(group)))
         sig0 = self._wave_sig(first)
-        wave_fns: Dict[Tuple[int, bool], object] = {}
+        wave_fns: Dict[Tuple[int, bool, int], object] = {}
 
         def run_wave(carry: Optional[Batch], chunks: List[Batch]) -> Batch:
             # the reference pads a wave to a power of two with dead copies
             # of the last chunk so its loop programs stay few; the port's
-            # loop skips the dead rounds but records the same count
+            # loop skips the dead rounds but records the same count, so a
+            # program is keyed by the chunks it really loops over
             rounds = 1 << max(len(chunks) - 1, 0).bit_length()
             has_carry = carry is not None
-            fn = wave_fns.get((rounds, has_carry))
+            key = (rounds, has_carry, len(chunks))
+            fn = wave_fns.get(key)
             if fn is None:
-                fn = wave_fns[(rounds, has_carry)] = self._smap(
+                fn = wave_fns[key] = self._smap(
                     _fused_agg_wave_fn(group, key_idx, aggs, kb, cap_out,
                                        has_carry, len(chunks)),
                     len(chunks) + (1 if has_carry else 0),
@@ -1949,15 +1951,15 @@ class DistributedRunner:
         """Run one query on the mesh. ``properties`` overlays per-query
         session properties, validated through the declared registry;
         ``user`` scopes the history record; ``cancel_event`` interrupts
-        between batches."""
+        between batches. SELECTs ride the parse and plan caches
+        (serving/plancache.py): a repeated statement skips parse, plan
+        and optimize."""
         from ..config import validate_session_property
         from ..obs.history import HISTORY
-        from ..planner.optimizer import optimize
-        from ..planner.planner import plan_query
+        from ..serving.plancache import cached_plan, parse_cached
         from ..sql import ast as A
-        from ..sql.parser import parse_statement
         from .local import run_init_plans
-        stmt = parse_statement(sql)
+        stmt = parse_cached(sql)
         if not isinstance(stmt, A.Query):
             raise NotImplementedError(
                 "DistributedRunner serves queries; use LocalRunner for "
@@ -1983,7 +1985,7 @@ class DistributedRunner:
             with TRACER.span("query", query_id=qid, user=user,
                              mode="spmd", shards=self.mesh.size):
                 with TRACER.span("plan"):
-                    plan = optimize(plan_query(stmt, session), session)
+                    plan = cached_plan(stmt, session, user=user)
                 ex = DistributedExecutor(session, self.rows_per_batch,
                                          self.mesh)
                 ex.cancel_event = cancel_event

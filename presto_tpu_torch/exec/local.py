@@ -72,6 +72,8 @@ from ..batch import (
 )
 from ..errors import STATS_BOUND_VIOLATION, QueryCancelledError, QueryError
 from ..expr import ir
+from ..expr import params as P
+from ..expr.params import has_params
 from ..expr.compiler import (
     _err_scalar, _inputs, compile_filter, compile_projection, eval_expr,
 )
@@ -170,12 +172,22 @@ def run_init_plans(ex: "_Executor", plan: LogicalPlan) -> None:
 
 def execute_plan(plan: LogicalPlan, session: Session, device,
                  rows_per_batch: int = 1 << 17, stats=None,
-                 collect_rows: bool = True,
-                 cancel_event=None) -> QueryResult:
+                 collect_rows: bool = True, cancel_event=None,
+                 split_restrict=None) -> QueryResult:
     """Run a planned query on ``device`` and decode its rows.
     ``stats`` (a StatsCollector) records per-node and per-split stats;
     ``collect_rows=False`` drains without decoding (EXPLAIN ANALYZE);
-    a set ``cancel_event`` stops the query between batches.
+    a set ``cancel_event`` stops the query between batches;
+    ``split_restrict`` ({(catalog, table): predicate over Split}) keeps
+    only the matching splits of those scans (the result cache's delta
+    run, which stays on one device).
+
+    A plan-template plan runs under its query's bindings
+    (``session.param_bindings``, expr/params.py): the binding scope opens
+    here, before any thread that runs batches is started, and the mesh
+    executor gets the plan with its bindings made literals. An admitted
+    query (``session.serving``) bills its memory to its resource group
+    and draws its quanta from the group's share.
 
     Mesh routing (``exec/distributed.select_mesh``): under
     ``mesh_execution`` the plan runs on a mesh of slots of ``device``'s
@@ -190,7 +202,15 @@ def execute_plan(plan: LogicalPlan, session: Session, device,
         DistributedExecutor, mesh_flight_on, select_mesh,
     )
     from .taskexec import GLOBAL as scheduler
-    mesh = select_mesh(session, plan, device)
+    bindings = session.param_bindings
+    mesh = (select_mesh(session, plan, device)
+            if split_restrict is None else None)
+    if mesh is not None and bindings:
+        # the mesh executor takes values as constants: materialize this
+        # query's bindings into literals (the cached template itself is
+        # never mutated)
+        plan = P.bind_plan(plan, bindings)
+        bindings = None
     if mesh is not None:
         ex = DistributedExecutor(session, rows_per_batch, mesh,
                                  stats=stats)
@@ -200,9 +220,18 @@ def execute_plan(plan: LogicalPlan, session: Session, device,
                        stats=stats)
         n_slots = 1
     ex.cancel_event = cancel_event
-    # quanta are billed per slot: a mesh query's quantum holds every slot
-    handle = (scheduler.task(name=str(id(ex)), devices=n_slots)
-              if bool_property(session, "fair_scheduling", True) else None)
+    ex.split_restrict = split_restrict
+    # quanta are billed per slot: a mesh query's quantum holds every
+    # slot; an admitted query's task registers under its resource
+    # group's share (serving/groups.py), allotted by schedulingWeight
+    serving = session.serving
+    handle = (scheduler.task(
+        name=str(id(ex)),
+        group=serving.scheduler_group if serving is not None else "",
+        weight=serving.weight if serving is not None else 1,
+        label=serving.group_path if serving is not None else None,
+        devices=n_slots)
+        if bool_property(session, "fair_scheduling", True) else None)
     # device-time profiling (obs/profiler.py): per-operator frames timed
     # on the device and kernel launches bracketed. On under the `profile`
     # session property, and always under EXPLAIN ANALYZE, which already
@@ -223,7 +252,10 @@ def execute_plan(plan: LogicalPlan, session: Session, device,
     out: List[Batch] = []
     sentinel = object()
     try:
-        with profiler.profiled(profile_on, ex.device):
+        # template bindings: Param evaluation reads this query's values
+        # from the scope; the threads that run batches copy their spawn
+        # context, so the scope reaches them
+        with P.bound(bindings), profiler.profiled(profile_on, ex.device):
             run_init_plans(ex, plan)
             it = ex.run(root.child)
             try:
@@ -451,6 +483,10 @@ class _Executor:
         #: set by execute_plan: checked per scan batch, so a cancel stops
         #: a query mid-drain
         self.cancel_event = None
+        #: result-cache incremental delta: {(catalog, table): predicate
+        #: over Split} restricting a scan to the changed splits only
+        #: (serving/resultcache.py); None scans everything
+        self.split_restrict = None
         #: the query's memory pool: the spill buffers and memoized
         #: subplans reserve from it; staged host bytes beyond
         #: spill_to_disk_bytes flush to pages on disk (reference
@@ -463,7 +499,10 @@ class _Executor:
         self.pool = QueryMemoryPool(
             int_prop("query_max_memory"),
             disk_threshold=int_prop("spill_to_disk_bytes", 4 << 30),
-            spill_dir=props.get("spill_path"))
+            spill_dir=props.get("spill_path"),
+            # admitted queries mirror reservations to their resource
+            # group's ledger (kill-or-queue on group memory limits)
+            group=session.serving)
         self.spill_partitions = int_prop("spill_partitions", 16)
         session.last_memory_stats = self.pool.stats
         #: runtime (dynamic-filter) scan bounds: scan node ->
@@ -643,6 +682,11 @@ class _Executor:
         if splits is None:
             splits = conn.split_manager.splits(node.table,
                                                max(opts.threads, 1))
+        if self.split_restrict is not None:
+            pred = self.split_restrict.get((node.catalog, node.table.table))
+            if pred is not None:
+                # result-cache delta run: only the changed splits
+                splits = [s for s in splits if pred(s)]
         t_query0 = time.perf_counter()
 
         def record_split(i: int, t0: float, batches: int) -> None:
@@ -1070,6 +1114,14 @@ class _Executor:
             else:
                 break
         if njoins < 2:
+            return None
+        if any(has_params(getattr(n, "predicate", None))
+               or has_params(getattr(n, "exprs", None))
+               for n in nodes):
+            # plan-template parameters: the fused chain runs as the
+            # reference's does, which gives its head/tail programs no
+            # channel for runtime bindings; the per-operator path reads
+            # them from the binding scope
             return None
         return self._run_fused_chain(nodes, cur)
 

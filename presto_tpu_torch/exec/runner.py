@@ -22,9 +22,18 @@ Every statement leaves a query-log entry (``system.runtime.queries``),
 split and completion events (``events.py``) that feed the metrics
 registry and the query history (``obs/history.py``), a structured log
 line when ``obs/log.LOG`` is on, and a ``query`` span when
-``obs/trace.TRACER`` is on. The serving caches of the reference (parsed
-statements, compiled and template plans, results) are not ported: each
-statement is parsed and planned anew.
+``obs/trace.TRACER`` is on.
+
+The serving plane (``serving/``) sits in front of a query: statement text
+is parsed once (``plancache.parse_cached``); a query's optimized plan
+comes from the plan cache (``plan_cache``, default on), or under
+``plan_template_cache`` from a parameter-generic template whose literals
+bind per query (``session.param_bindings``); under ``result_cache`` a
+repeated query is served from stored rows, or recomputed over the files
+appended since (``serving/resultcache.py``). ``execute(...,
+serving=QueryServingContext(...))`` runs a query admitted through a
+resource group (``server/resource_groups.py``): its memory is billed to
+the group and its device quanta drawn from the group's share.
 
 A query runs on a mesh of device slots when ``mesh_execution`` routes it
 there (``exec/distributed.py``; ``PRESTO_TPU_TORCH_MESH_SLOTS`` makes one
@@ -61,13 +70,19 @@ from ..obs.metrics import REGISTRY, attach_event_listeners
 from ..obs.trace import TRACER
 from ..planner.optimizer import optimize
 from ..planner.plan import TableScanNode
-from ..planner.planner import LogicalPlan, Session, _schema_exists, plan_query
+from ..planner.planner import (
+    LogicalPlan, Session, _schema_exists, bool_property, plan_query,
+)
 from ..planner.printer import (
     format_cost_verdict, format_executables_summary, format_mesh_rounds,
-    format_scan_cache_summary, format_skew_summary, format_trace_summary,
+    format_result_cache_summary, format_scan_cache_summary,
+    format_skew_summary, format_trace_summary,
     plan_graphviz, plan_io, plan_json, print_distributed_plan, print_plan,
 )
 from ..server.security import AccessControl, RoleManager, SecuredCatalogs
+from ..serving import resultcache as RC
+from ..serving.plancache import bound_fingerprint, cached_plan, parse_cached
+from ..serving.template import template_plan
 from ..sql import ast as A
 from ..sql.ast import count_parameters, substitute_parameters
 from ..sql.parser import parse_statement
@@ -135,13 +150,19 @@ class LocalRunner:
     # -- public API -----------------------------------------------------------
     def execute(self, sql: str,
                 properties: Optional[Dict[str, object]] = None,
-                user: str = "", cancel_event=None) -> QueryResult:
+                user: str = "", cancel_event=None,
+                serving=None) -> QueryResult:
         """Run one statement. ``properties`` overlays per-query session
         properties without changing the runner's session (the reference
         builds a per-query Session the same way); ``user`` scopes the
         access checks, the transaction and the query's events; a set
-        ``cancel_event`` stops a running query between batches."""
-        stmt = parse_statement(sql)
+        ``cancel_event`` stops a running query between batches;
+        ``serving`` is the admitted query's resource-group context
+        (``serving/groups.QueryServingContext``): group memory accounting
+        and a weighted device-scheduler share."""
+        # repeated-statement fast path, step 1: identical SQL text
+        # reuses the parsed AST (frozen dataclasses)
+        stmt = parse_cached(sql)
         with self._state_lock:
             qid = f"q_{next(_QUERY_SEQ):06d}"
             entry = QueryLogEntry(qid, "RUNNING", sql.strip(), 0.0,
@@ -167,7 +188,7 @@ class LocalRunner:
             with TRACER.span("query", query_id=qid, user=user) as qspan:
                 trace_id = getattr(qspan, "trace_id", None)
                 out = self._execute_stmt(stmt, properties, user,
-                                         cancel_event, stats)
+                                         cancel_event, stats, serving)
             rows_out = len(out.rows)
             entry.state = "FINISHED"
             return out
@@ -277,35 +298,77 @@ class LocalRunner:
 
     # -- statement dispatch ---------------------------------------------------
     def _execute_stmt(self, stmt: A.Node, properties, user: str,
-                      cancel_event, stats: StatsCollector) -> QueryResult:
+                      cancel_event, stats: StatsCollector,
+                      serving=None) -> QueryResult:
         session = self.session
         secured = bool(self.access_control.catalog_rules)
-        if properties or secured:
+        if properties or secured or serving is not None:
             catalogs = session.catalogs
             if secured:
                 catalogs = SecuredCatalogs(catalogs, user,
                                            self.access_control)
             session = dataclasses.replace(
-                session, catalogs=catalogs,
+                session, catalogs=catalogs, serving=serving,
                 properties={**session.properties, **(properties or {})})
         if isinstance(stmt, A.Query):
+            # repeated-statement fast path, step 2: a fingerprint hit in
+            # the plan cache skips plan_query and optimize; under
+            # plan_template_cache the fingerprint is parameter-generic
+            # (serving/template.py): the statement's literals hole-punch
+            # out of the key and bind per query
+            sec = secured or self.roles.enforce
+            use_template = bool_property(session, "plan_template_cache",
+                                         False)
+            use_results = bool_property(session, "result_cache", False)
+            bindings = bound_key = None
             with TRACER.span("plan"):
                 # planning resolves every catalog through SecuredCatalogs
                 # when rules are set, so a denied catalog fails here
-                plan = optimize(plan_query(stmt, session), session)
+                if use_template:
+                    plan, bindings, bound_key = template_plan(
+                        stmt, session, user=user, secured=sec)
+                else:
+                    plan = cached_plan(stmt, session, user=user,
+                                       secured=sec)
+            if secured:
+                # a cache hit skips planning, where SecuredCatalogs
+                # enforces, so re-check catalog access on the plan's
+                # scans (a revoked grant must bite on warm plans too)
+                self._check_catalog_access(plan, user)
             if self.roles.enforce:
                 self._check_select_privileges(plan, user)
+            if bindings is not None:
+                # per-query overlay: the executor opens the binding
+                # scope from this field (the shared plan never changes)
+                session = dataclasses.replace(session,
+                                              param_bindings=bindings)
             try:
-                return execute_plan(plan, session, self.device,
-                                    self.rows_per_batch, stats=stats,
-                                    cancel_event=cancel_event)
+                rc_token = None
+                if use_results:
+                    if bound_key is None:
+                        bound_key = bound_fingerprint(
+                            stmt, session, user=user, secured=sec)
+                    # deps and epoch stamped BEFORE running: a write
+                    # landing mid-execution vetoes the insert
+                    served, rc_token = RC.begin(
+                        bound_key, plan, session, self.device,
+                        self.rows_per_batch, cancel_event=cancel_event,
+                        stats=stats)
+                    if served is not None:
+                        return served
+                out = execute_plan(plan, session, self.device,
+                                   self.rows_per_batch, stats=stats,
+                                   cancel_event=cancel_event)
+                if rc_token is not None:
+                    RC.commit(rc_token, session, out)
+                return out
             finally:
                 if session is not self.session:
                     # the executor stamped its memory stats on the overlay
                     self.session.last_memory_stats = \
                         session.last_memory_stats
         if isinstance(stmt, A.Explain):
-            return self._explain(stmt, session, cancel_event, stats)
+            return self._explain(stmt, session, user, cancel_event, stats)
         if isinstance(stmt, A.ShowCatalogs):
             return QueryResult(["Catalog"], [T.VARCHAR],
                                [(c,) for c in session.catalogs.names()])
@@ -387,7 +450,7 @@ class LocalRunner:
                     f"but found {len(stmt.args)}")
             bound = substitute_parameters(prepared, list(stmt.args))
             return self._execute_stmt(bound, properties, user,
-                                      cancel_event, stats)
+                                      cancel_event, stats, serving)
         if isinstance(stmt, A.DescribeOutput):
             prepared = self._prepared(stmt.name)
             if not isinstance(prepared, A.Query):
@@ -414,7 +477,7 @@ class LocalRunner:
             raise ValueError(f"prepared statement {name!r} not found")
         return prepared
 
-    def _explain(self, stmt: A.Explain, session: Session,
+    def _explain(self, stmt: A.Explain, session: Session, user: str,
                  cancel_event, stmt_stats: StatsCollector) -> QueryResult:
         if not isinstance(stmt.statement, A.Query):
             raise ValueError("EXPLAIN requires a query")
@@ -457,6 +520,16 @@ class LocalRunner:
             tid = getattr(sp, "trace_id", None)
             if TRACER.enabled and tid is not None:
                 trace_spans = TRACER.export(tid)
+            if bool_property(session, "result_cache", False):
+                # EXPLAIN ANALYZE always executes: report whether a
+                # resident entry would have served this statement, under
+                # the execution path's key rule (bound_fingerprint)
+                key = bound_fingerprint(
+                    stmt.statement, session, user=user,
+                    secured=(bool(self.access_control.catalog_rules)
+                             or self.roles.enforce))
+                stats.result_cache_probe = RC.RESULTS.probe(key)
+                stats.result_cache_stats = RC.RESULTS.stats()
         text = print_plan(plan, stats)
         if trace_spans:
             text += "\n" + format_trace_summary(trace_spans)
@@ -464,6 +537,7 @@ class LocalRunner:
             for section in (format_skew_summary(stats),
                             format_mesh_rounds(stats),
                             format_scan_cache_summary(stats, self.device),
+                            format_result_cache_summary(stats),
                             format_executables_summary(stats),
                             format_cost_verdict(stats)):
                 if section:
@@ -539,6 +613,20 @@ class LocalRunner:
         schema = self.session.schema if len(name) < 2 else name[-2]
         return (catalog, schema, name[-1])
 
+    def _check_catalog_access(self, plan: LogicalPlan,
+                              user: str) -> None:
+        """Catalog-level access control over a plan's scans: the check
+        SecuredCatalogs performs at plan time, repeated so that plans
+        served from the cache (planning skipped) stay enforced."""
+        def walk(n):
+            if isinstance(n, TableScanNode):
+                self.access_control.check_can_access_catalog(
+                    user, n.catalog)
+            for c in n.children:
+                walk(c)
+        for p in [plan.root] + list(plan.init_plans):
+            walk(p)
+
     def _check_select_privileges(self, plan: LogicalPlan,
                                  user: str) -> None:
         """SQL-standard enforcement: every scanned table needs SELECT for
@@ -612,8 +700,14 @@ class LocalRunner:
         else:
             conn.create_table(table, schema,
                               if_not_exists=stmt.if_not_exists)
-        n = sum(conn.append(table, Batch(schema, b.columns, b.row_mask))
-                for b in batches)
+        try:
+            n = sum(conn.append(table, Batch(schema, b.columns, b.row_mask))
+                    for b in batches)
+        except Exception:
+            # a write the catalog cannot do (a long decimal into a file
+            # table) leaves no half-made table behind to block a retry
+            conn.drop_table(table, if_exists=True)
+            raise
         return QueryResult(["rows"], [T.BIGINT], [(n,)])
 
     def _insert(self, stmt: A.InsertInto, session: Session, user: str,

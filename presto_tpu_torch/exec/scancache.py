@@ -330,6 +330,12 @@ class DeviceScanCaches:
         for cache in self._all():
             cache.clear()
 
+    @property
+    def limit_bytes(self) -> int:
+        """The bound of each device's cache."""
+        with self._lock:
+            return self._limit
+
     def set_limit(self, limit_bytes: int) -> None:
         """The bound of every device's cache, now and for caches made
         later."""

@@ -31,8 +31,9 @@ from .array_functions import compact_elements, in_length
 from .functions import Val, cast_val, merge_err
 from .ir import (
     Call, Cast, Expr, Form, InputRef, LambdaExpr, LambdaRef, Literal,
-    SpecialForm,
+    Param, SpecialForm,
 )
+from .params import param_val
 
 #: functions whose lambda arguments are evaluated over array elements
 HIGHER_ORDER = frozenset(
@@ -67,6 +68,11 @@ def eval_expr(expr: Expr, inputs: List[Val]) -> Val:
         valid = inputs[0].valid
         return Val.constant(expr.value, expr.type, valid.shape[0],
                             valid.device)
+    if isinstance(expr, Param):
+        # plan-template parameter: this query's binding, read from the
+        # binding scope (expr/params.py), never a baked constant
+        valid = inputs[0].valid
+        return param_val(expr, valid.shape[0], valid.device)
     if isinstance(expr, Cast):
         arg = eval_expr(expr.arg, inputs)
         out = cast_val(arg, expr.type)

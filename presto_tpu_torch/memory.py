@@ -63,8 +63,14 @@ class QueryMemoryPool:
 
     def __init__(self, limit_bytes: Optional[int] = None,
                  disk_threshold: Optional[int] = None,
-                 spill_dir: Optional[str] = None):
+                 spill_dir: Optional[str] = None, group=None):
         self.limit = limit_bytes if limit_bytes is not None else UNLIMITED
+        #: serving-plane group account (serving/groups.py): every change
+        #: to ``reserved`` is mirrored to the admitting resource group
+        #: via ``group.charge(delta)``; a charge may raise when the
+        #: group's hard memory limit is hit: the requesting query dies,
+        #: its siblings in the group survive
+        self.group = group
         # the second (disk) spill tier's budget and directory
         # (reference NodeSpillConfig.maxSpillPerNode + spiller-spill-path)
         self.disk_threshold = disk_threshold
@@ -96,6 +102,10 @@ class QueryMemoryPool:
                 self._revoke_others(self.reserved + n - self.limit, ctx)
             if self.reserved + n > self.limit:
                 return False
+            if self.group is not None:
+                # bill the resource group BEFORE taking the bytes: a
+                # hard-limit raise must leave both ledgers untouched
+                self.group.charge(n)
             self.reserved += n
             ctx.bytes += n
             if self.reserved > self.stats.peak_bytes:
@@ -155,6 +165,8 @@ class OperatorMemoryContext:
 
     def release_all(self) -> None:
         with self.pool.lock:
+            if self.pool.group is not None and self.bytes:
+                self.pool.group.charge(-self.bytes)
             self.pool.reserved -= self.bytes
             self.bytes = 0
 

@@ -49,7 +49,10 @@ def _quantile(q: float, count: int, bucket_counts: List[int],
     for i, c in enumerate(bucket_counts):
         hi = bounds[i] if i < len(bounds) else hi_clamp
         if c and cum + c >= target:
-            v = lo + (hi - lo) * (target - cum) / c
+            # the reference's operation order, so estimates agree to
+            # the last bit
+            frac = (target - cum) / c
+            v = lo + (hi - lo) * frac
             return min(max(v, lo_clamp), hi_clamp)
         cum += c
         lo = hi
@@ -141,6 +144,15 @@ class Histogram:
         doc["buckets"] = cumulative
         return doc
 
+    def quantile(self, q: float) -> Optional[float]:
+        """Lifetime quantile estimate (``obs/timeseries`` has windowed
+        ones)."""
+        with self._lock:
+            if not self.count:
+                return None
+            return _quantile(q, self.count, list(self.bucket_counts),
+                             self.buckets, self.min, self.max)
+
 
 class MetricsRegistry:
     """Name -> metric, created on first use; one per process
@@ -202,6 +214,19 @@ class MetricsRegistry:
             out += [{"name": f"{name}.{k}", "kind": "histogram",
                      "value": v} for k, v in rows]
         return out
+
+    def reset(self) -> None:
+        """Zero every metric in place (tests): instrumentation sites
+        hold their metric objects, so values reset and identities
+        survive."""
+        with self._lock:
+            for m in self._metrics.values():
+                if isinstance(m, (Counter, Gauge)):
+                    m.value = 0.0
+                elif isinstance(m, Histogram):
+                    m.count, m.sum = 0, 0.0
+                    m.min, m.max = _INF, -_INF
+                    m.bucket_counts = [0] * (len(m.buckets) + 1)
 
 
 #: the process-wide registry

@@ -154,8 +154,10 @@ def _extract_bounds(pred: ir.Expr,
         only when the bound will actually attach (boundable column)."""
         if not isinstance(scan.fields[idx].type, _BOUNDABLE):
             return False
-        if any(p is not None for p in ps):
-            raise NotImplementedError("plan-template parameters are not ported")
+        from ..expr import params as _params
+        for p in ps:
+            if p is not None:
+                _params.consult(p)
         return True
 
     for c in conjuncts(pred):

@@ -239,6 +239,30 @@ def format_cost_verdict(stats) -> str:
             f"{v['input_s'] * 1e3:,.1f}ms scan+stall)")
 
 
+def format_result_cache_summary(stats) -> str:
+    """Result-cache section appended to EXPLAIN ANALYZE: this query's
+    outcome (hit / partial / miss on plain queries; EXPLAIN ANALYZE
+    always runs, so it reports whether a resident entry would serve)
+    plus the process-wide resident set. Empty string when the result
+    cache never engaged (``result_cache`` off)."""
+    outcome = getattr(stats, "result_cache", None)
+    probe = getattr(stats, "result_cache_probe", ())
+    totals = getattr(stats, "result_cache_stats", None)
+    if outcome is None and probe == () and totals is None:
+        return ""
+    if totals is None:
+        from ..serving.resultcache import RESULTS
+        totals = RESULTS.stats()
+    if outcome is None:
+        outcome = ("miss" if probe is None else
+                   f"cached ({probe[0]} rows"
+                   + (", incremental)" if probe[2] else ")"))
+    return (f"Result cache: {outcome}; resident "
+            f"{totals['entries']} entr"
+            f"{'y' if totals['entries'] == 1 else 'ies'}, "
+            f"{totals['resident_bytes'] / 1048576.0:,.1f} MiB")
+
+
 #: round rows the EXPLAIN ANALYZE mesh section prints before it points at
 #: system.runtime.mesh_rounds
 _MESH_ROUND_ROWS = 48

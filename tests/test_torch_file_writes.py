@@ -141,3 +141,29 @@ def test_smoke_files_phase_data(tmp_path):
     got = r.execute(config5, properties={"scan_cache": False}).rows
     assert sorted(got) == sorted(tpch.execute(config5).rows) and got
     assert decodestats.ORC_STRIPES_PRUNED.value > pruned0
+
+
+@pytest.mark.parametrize("kind", ["orc", "parquet"])
+def test_long_decimal_ctas_raises_and_leaves_no_table(tmp_path, kind):
+    """A long-decimal column cannot be written: the port raises
+    NotImplementedError before it opens a file, and the table does not
+    exist afterwards (presto_tpu raises too, TypeError for ORC, where it
+    leaves a partial file that breaks the next read, and struct.error
+    for Parquet)."""
+    jr, tr, troot = _runners(tmp_path, kind)
+    sql = ("create table files.default.dec as select cast(o_totalprice as "
+           "decimal(30, 2)) p, o_orderkey, o_orderdate from "
+           "tpch.default.orders")
+    with pytest.raises(Exception):
+        jr.execute(sql)
+    with pytest.raises(NotImplementedError):
+        tr.execute(sql)
+    conn = tr.session.catalogs.get("files")
+    assert "dec" not in conn.metadata.list_tables()
+    assert not (troot / "dec").exists() or not any((troot / "dec").iterdir())
+    with pytest.raises(Exception, match="dec"):
+        tr.execute("select count(*) from files.default.dec")
+    # a short decimal of the same values writes and reads back
+    tr.execute(sql.replace("decimal(30, 2)", "decimal(12, 2)"))
+    assert tr.execute("select count(*) from files.default.dec").rows == \
+        [(15000,)]

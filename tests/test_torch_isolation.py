@@ -54,6 +54,14 @@ def test_sources_found():
     # recorder, failpoints and the fair device scheduler
     assert {"distributed.py", "mesh.py", "fragmenter.py", "flight.py",
             "failpoints.py", "taskexec.py"} <= names
+    # the serving and observability planes
+    for rel in ("expr/params.py", "serving/__init__.py",
+                "serving/plancache.py", "serving/template.py",
+                "serving/resultcache.py", "serving/groups.py",
+                "server/resource_groups.py", "_devtools/interleave.py",
+                "obs/timeseries.py", "obs/slo.py", "obs/signals.py",
+                "obs/exposition.py"):
+        assert (ROOT / "presto_tpu_torch" / rel) in _SOURCES, rel
     assert (ROOT / "presto_tpu_torch" / "parallel" / "mesh.py") \
         in _SOURCES
     assert (ROOT / "presto_tpu_torch" / "_devtools" / "lockcheck.py") \

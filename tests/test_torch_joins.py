@@ -176,8 +176,8 @@ def test_unported_surface_raises(sql, props, what):
     """EXPLAIN (TYPE VALIDATE) and START TRANSACTION, which raised until
     the port took them, now run; what the port still does not run raises
     NotImplementedError naming the module it waits for (EXPLAIN (TYPE
-    DISTRIBUTED) did until the fragmenter came; the timeseries table
-    still does)."""
+    DISTRIBUTED) did until the fragmenter came, the timeseries table
+    until the time-series store came: both run now)."""
     runner = TLocalRunner(tpch_sf=0.01, device="cpu")
     runner.session.properties.update(props)
     (first,) = runner.execute(sql).rows[0]
@@ -185,5 +185,7 @@ def test_unported_surface_raises(sql, props, what):
     assert runner.execute(
         "explain (type distributed) select 1").rows[0][0].startswith(
         "Fragment 0 [")
-    with pytest.raises(NotImplementedError, match="obs/timeseries.py"):
-        runner.execute("select count(*) from system.runtime.timeseries")
+    from presto_tpu_torch.obs.timeseries import TIMESERIES
+    (n,), = runner.execute(
+        "select count(*) from system.runtime.timeseries").rows
+    assert n == len(TIMESERIES.rows())

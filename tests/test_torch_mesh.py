@@ -408,3 +408,41 @@ def test_verifier_cli_local_against_distributed(tmp_path, capsys):
     assert main([str(qf), "--device", "cpu", "--rel-tol", "1e-9"]) == 0
     out = capsys.readouterr().out
     assert out.strip().endswith("2/2 MATCH")
+
+
+# -- a short last fused aggregation wave ---------------------------------------
+
+SHORT_WAVE = [
+    # 19 chunks of 800 rows form fused waves of 4, 4, 4, 4 and 3: the
+    # last wave rounds up to the same 4 rounds as the full ones
+    ("tpch", 800, {"mesh_fused_loop_rounds": 4},
+     "select l_returnflag, l_linestatus, count(*), sum(l_quantity) "
+     "from lineitem group by 1, 2 order by 1, 2",
+     ("A", "F", 15209, 385560.0), 4),
+    ("tpcds", 4096, {},
+     "select cd_gender, cd_marital_status, count(*) "
+     "from customer_demographics group by cube(cd_gender, "
+     "cd_marital_status) order by 1 nulls last, 2 nulls last",
+     ("F", "D", 192080), 18),
+]
+
+
+@pytest.mark.parametrize("catalog,rows_per_batch,extra,sql,first,n_rows",
+                         SHORT_WAVE, ids=["tpch", "tpcds_cube"])
+def test_short_last_fused_wave(monkeypatch, catalog, rows_per_batch, extra,
+                               sql, first, n_rows):
+    """A fused aggregation wave shorter than the one before it with the
+    same rounding gets a program of its own: both statements return
+    presto_tpu's 4-device mesh rows on 4 slots (doubles within rel
+    1e-9)."""
+    monkeypatch.setenv("PRESTO_TPU_TORCH_MESH_SLOTS", "4")
+    want = LocalRunner(tpch_sf=SF, catalog=catalog).execute(
+        sql, properties=mesh_props(4, **extra)).rows
+    port = TLocalRunner(tpch_sf=SF, catalog=catalog, device="cpu",
+                        rows_per_batch=rows_per_batch)
+    before = _selected()
+    got = port.execute(sql, properties=mesh_props(4, **extra)).rows
+    assert _selected() == before + 1
+    assert port.last_stats.mesh_flight.n_devices == 4
+    assert len(want) == n_rows and tuple(want[0]) == first
+    assert_rows_match(got, want, REL)

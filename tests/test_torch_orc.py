@@ -451,3 +451,39 @@ def test_expansion_range_under_torch_profiler(orc_dir):
     assert not torch.autograd._profiler_enabled()
     for a, b in zip(want, OrcReader(path).batches(device=CPU)):
         assert_batches_equal(b, a)
+
+
+def test_string_join_across_orc_and_parquet_with_null_keys(tmp_path):
+    """One pyarrow table written as ORC and as Parquet (20 000 rows, the
+    string key NULL on every 13th row), joined across the two catalogs
+    on the string and the id: the port counts the 18 461 non-NULL rows,
+    computed here from the table (presto_tpu joins the two files'
+    dictionary codes without unifying their vocabularies: it counts 0
+    for this table)."""
+    import pyarrow.parquet as pa_pq
+    from presto_tpu_torch.connectors.parquet import ParquetConnector
+    n = 20_000
+    t = pa.table({
+        "id": pa.array(np.arange(n, dtype=np.int64)),
+        "s": pa.array([None if i % 13 == 0 else f"s{(i * 7919) % 1009}"
+                       for i in range(n)]),
+    })
+    (tmp_path / "orc" / "ext").mkdir(parents=True)
+    (tmp_path / "pq" / "ext").mkdir(parents=True)
+    pa_orc.write_table(t, str(tmp_path / "orc" / "ext" / "part0.orc"))
+    pa_pq.write_table(t, str(tmp_path / "pq" / "ext" / "part0.parquet"),
+                      compression="gzip")
+    cm = CatalogManager()
+    cm.register("orc", OrcConnector(str(tmp_path / "orc")))
+    cm.register("pq", ParquetConnector(str(tmp_path / "pq")))
+    r = LocalRunner(catalogs=cm, catalog="orc", device="cpu")
+    want = sum(1 for v in t.column("s").to_pylist() if v is not None)
+    assert want == 18_461
+    got = r.execute("select count(*) from orc.default.ext a join "
+                    "pq.default.ext b on a.s = b.s and a.id = b.id").rows
+    assert got == [(want,)]
+    # the NULL keys match nothing, on either side of the join
+    got = r.execute("select count(*) from orc.default.ext a join "
+                    "pq.default.ext b on a.id = b.id "
+                    "where a.s is null").rows
+    assert got == [(n - want,)]

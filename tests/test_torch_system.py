@@ -143,16 +143,19 @@ def test_system_table_count_star_matches_count_col(runner):
     ("slo", "obs/slo.py"), ("alerts", "obs/slo.py"),
     ("resource_groups", "serving/groups.py")])
 def test_waiting_tables_name_their_module(runner, table, module):
-    """A table whose feed is not ported raises naming its module;
-    ``mesh_rounds`` waited for obs/flight.py and now serves the flight
-    log's rows."""
-    if table == "mesh_rounds":
-        from presto_tpu_torch.obs.flight import FLIGHTS
-        (n,), = _rows(runner, f"select count(*) from system.runtime.{table}")
-        assert n == len(FLIGHTS.rows())
-        return
-    with pytest.raises(NotImplementedError, match=module):
-        runner.execute(f"select count(*) from system.runtime.{table}")
+    """Each of these tables waited for the module named beside it, and
+    now serves that module's feed: the flight log, the time-series
+    store's derived series, the SLO objectives and alert transitions,
+    and the resource-group snapshot."""
+    from presto_tpu_torch.obs.flight import FLIGHTS
+    from presto_tpu_torch.obs.slo import SLO
+    from presto_tpu_torch.obs.timeseries import TIMESERIES
+    from presto_tpu_torch.serving.groups import group_snapshot
+    feed = {"mesh_rounds": FLIGHTS.rows, "timeseries": TIMESERIES.rows,
+            "slo": SLO.snapshot_rows, "alerts": SLO.alert_rows,
+            "resource_groups": group_snapshot}[table]
+    (n,), = _rows(runner, f"select count(*) from system.runtime.{table}")
+    assert n == len(feed())
 
 
 def test_tasks_and_nodes_outside_a_cluster(runner):
