@@ -204,15 +204,48 @@ result line):
    ORC table with a file appended (a partial hit that reads only the
    appended split, rows equal to a run with the cache off), and a write
    at the ``resultcache.stamp`` failpoint vetoing the insert; (d) four
-   concurrent Q1s admitted through a resource-group manager of two
-   groups, weights 2 and 1, each run with its ``QueryServingContext``
-   (rows equal, ``system.runtime.resource_groups`` rows, the scheduler's
-   device seconds per group, group memory back at 0; the phase records
-   each served wall as the statement server would); (e) after them
+   concurrent Q1s sent over HTTP to a ``PrestoTpuServer`` over the
+   phase's runner whose resource groups are two groups, weights 2 and 1,
+   by two ``StatementClient`` users each (rows equal,
+   ``system.runtime.resource_groups`` rows, the scheduler's device
+   seconds per group, group memory back at 0, two served walls per group
+   recorded by the server itself); (e) after them
    ``system.runtime.timeseries``, ``slo`` and ``alerts`` return rows and
    ``render_exposition()`` parses back through ``parse_exposition``
    with the plan, template and result cache counters. Fails if a check
    fails; prints both kernels' launches and the phase wall.
+14. frontdoor: the HTTP front door (``server/protocol.py``, ``client.py``,
+   ``dbapi.py``, ``cli.py``, ``serving/fleet.py``, ``config.py``'s
+   ``server_from_etc``). An etc directory in a temporary folder (tpch at
+   FRONTDOOR_SF (1), memory, a SQLite catalog, ``http-server.http.port=0``,
+   the serving phase's two weighted groups under a root ``frontdoor`` in
+   ``resource-groups.json``)
+   boots ``server_from_etc(etc, device="cuda")`` (its runner in 2^23-row
+   batches, as the other phases'): (a) the 22 TPC-H queries through
+   ``StatementClient`` against the path and tpch phases' CPU rows passed
+   through the protocol's JSON encoding (integers, strings and dates
+   exactly, doubles within rel 1e-9); (b) warm Q6, Q1 and Q3
+   FRONTDOOR_RUNS (10) times each over HTTP and through
+   ``runner.execute`` on the same runner, in turns: medians, minima,
+   their difference (the protocol's cost a statement), responses and
+   data pages a statement, and the statements the inline lane served;
+   (c) the serving phase's Q6 form with its 8 qmark bindings through
+   ``dbapi.connect(...).cursor()``, rows equal to the runner's; (d)
+   ``cli.main`` with ``--server`` and CSV output of Q1, held against the
+   CPU rows, then the embedded CLI (``--device cuda --sf
+   FRONTDOOR_CLI_SF (0.1) --profile-out DIR -e Q3``), whose
+   ``merged_trace.json`` must hold the tracer's host spans and both
+   kernels' CUDA events inside Q3's query span; (e) a second server from
+   the same etc, both fleet members: a write through the first drops the
+   second's cached result (a bump folded) before its next read, which
+   equals an uncached run, and ``GET /v1/fleet`` lists the peer; (f)
+   ``/v1/metrics`` holds the ``serving_latency_seconds`` series of both
+   groups as the server recorded them, ``/v1/metrics/history`` answers,
+   ``/v1/info`` shows ``ACTIVE`` then ``SHUTTING_DOWN`` after
+   ``begin_shutdown``, and the drained member leaves its peer's list.
+   Fails if a check fails or a kernel never launched in the phase;
+   prints both kernels' launches and the phase wall. The kernels line
+   carries each kernel's frontdoor launches.
 
 Every breakdown line times the plan's table scans twice: with the scan
 cache cleared (host generation and the copy to the card) and as a warm
@@ -225,9 +258,9 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 prints the kernels line; ``--surface-only`` runs phases 1 and 7 alone,
 ``--files-only`` phases 1 and 8, ``--chains-only`` phases 1 and 9,
 ``--spill-only`` phases 1 and 10, ``--statements-only`` phases 1 and 11,
-``--mesh-only`` phases 1 and 12, ``--serving-only`` phases 1 and 13
-(each computes its reference rows itself; the mesh phase's are the
-card's single-device runs).
+``--mesh-only`` phases 1 and 12, ``--serving-only`` phases 1 and 13,
+``--frontdoor-only`` phases 1 and 14 (each computes its reference rows
+itself; the mesh phase's are the card's single-device runs).
 Either times whichever ``presto_tpu_torch`` sits beside the script, so
 a copy of the script placed in a checkout of another commit measures
 that commit (turn by turn with this one, in one call, to compare them).
@@ -2467,8 +2500,8 @@ def phase_serving(torch, tpch_cpu_rows=None, device="cuda", sf=SERVING_SF,
     from presto_tpu_torch.obs.slo import SLO
     from presto_tpu_torch.obs.timeseries import TIMESERIES
     from presto_tpu_torch.obs.trace import TRACER
-    from presto_tpu_torch.server.resource_groups import ResourceGroupManager
-    from presto_tpu_torch.serving.groups import QueryServingContext
+    from presto_tpu_torch.client import StatementClient
+    from presto_tpu_torch.server import PrestoTpuServer
     cuda = device == "cuda"
     t_phase = time.perf_counter()
     queries = _queries()
@@ -2687,49 +2720,50 @@ def phase_serving(torch, tpch_cpu_rows=None, device="cuda", sf=SERVING_SF,
     print("serving result cache veto: a write at resultcache.stamp vetoed "
           "the insert (the next run missed)", flush=True)
 
-    # (d) four Q1s admitted through two weighted resource groups
-    mgr = ResourceGroupManager(SERVING_GROUPS)
+    # (d) four Q1s through the statement server's two weighted groups
+    srv = PrestoTpuServer(runner, resource_groups=SERVING_GROUPS)
+    mgr = srv.resource_groups
     results, errors = {}, []
 
     def serve(user):
         try:
-            adm = mgr.submit(user=user)
-            if not adm.wait(120):
-                raise AssertionError(f"{user} was never admitted")
-            ctx = QueryServingContext(adm.group)
-            path = adm.group.path
-            t0 = time.perf_counter()
-            try:
-                results[user] = runner.execute(q1, serving=ctx).rows
-                REGISTRY.counter(f"serving_requests_total.{path}").inc()
-            finally:
-                # the front door's record of the served wall
-                REGISTRY.histogram(f"serving_latency_seconds.{path}"
-                                   ).observe(time.perf_counter() - t0)
-                ctx.close()
-                adm.release()
+            client = StatementClient(f"http://127.0.0.1:{srv.port}",
+                                     user=user)
+            results[user] = client.execute(q1).rows
         except Exception as e:  # noqa: BLE001 - reported below
             errors.append(f"{user}: {type(e).__name__}: {e}")
 
-    # the families the front door feeds, registered before the first
-    # sample so that the windows have a baseline point
+    # the families the server feeds, registered before the first sample
+    # so that the windows have a baseline point
     for path in ("serving.dash", "serving.adhoc"):
         REGISTRY.histogram(f"serving_latency_seconds.{path}")
         REGISTRY.counter(f"serving_requests_total.{path}")
         REGISTRY.counter(f"serving_errors_total.{path}")
     TIMESERIES.sample()
-    users = ("dash-1", "adhoc-1", "dash-2", "adhoc-2")
-    threads = [threading.Thread(target=serve, args=(u,)) for u in users]
-    t_groups = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=300)
-    groups_wall = time.perf_counter() - t_groups
-    if errors:
-        raise AssertionError("; ".join(errors))
+    served0 = {p: REGISTRY.histogram(f"serving_latency_seconds.{p}").count
+               for p in ("serving.dash", "serving.adhoc")}
+    srv.start()
+    try:
+        users = ("dash-1", "adhoc-1", "dash-2", "adhoc-2")
+        threads = [threading.Thread(target=serve, args=(u,))
+                   for u in users]
+        t_groups = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        groups_wall = time.perf_counter() - t_groups
+    finally:
+        srv.stop()
+        TIMESERIES.stop()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError("; ".join(errors) or "a client never returned")
     for user in users:
-        _same_rows(results[user], want_q1, 1e-9)
+        _same_rows(results[user], _json_rows(want_q1), 1e-9)
+    served = {p: REGISTRY.histogram(f"serving_latency_seconds.{p}").count
+              - served0[p] for p in served0}
+    if served != {"serving.dash": 2, "serving.adhoc": 2}:
+        raise AssertionError(f"the server recorded {served} served walls")
     shares = GLOBAL.group_shares()
     dev_s = {g: shares.get(f"{mgr.scope}/serving.{g}", {}).get(
         "device_seconds", 0.0) for g in ("dash", "adhoc")}
@@ -2743,10 +2777,11 @@ def phase_serving(torch, tpch_cpu_rows=None, device="cuda", sf=SERVING_SF,
     reserved = [g["memoryReservedBytes"] for g in mgr.info()]
     if any(reserved) or any(r[3] for r in mine):
         raise AssertionError(f"group memory left charged: {mine}")
-    print(f"serving resource groups: 4 concurrent q1 in {groups_wall:.3f} s,"
-          f" scheduler device seconds dash (weight 2) {dev_s['dash']:.4f} "
-          f"adhoc (weight 1) {dev_s['adhoc']:.4f}; rows {json.dumps(mine, default=int)}",
-          flush=True)
+    print(f"serving resource groups: 4 concurrent q1 over http in "
+          f"{groups_wall:.3f} s, the server recorded {json.dumps(served)} "
+          f"served walls, scheduler device seconds dash (weight 2) "
+          f"{dev_s['dash']:.4f} adhoc (weight 1) {dev_s['adhoc']:.4f}; "
+          f"rows {json.dumps(mine, default=int)}", flush=True)
 
     # (e) the time-series, SLO and exposition planes over the phase
     TIMESERIES.sample()
@@ -2779,11 +2814,360 @@ def phase_serving(torch, tpch_cpu_rows=None, device="cuda", sf=SERVING_SF,
     return launches
 
 
+#: the frontdoor phase: TPC-H at FRONTDOOR_SF served over HTTP by a
+#: server booted from an etc directory; warm Q6, Q1 and Q3 FRONTDOOR_RUNS
+#: times each over HTTP and through the runner, in turns; the embedded
+#: CLI's profiled Q3 at FRONTDOOR_CLI_SF
+FRONTDOOR_SF = 1
+FRONTDOOR_RUNS = 10
+FRONTDOOR_CLI_SF = 0.1
+FRONTDOOR_WARM = ("q6", "q1", "q3")
+#: the names the CUDA kernels carry in a torch.profiler trace
+KERNEL_SYMBOLS = {"segment_sum_sorted_i64": "segment_sum_kernel",
+                  "direct_probe": "direct_probe_kernel"}
+#: the serving phase's two weighted groups under a root of this phase's
+#: own, so the series the server records here are told apart from the
+#: serving phase's
+FRONTDOOR_GROUPS = {
+    "rootGroups": [dict(SERVING_GROUPS["rootGroups"][0], name="frontdoor")],
+    "selectors": [{"user": "dash.*", "group": "frontdoor.dash"},
+                  {"group": "frontdoor.adhoc"}]}
+
+
+def _write_etc(root: str, sf, groups) -> str:
+    """An etc directory: tpch at ``sf``, memory, a SQLite catalog, an
+    HTTP port chosen by the system, and the resource groups ``groups``."""
+    etc = os.path.join(root, "etc")
+    os.makedirs(os.path.join(etc, "catalog"))
+    catalogs = {"tpch": f"connector.name=tpch\ntpch.scale-factor={sf}\n",
+                "memory": "connector.name=memory\n",
+                "sq": "connector.name=sqlite\nsqlite.path="
+                      f"{os.path.join(root, 'frontdoor.db')}\n"}
+    for name, props in catalogs.items():
+        with open(os.path.join(etc, "catalog", f"{name}.properties"),
+                  "w") as f:
+            f.write(props)
+    with open(os.path.join(etc, "config.properties"), "w") as f:
+        f.write("coordinator=true\nhttp-server.http.port=0\n"
+                "session.catalog=tpch\n")
+    with open(os.path.join(etc, "resource-groups.json"), "w") as f:
+        json.dump(groups, f)
+    return etc
+
+
+def _json_rows(rows):
+    """Rows as the statement protocol encodes them."""
+    from presto_tpu_torch.server.protocol import _json_value
+    return [[_json_value(v) for v in r] for r in rows]
+
+
+def _http_get(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.read()
+
+
+def _check_merged_trace(path: str, cuda: bool) -> str:
+    """The CLI's merged trace holds the tracer's host spans and, on the
+    card, the CUDA events of both kernels inside the profiled statement's
+    query span. Returns a summary line."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "presto_tpu_torch"
+             and e.get("ph") == "X"]
+    queries = [e for e in spans if e["name"] == "query"]
+    if not queries:
+        raise AssertionError("the merged trace holds no query span")
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") != "presto_tpu_torch"]
+    if not device:
+        raise AssertionError("the merged trace holds no profiler event")
+    q3 = max(queries, key=lambda e: e["dur"])
+    lo, hi = q3["ts"], q3["ts"] + q3["dur"]
+    found = {}
+    for name, symbol in KERNEL_SYMBOLS.items():
+        ev = [e for e in device if symbol in str(e.get("name"))]
+        inside = [e for e in ev if lo <= e["ts"] <= hi]
+        found[name] = (len(ev), len(inside))
+        if cuda and not inside:
+            first = ev[0]["ts"] if ev else None
+            raise AssertionError(
+                f"{len(ev)} {symbol} events, none inside the query span "
+                f"[{lo}, {hi}] us (first at {first})")
+    from presto_tpu_torch.obs.profiler import find_device_traces
+    bases = []
+    for trace in find_device_traces(os.path.dirname(path)):
+        with open(trace) as f:
+            bases.append(json.load(f).get("baseTimeNanoseconds"))
+    return (f"{len(spans)} host spans, {len(device)} profiler events "
+            f"(shifted by the traces' baseTimeNanoseconds {bases}); "
+            f"kernel events (all, inside the Q3 span): "
+            f"{json.dumps(found)}")
+
+
+def phase_frontdoor(torch, tpch_cpu_rows=None, device="cuda",
+                    sf=FRONTDOOR_SF, cli_sf=FRONTDOOR_CLI_SF,
+                    runs=FRONTDOOR_RUNS, rows_per_batch=ROWS_PER_BATCH):
+    """The front door on the card (``device="cpu"`` rehearses the phase
+    on the CPU at a small ``sf``): a statement server booted from an etc
+    directory serves the 22 TPC-H queries over HTTP, then warm Q6, Q1
+    and Q3 over HTTP against the same runner, DB-API bindings, the CLI
+    against the server and embedded with ``--profile-out``, a fleet of
+    two coordinators over one SQLite file, and the server's metrics,
+    history and lifecycle endpoints. Reference rows not given are a CPU
+    runner's. Returns the launches of the phase."""
+    import csv
+    import datetime
+    import io
+    import tempfile
+
+    from presto_tpu_torch import cli, dbapi
+    from presto_tpu_torch.client import StatementClient
+    from presto_tpu_torch.config import server_from_etc
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.obs.exposition import parse_exposition
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    from presto_tpu_torch.obs.timeseries import TIMESERIES
+    from presto_tpu_torch.obs.trace import TRACER
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+    queries = _queries()
+    tmp = tempfile.mkdtemp(prefix="frontdoor_")
+    etc = _write_etc(tmp, sf, FRONTDOOR_GROUPS)
+    base = _kernel_calls(device)
+
+    def counter(name):
+        return REGISTRY.counter(name).value
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    laps = [time.perf_counter()]
+
+    def lap():
+        """Seconds since the last lap: each part's own wall."""
+        laps.append(time.perf_counter())
+        return laps[-1] - laps[-2]
+
+    cpu_rows = dict(tpch_cpu_rows or {}) if cuda else {}
+    missing = [n for n in queries if n not in cpu_rows]
+    cpu_s = 0.0
+    if missing:
+        cpu = LocalRunner(tpch_sf=sf, device="cpu",
+                          rows_per_batch=rows_per_batch)
+        for name in missing:
+            cpu_rows[name] = cpu.execute(queries[name]).rows
+        del cpu
+        cpu_s = lap()
+        print(f"frontdoor cpu reference rows of {len(missing)} queries: "
+              f"{cpu_s:.3f} s", flush=True)
+    srv, _ = server_from_etc(etc, device=device)
+    srv.runner.rows_per_batch = rows_per_batch
+    srv.start()
+    servers = [srv]
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        runner = srv.runner
+        client = StatementClient(url, user="frontdoor")
+
+        # (a) the 22 TPC-H queries over HTTP against the CPU rows
+        walls = {}
+        for name, sql in queries.items():
+            t0 = time.perf_counter()
+            res = client.execute(sql)
+            walls[name] = time.perf_counter() - t0
+            _same_rows(res.rows, _json_rows(cpu_rows[name]), 1e-9)
+        cold = {n: round(w, 4) for n, w in walls.items()}
+        print(f"frontdoor tpch over http: 22 queries equal the cpu rows; "
+              f"cold walls {json.dumps(cold)} s, sum "
+              f"{sum(walls.values()):.3f} s (part {lap():.3f} s, with the "
+              f"boot)", flush=True)
+
+        # (b) warm Q6, Q1 and Q3: HTTP against the runner, in turns
+        i0 = counter("serving_inline_lane_total")
+        for name in FRONTDOOR_WARM:
+            sql = queries[name]
+            want = _json_rows(cpu_rows[name])
+            client.execute(sql)                   # warm both ways
+            runner.execute(sql)
+            http, direct, docs, pages = [], [], 0, 0
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                rows = []
+                for doc in client.pages(sql):
+                    docs += 1
+                    if "data" in doc:
+                        pages += 1
+                        rows.extend(doc["data"])
+                sync()
+                http.append(time.perf_counter() - t0)
+                _same_rows(rows, want, 1e-9)
+                t0 = time.perf_counter()
+                res = runner.execute(sql)
+                sync()
+                direct.append(time.perf_counter() - t0)
+                _same_rows(_json_rows(res.rows), want, 1e-9)
+            cost = statistics.median(http) - statistics.median(direct)
+            print(f"frontdoor warm {name}: http median "
+                  f"{statistics.median(http) * 1e3:.3f} ms (min "
+                  f"{min(http) * 1e3:.3f}), runner median "
+                  f"{statistics.median(direct) * 1e3:.3f} ms (min "
+                  f"{min(direct) * 1e3:.3f}); protocol cost "
+                  f"{cost * 1e3:.3f} ms a statement; {docs / runs:g} "
+                  f"responses and {pages / runs:g} data pages a statement",
+                  flush=True)
+        print(f"frontdoor inline lane: "
+              f"{counter('serving_inline_lane_total') - i0:.0f} of "
+              f"{len(FRONTDOOR_WARM) * (runs + 1)} warm http statements "
+              f"(part {lap():.3f} s)", flush=True)
+
+        # (c) DB-API: the serving phase's Q6 form with 8 qmark bindings
+        cur = dbapi.connect(port=srv.port, user="dash-dbapi").cursor()
+        dates = (datetime.date(1994, 1, 1), datetime.date(1995, 1, 1))
+        for lo, hi, qty in Q6_BINDINGS:
+            cur.execute(Q6_FORM, (*dates, float(lo), float(hi), qty))
+            got = [list(r) for r in cur.fetchall()]
+            inlined = Q6_FORM
+            for v in (*(f"date '{d}'" for d in dates), lo, hi, qty):
+                inlined = inlined.replace("?", str(v), 1)
+            _same_rows(got, _json_rows(runner.execute(inlined).rows), 1e-9)
+        print(f"frontdoor dbapi: {len(Q6_BINDINGS)} qmark bindings of the "
+              f"Q6 form equal the runner's rows (part {lap():.3f} s)",
+              flush=True)
+
+        # (d) the CLI: against the server, and embedded with a profile
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--server", url, "-e", queries["q1"],
+                           "--output-format", "CSV"])
+        lines = list(csv.reader(io.StringIO(out.getvalue())))
+        want = _json_rows(cpu_rows["q1"])
+        if rc != 0 or len(lines) != len(want):
+            raise AssertionError(f"cli rc {rc}, {len(lines)} csv lines "
+                                 f"for {len(want)} rows")
+        for line, row in zip(lines, want):
+            _same_rows([[float(c) if isinstance(v, float) else c
+                         for c, v in zip(line, row)]],
+                       [[v if isinstance(v, float) else str(v)
+                         for v in row]], 1e-9)
+        prof_dir = os.path.join(tmp, "profile")
+        err = io.StringIO()
+        before = _kernel_calls(device)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(["--device", device, "--sf", str(cli_sf),
+                               "--profile-out", prof_dir,
+                               "-e", queries["q3"]])
+        finally:
+            TRACER.enable(False)
+            TRACER.clear()
+        cli_launches = {k: v - before[k]
+                        for k, v in _kernel_calls(device).items()}
+        if rc != 0 or "device profiler unavailable" in err.getvalue():
+            raise AssertionError(f"embedded cli rc {rc}: {err.getvalue()}")
+        summary = _check_merged_trace(
+            os.path.join(prof_dir, "merged_trace.json"), cuda)
+        print(f"frontdoor cli: q1 csv through the server equals the cpu "
+              f"rows; embedded q3 at sf {cli_sf} launches "
+              f"{json.dumps(cli_launches)}; merged trace: {summary} "
+              f"(part {lap():.3f} s)", flush=True)
+
+        # (e) a fleet of two coordinators over one SQLite file
+        srv_b, _ = server_from_etc(etc, device=device)
+        srv_b.start()
+        servers.append(srv_b)
+        url_b = f"http://127.0.0.1:{srv_b.port}"
+        srv.enable_fleet("frontdoor-a", peers=[url_b], heartbeat_s=5.0)
+        srv_b.enable_fleet("frontdoor-b", peers=[url], heartbeat_s=5.0)
+        srv_b.runner.session.properties["result_cache"] = True
+        b = StatementClient(url_b, user="frontdoor")
+        client.execute("create table sq.default.fd as select n_nationkey k, "
+                       "n_name name from tpch.default.nation")
+        fd_sql = "select count(*), sum(k), max(name) from sq.default.fd"
+        h0 = counter("result_cache_hit_total")
+        first = b.execute(fd_sql).rows
+        if b.execute(fd_sql).rows != first or \
+                counter("result_cache_hit_total") - h0 != 1:
+            raise AssertionError("the second read on b was not a "
+                                 "result-cache hit")
+        f0, v0 = counter("fleet_bump_fold_total"), \
+            counter("result_cache_invalidated_total")
+        client.execute("insert into sq.default.fd select n_nationkey + 100, "
+                       "n_name from tpch.default.nation where n_nationkey "
+                       "< 3")
+        folds = counter("fleet_bump_fold_total") - f0
+        dropped = counter("result_cache_invalidated_total") - v0
+        if folds < 1 or dropped < 1:
+            raise AssertionError(f"the write through a folded {folds} bumps "
+                                 f"and dropped {dropped} entries on b")
+        h1 = counter("result_cache_hit_total")
+        after = b.execute(fd_sql).rows
+        uncached = _json_rows(srv_b.runner.execute(
+            fd_sql, properties={"result_cache": False}).rows)
+        if counter("result_cache_hit_total") != h1 or after != uncached \
+                or after[0][0] != first[0][0] + 3:
+            raise AssertionError(f"b read {after} after the write (before "
+                                 f"{first}, uncached {uncached})")
+        fleet = json.loads(_http_get(f"{url}/v1/fleet"))
+        if fleet["peers"] != [url_b]:
+            raise AssertionError(f"/v1/fleet of a lists {fleet['peers']}")
+        print(f"frontdoor fleet: a write through a folded {folds:.0f} "
+              f"bump(s) on b and dropped {dropped:.0f} cached entries "
+              f"before b's next read; b read {first} -> {after} (uncached "
+              f"{uncached}); /v1/fleet of a lists {fleet['peers']} "
+              f"(part {lap():.3f} s)", flush=True)
+
+        # (f) the server's own series and endpoints
+        TIMESERIES.sample()
+        samples, _ = parse_exposition(_http_get(f"{url}/v1/metrics").decode())
+        groups = sorted({dict(lbl).get("key", "") for (n, lbl) in samples
+                         if n.startswith("serving_latency_seconds")})
+        if "frontdoor.adhoc" not in groups or "frontdoor.dash" not in groups:
+            raise AssertionError(f"/v1/metrics serving latency groups "
+                                 f"{groups}")
+        hist = json.loads(_http_get(
+            f"{url}/v1/metrics/history?name=serving_requests_total."
+            "frontdoor.adhoc&window=600"))
+        if hist.get("kind") != "counter":
+            raise AssertionError(f"/v1/metrics/history: {hist}")
+        states = [json.loads(_http_get(f"{url_b}/v1/info"))["state"]]
+        pages = b.pages("select l_orderkey from lineitem limit 10000")
+        next(pages)                   # b holds a page: the drain waits
+        srv_b.begin_shutdown()
+        states.append(json.loads(_http_get(f"{url_b}/v1/info"))["state"])
+        for _ in pages:
+            pass
+        left = json.loads(_http_get(f"{url}/v1/fleet"))["peers"]
+        if states != ["ACTIVE", "SHUTTING_DOWN"] or left:
+            raise AssertionError(f"/v1/info states {states}, a's peers "
+                                 f"after b drained {left}")
+        print(f"frontdoor endpoints: /v1/metrics serving latency groups "
+              f"{groups}; /v1/metrics/history {len(hist['points'])} "
+              f"points; /v1/info {' -> '.join(states)}; a's peers after "
+              f"b drained {left} (part {lap():.3f} s)", flush=True)
+    finally:
+        for s in servers:
+            s.stop()
+        TIMESERIES.stop()
+    launches = {k: v - base[k] for k, v in _kernel_calls(device).items()}
+    shutil.rmtree(tmp, ignore_errors=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched in the phase: "
+                             f"{launches}")
+    wall = time.perf_counter() - t_phase
+    print(f"frontdoor launches: {json.dumps(launches)} | phase wall "
+          f"{wall:.3f} s ({wall - cpu_s:.3f} s without the cpu reference "
+          f"runs)", flush=True)
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     flags = ("--kernels-only", "--surface-only", "--files-only",
              "--chains-only", "--spill-only", "--statements-only",
-             "--mesh-only", "--serving-only")
+             "--mesh-only", "--serving-only", "--frontdoor-only")
     if sys.argv[1:] and (len(sys.argv) != 2 or sys.argv[1] not in flags):
         fail("device", f"unknown arguments {sys.argv[1:]}")
     only = sys.argv[1] if len(sys.argv) == 2 else None
@@ -2809,7 +3193,9 @@ def main() -> None:
                                phase_statements),
                               ("--mesh-only", "mesh", phase_mesh),
                               ("--serving-only", "serving",
-                               phase_serving)):
+                               phase_serving),
+                              ("--frontdoor-only", "frontdoor",
+                               phase_frontdoor)):
         if only == flag:
             try:
                 phase(torch)
@@ -2873,16 +3259,22 @@ def main() -> None:
         serving_launches = phase_serving(torch, dict(tpch_cpu_rows))
     except Exception as e:  # noqa: BLE001
         fail("serving", f"{type(e).__name__}: {e}")
+    try:
+        frontdoor_launches = phase_frontdoor(
+            torch, {**tpch_cpu_rows, **tpch_cpu_more})
+    except Exception as e:  # noqa: BLE001
+        fail("frontdoor", f"{type(e).__name__}: {e}")
     for entry in entries:
         # launches over every phase that drives the engine: path, tpch,
-        # tpcds, scan, surface, files, chains, spill, statements, mesh
-        # and serving
+        # tpcds, scan, surface, files, chains, spill, statements, mesh,
+        # serving and frontdoor
         entry["launches"] = sum(p[entry["name"]] for p in (
             launches, tpch_launches, tpcds_launches, scan_launches,
             surface_launches, files_launches, chains_launches,
             spill_launches, statements_launches, mesh_launches,
-            serving_launches))
+            serving_launches, frontdoor_launches))
         entry["serving_launches"] = serving_launches[entry["name"]]
+        entry["frontdoor_launches"] = frontdoor_launches[entry["name"]]
         # the mesh runs' share, and its split over the slots
         entry["mesh_launches"] = mesh_launches[entry["name"]]
         entry["mesh_slot_launches"] = mesh_slots[entry["name"]]

@@ -1,13 +1,35 @@
-"""Session-property registry of the port.
+"""Session-property registry and config-directory boot of the port.
 
-The counterpart of the registry half of ``presto_tpu/config.py`` (the
-reference's SystemSessionProperties.java role): one declaration per
-session property that the port's code reads, with its type, default and
-meaning. ``SET SESSION`` on an unknown or mistyped name raises instead of
-storing a value no code will ever read. Of the JAX package's config-file
-loaders, only the node-config keys of the caches and the time-series
-plane are ported (``apply_node_config``); the rest wait for the
-statement server.
+The counterpart of ``presto_tpu/config.py``:
+
+- the session-property registry (the reference's
+  SystemSessionProperties.java role): one declaration per session
+  property that the port's code reads, with its type, default and
+  meaning. ``SET SESSION`` on an unknown or mistyped name raises instead
+  of storing a value no code will ever read;
+- the config directory (the reference's airlift bootstrap config binding,
+  server/PrestoServer.java:86, and StaticCatalogStore loading
+  etc/catalog/*.properties through the ConnectorFactory named by
+  ``connector.name``)::
+
+      etc/
+        config.properties        node.id, coordinator, http-server.http.port,
+                                 cache and sampler sizes, failpoints,
+                                 plugin.modules / plugin.dir, session
+                                 defaults (session.<name>=<value>)
+        catalog/
+          tpch.properties        connector.name=tpch
+                                 tpch.scale-factor=1
+          warehouse.properties   connector.name=orc
+                                 orc.root=/data/warehouse
+        resource-groups.json     root groups and selectors
+
+  ``server_from_etc`` boots a statement server from it on a device (the
+  GPU unless one is named). ``NodeConfig`` parses every key the JAX
+  package parses, so one etc directory boots both packages; the
+  ``spool.*`` and ``autoscale.*`` keys configure modules the port does
+  not have yet (``exec/spool.py``, ``exec/autoscale.py``), and a config
+  that sets them fails the boot rather than being half applied.
 
 Environment defaults (read where the property is resolved, when the
 session leaves it unset): ``PRESTO_TPU_TORCH_MESH_EXECUTION`` for
@@ -18,6 +40,8 @@ sets the mesh slots per visible device (``parallel/mesh.py``).
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Callable, Dict, Optional
 
 
@@ -141,6 +165,21 @@ _sp("push_partial_aggregation_through_join", "boolean", True,
 _sp("query_max_memory", "integer", None,
     "per-query memory pool limit in bytes (join builds, aggregation "
     "states and sorts spill beyond it)")
+
+
+def _valid_duration(v):
+    from .server.resource_groups import parse_duration_s
+    try:
+        parse_duration_s(v)
+    except ValueError as e:
+        raise SessionPropertyError(str(e)) from None
+    return v
+
+
+_sp("query_queued_timeout", "varchar", None,
+    "admission deadline (e.g. 5s): a statement still queued in its "
+    "resource group past it fails with QUERY_QUEUED_TIMEOUT "
+    "(server/protocol.py)", _valid_duration)
 _sp("result_cache", "boolean", False,
     "serve repeated statements from the versioned result cache "
     "(serving/resultcache.py): stored host rows when every scanned "
@@ -221,9 +260,9 @@ def validate_session_property(name: str, value):
 
 
 # -- node config (config.properties) ------------------------------------------
-#: the node-config keys the port reads: the slice of the JAX package's
-#: ``NodeConfig`` that sizes the process-wide caches and the time-series
-#: sampler (the statement server's keys wait for it)
+#: the node-config keys that size the process-wide caches and the
+#: time-series sampler (``apply_node_config``; ``NodeConfig`` parses the
+#: rest)
 NODE_CONFIG_KEYS: Dict[str, str] = {
     "scan-cache.max-bytes": "device scan-cache resident limit per device "
                             "(exec/scancache.py)",
@@ -258,3 +297,235 @@ def apply_node_config(props: Dict[str, str]) -> None:
         TIMESERIES.configure(
             sample_interval_s=float(raw_ts) if raw_ts else None,
             retention_points=int(raw_tr) if raw_tr else None)
+
+
+def parse_properties(path: str) -> Dict[str, str]:
+    """key=value lines; '#' comments; whitespace-tolerant (the reference
+    uses java.util.Properties semantics)."""
+    out: Dict[str, str] = {}
+    with open(path) as f:
+        for raw in f:
+            line = raw.strip()
+            if not line or line.startswith("#"):
+                continue
+            if "=" not in line:
+                raise ValueError(f"{path}: malformed line {line!r}")
+            k, v = line.split("=", 1)
+            out[k.strip()] = v.strip()
+    return out
+
+
+# -- connector factory registry (the Plugin/ConnectorFactory role) ----------
+
+def _tpch_factory(props):
+    from .connectors.tpch import TpchConnector
+    return TpchConnector(sf=float(props.get("tpch.scale-factor", "1")))
+
+
+def _tpcds_factory(props):
+    from .connectors.tpcds import TpcdsConnector
+    return TpcdsConnector(sf=float(props.get("tpcds.scale-factor", "1")))
+
+
+def _memory_factory(props):
+    from .connectors.memory import MemoryConnector
+    return MemoryConnector()
+
+
+def _orc_factory(props):
+    from .connectors.orc import OrcConnector
+    return OrcConnector(props["orc.root"])
+
+
+def _parquet_factory(props):
+    from .connectors.parquet import ParquetConnector
+    return ParquetConnector(props["parquet.root"])
+
+
+def _sqlite_factory(props):
+    from .connectors.sqlite import connector_factory
+    return connector_factory(props)
+
+
+CONNECTOR_FACTORIES: Dict[str, Callable] = {
+    "tpch": _tpch_factory,
+    "tpcds": _tpcds_factory,
+    "memory": _memory_factory,
+    "orc": _orc_factory,
+    "parquet": _parquet_factory,
+    "sqlite": _sqlite_factory,
+}
+
+
+def register_connector_factory(name: str, factory: Callable) -> None:
+    """Third-party connector registration (the Plugin.getConnectorFactories
+    surface)."""
+    CONNECTOR_FACTORIES[name] = factory
+
+
+def load_catalogs(etc_dir: str, catalogs=None, device=None):
+    """etc/catalog/*.properties -> mounted connectors (reference
+    StaticCatalogStore.loadCatalogs), then the ``system`` catalog over
+    them, made for ``device`` (the GPU when none is named: it lists that
+    device as the node). Connectors take their device per scan."""
+    from .connectors.spi import CatalogManager
+    from .connectors.system import SystemConnector
+    catalogs = catalogs if catalogs is not None else CatalogManager()
+    cat_dir = os.path.join(etc_dir, "catalog")
+    if os.path.isdir(cat_dir):
+        for entry in sorted(os.listdir(cat_dir)):
+            if not entry.endswith(".properties"):
+                continue
+            props = parse_properties(os.path.join(cat_dir, entry))
+            name = entry[:-len(".properties")]
+            kind = props.get("connector.name")
+            if kind is None:
+                raise ValueError(f"{entry}: missing connector.name")
+            factory = CONNECTOR_FACTORIES.get(kind)
+            if factory is None:
+                raise ValueError(
+                    f"{entry}: unknown connector.name {kind!r} "
+                    f"(registered: {sorted(CONNECTOR_FACTORIES)})")
+            catalogs.register(name, factory(props))
+    if "system" not in catalogs.names():
+        catalogs.register("system", SystemConnector(catalogs, device=device))
+    return catalogs
+
+
+def _opt(props: Dict[str, str], key: str, cast, default=None):
+    raw = props.get(key)
+    return cast(raw) if raw else default
+
+
+class NodeConfig:
+    """Parsed etc/config.properties (reference ServerConfig, NodeConfig
+    and the session-default slice of SystemSessionProperties). Every key
+    of the JAX package's ``NodeConfig`` is parsed; the ``spool.*`` and
+    ``autoscale.*`` values are read by ``server_from_etc`` only to refuse
+    them (``unported_keys``)."""
+
+    def __init__(self, props: Dict[str, str]):
+        self.props = props
+        self.node_id: Optional[str] = props.get("node.id")
+        self.coordinator = props.get("coordinator", "true") \
+            .lower() == "true"
+        self.http_port = int(props.get("http-server.http.port", "0"))
+        self.discovery_uri = props.get("discovery.uri")
+        self.catalog = props.get("session.catalog", "tpch")
+        self.schema = props.get("session.schema", "default")
+        #: process-wide device scan-cache resident limit
+        #: (exec/scancache.py); None keeps the built-in default
+        self.scan_cache_bytes = _opt(props, "scan-cache.max-bytes", int)
+        #: process-wide result-cache host-row budget
+        #: (serving/resultcache.py); None keeps the built-in default
+        self.result_cache_bytes = _opt(props, "result-cache.max-bytes", int)
+        #: exchange-spool backend config (the JAX package's exec/spool.py)
+        self.spool_dir = props.get("spool.dir")
+        self.spool_max_bytes = _opt(props, "spool.max-bytes", int)
+        self.spool_backend = props.get("spool.backend")
+        self.spool_object_dir = props.get("spool.object.dir")
+        put = _opt(props, "spool.object.put-latency-ms", float)
+        self.spool_object_put_latency_s = \
+            put / 1e3 if put is not None else None
+        get = _opt(props, "spool.object.get-latency-ms", float)
+        self.spool_object_get_latency_s = \
+            get / 1e3 if get is not None else None
+        self.spool_object_bandwidth_mbps = _opt(
+            props, "spool.object.bandwidth-mbps", float)
+        #: elasticity control loop (the JAX package's exec/autoscale.py)
+        self.autoscale_enabled = props.get(
+            "autoscale.enabled", "false").lower() == "true"
+        self.autoscale_min_workers = _opt(
+            props, "autoscale.min-workers", int, 1)
+        self.autoscale_max_workers = _opt(
+            props, "autoscale.max-workers", int, 8)
+        self.autoscale_scale_step = _opt(
+            props, "autoscale.scale-step", int, 1)
+        self.autoscale_cooldown_s = _opt(
+            props, "autoscale.cooldown-s", float, 30.0)
+        self.autoscale_interval_s = _opt(
+            props, "autoscale.interval-s", float, 5.0)
+        #: deterministic fault-injection spec (exec/failpoints.py
+        #: grammar, ';'-separated)
+        self.failpoints = props.get("failpoints")
+        #: health-plane sampler cadence / per-series ring size
+        #: (obs/timeseries.py); None keeps the built-in defaults
+        self.timeseries_interval_s = _opt(
+            props, "timeseries.sample-interval-s", float)
+        self.timeseries_retention = _opt(
+            props, "timeseries.retention-points", int)
+        #: session property defaults: session.<name>=<value>
+        self.session_defaults = {
+            k[len("session."):]: v for k, v in props.items()
+            if k.startswith("session.")
+            and k not in ("session.catalog", "session.schema")}
+
+    def unported_keys(self) -> Dict[str, str]:
+        """The set keys that configure a module the port does not have
+        yet, each mapped to that module: ``spool.*`` (exec/spool.py, the
+        cluster) and ``autoscale.enabled=true`` (exec/autoscale.py)."""
+        out = {k: "exec/spool.py" for k in sorted(self.props)
+               if k.startswith("spool.")}
+        if self.autoscale_enabled:
+            out["autoscale.enabled"] = "exec/autoscale.py"
+        return out
+
+
+def load_node_config(etc_dir: str) -> NodeConfig:
+    path = os.path.join(etc_dir, "config.properties")
+    return NodeConfig(parse_properties(path) if os.path.isfile(path)
+                      else {})
+
+
+def load_resource_groups(etc_dir: str):
+    """etc/resource-groups.json -> ResourceGroupManager config dict (the
+    file-backed half of the reference's
+    FileResourceGroupConfigurationManager; selectors and limits keep this
+    engine's JSON shape). None when the file is absent."""
+    path = os.path.join(etc_dir, "resource-groups.json")
+    if not os.path.isfile(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def server_from_etc(etc_dir: str, host: str = "127.0.0.1",
+                    port: Optional[int] = None, device=None):
+    """Boot a statement server from a config directory, the
+    PrestoServer.run analogue (reference server/PrestoServer.java:86:
+    config binding, plugins, catalog store, resource groups). Its runner
+    runs on ``device``: the GPU when none is named, and the boot raises
+    without one. Returns ``(server, NodeConfig)``; the caller starts the
+    server."""
+    from .device import resolve_device
+    from .exec.runner import LocalRunner
+    from .plugin import load_plugins_from_config
+    from .server.protocol import PrestoTpuServer
+    device = resolve_device(device)
+    cfg = load_node_config(etc_dir)
+    unported = cfg.unported_keys()
+    if unported:
+        raise NotImplementedError(
+            "config.properties sets " + ", ".join(
+                f"{k} (needs {m})" for k, m in unported.items())
+            + ", which presto_tpu_torch does not have yet")
+    # plugins install connector factories / functions BEFORE catalogs
+    # mount (reference PrestoServer.run: loadPlugins then catalog store)
+    load_plugins_from_config(cfg.props)
+    catalogs = load_catalogs(etc_dir, device=device)
+    apply_node_config(cfg.props)
+    if cfg.failpoints:
+        from .exec.failpoints import FAILPOINTS
+        FAILPOINTS.configure_from_spec(cfg.failpoints)
+    runner = LocalRunner(catalogs=catalogs, catalog=cfg.catalog,
+                         schema=cfg.schema, device=device)
+    # session.<name> defaults go through the same registry gate as SET
+    # SESSION: a typo'd default fails the boot, not a dashboard
+    runner.session.properties.update(
+        {k: validate_session_property(k, v)
+         for k, v in cfg.session_defaults.items()})
+    srv = PrestoTpuServer(
+        runner=runner, host=host,
+        port=cfg.http_port if port is None else port,
+        resource_groups=load_resource_groups(etc_dir))
+    return srv, cfg

@@ -12,8 +12,9 @@ surface for CREATE TABLE AS and INSERT.
 
 Rows come out of SQLite on the host; each ``fetchmany`` chunk becomes
 one device batch on the device the scan names (the GPU when none is
-named). The plugin factory that mounts a catalog from a properties file
-belongs to the server plane and is not ported.
+named). ``connector_factory`` mounts a catalog from an etc catalog file
+(``connector.name=sqlite``, ``sqlite.path=/path/db.sqlite``; see
+``config.load_catalogs``).
 """
 from __future__ import annotations
 
@@ -334,3 +335,12 @@ class SqliteConnector(Connector):
         self._db().execute(f'drop table if exists {_q(name)}')
         self._db().commit()
         self._invalidate(name)
+
+
+def connector_factory(props: Dict[str, str]) -> SqliteConnector:
+    """Plugin entry (plugin.py ConnectorFactory contract): etc catalog
+    properties -> connector instance."""
+    path = props.get("sqlite.path") or props.get("path")
+    if not path:
+        raise ValueError("sqlite catalog needs sqlite.path=<db file>")
+    return SqliteConnector(path)

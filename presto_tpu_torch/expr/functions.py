@@ -372,6 +372,10 @@ def _string_compare(a: Val, b: Val, op: str) -> Val:
 
 FunctionImpl = Callable[[List[Val], Type], Val]
 _REGISTRY: Dict[str, FunctionImpl] = {}
+#: plugin-provided return-type inference, name -> (arg_types) -> Type
+#: (the Plugin.getFunctions surface; reference spi/Plugin.java:33-78 and
+#: metadata/FunctionRegistry registration)
+_EXTERNAL_SIGNATURES: Dict[str, Callable[[List[Type]], Type]] = {}
 
 
 def register(name: str):
@@ -379,6 +383,16 @@ def register(name: str):
         _REGISTRY[name] = fn
         return fn
     return deco
+
+
+def register_external(name: str, impl: FunctionImpl,
+                      infer: Callable[[List[Type]], Type]) -> None:
+    """Register a plugin scalar function: its implementation (``(args:
+    List[Val], out_type) -> Val`` over torch tensors on the query's
+    device, like every builtin) and its return-type inference."""
+    key = name.lower()
+    _REGISTRY[key] = impl
+    _EXTERNAL_SIGNATURES[key] = infer
 
 
 def lookup(name: str) -> FunctionImpl:
@@ -1466,4 +1480,6 @@ def infer_call_type(name: str, arg_types: List[Type]) -> Type:
         return T.VARBINARY
     if name == "from_utf8":
         return T.VARCHAR
+    if name in _EXTERNAL_SIGNATURES:
+        return _EXTERNAL_SIGNATURES[name](list(arg_types))
     raise KeyError(f"unknown function {name!r}")

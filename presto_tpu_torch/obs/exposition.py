@@ -3,7 +3,7 @@
 The counterpart of ``presto_tpu/obs/exposition.py``.
 
 The scrape surface the reference leaves to its JMX exporter agents:
-``GET /v1/metrics`` (the statement server's, once it is ported) renders
+``GET /v1/metrics`` (the statement server's, ``server/protocol.py``) renders
 ``MetricsRegistry.collect()`` in the Prometheus text format —
 ``# TYPE`` lines, counter/gauge samples, histogram ``_bucket``/
 ``_sum``/``_count`` series plus derived ``_quantile`` gauges — ending

@@ -54,13 +54,24 @@ EXPLAIN ANALYZE, and never on for plain queries.
 
 ``KERNELS`` feeds ``system.runtime.executables``
 (``connectors/system.py``), and the per-operator frame seconds and kernel
-bytes feed the query history's device columns (``obs/history.py``). Not
-ported: the device-trace merging of ``--profile-out`` (it needs the CLI).
+bytes feed the query history's device columns (``obs/history.py``).
+
+**Device-trace merging** (``write_merged_trace``, the CLI's
+``--profile-out``): the CLI captures a ``torch.profiler`` trace (CPU and
+CUDA activities) of the statements it runs and exports it as a Chrome
+trace into a per-session subdirectory of the profile directory; the
+newest session's events, shifted from the profiler's clock onto the
+span tracer's epoch clock, are merged with the tracer's host spans into
+one Perfetto timeline.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import glob
+import gzip
+import json
+import os
 import threading
 import time
 from typing import Dict, List, Optional
@@ -258,10 +269,12 @@ class ProfileSession:
 
 
 @contextlib.contextmanager
-def profiled(on: bool = True, device="cpu"):
+def profiled(on: bool, device):
     """Time operator frames and kernel launches on ``device`` under this
     context (this thread, and threads started in a copy of its context,
-    such as the local exchange's producer)."""
+    such as the local exchange's producer). The device has no default:
+    CUDA work timed against a CPU clock would read the enqueue, not the
+    work."""
     if not on:
         yield
         return
@@ -478,3 +491,106 @@ def hbm_totals(devices=None, registry=None) -> Dict[str, int]:
         "peakBytes": sum(d["peak_bytes_in_use"] for d in docs),
         "devices": len(docs),
     }
+
+
+# -- device-trace merging (--profile-out) -------------------------------------
+
+#: where a profile directory keeps its sessions, one subdirectory each
+#: (the layout ``jax.profiler`` leaves, kept so one reader serves both)
+TRACE_SESSIONS = os.path.join("plugins", "profile")
+
+
+def device_trace_path(profile_dir: str) -> str:
+    """A new session subdirectory of ``profile_dir`` and the Chrome-trace
+    file a ``torch.profiler`` export of this session goes to."""
+    session = os.path.join(profile_dir, TRACE_SESSIONS,
+                           f"{time.strftime('%Y_%m_%d_%H_%M_%S')}_"
+                           f"{time.time_ns() % 10**9:09d}")
+    os.makedirs(session, exist_ok=True)
+    return os.path.join(session, f"{os.getpid()}.trace.json")
+
+
+def find_device_traces(profile_dir: str) -> List[str]:
+    """Chrome-trace files from the NEWEST profiling session under a
+    profile dir (``plugins/profile/<session>/*.trace.json[.gz]``). A
+    reused ``--profile-out`` DIR accumulates sessions; merging any but
+    the latest would interleave a past run's kernels onto the current
+    host timeline."""
+    pats = [os.path.join(profile_dir, TRACE_SESSIONS, "*",
+                         "*.trace.json.gz"),
+            os.path.join(profile_dir, TRACE_SESSIONS, "*", "*.trace.json")]
+    found: List[str] = []
+    for p in pats:
+        found.extend(glob.glob(p))
+    if not found:
+        return []
+    found.sort(key=lambda p: os.path.getmtime(p), reverse=True)
+    newest_session = os.path.dirname(found[0])
+    return [p for p in found if os.path.dirname(p) == newest_session]
+
+
+def load_trace_events(path: str) -> List[Dict]:
+    """The events of one Chrome-trace file. ``torch.profiler`` counts an
+    event's ``ts`` in microseconds from the trace's
+    ``baseTimeNanoseconds`` (a wall-clock instant); such events come back
+    shifted by it, onto the epoch microseconds the span tracer's events
+    carry, so a kernel lands inside the host span that launched it."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        doc = json.load(f)
+    if not isinstance(doc, dict):
+        return list(doc or [])
+    events = list(doc.get("traceEvents") or [])
+    base = doc.get("baseTimeNanoseconds")
+    if not isinstance(base, (int, float)) or not base:
+        return events
+    shift_us = base / 1e3
+    out = []
+    for e in events:
+        if isinstance(e.get("ts"), (int, float)):
+            e = dict(e, ts=e["ts"] + shift_us)
+        out.append(e)
+    return out
+
+
+def merge_chrome_traces(host: Dict, device_events: List[Dict]) -> Dict:
+    """One Chrome-trace object holding the span tracer's host events AND
+    the profiler's device tracks. Device pids are remapped above the
+    host range so Perfetto shows them as separate processes instead of
+    colliding lanes."""
+    events = list(host.get("traceEvents") or [])
+    base = max([int(e.get("pid", 0)) for e in events] + [0]) + 1000
+    remap: Dict[int, int] = {}
+    for e in device_events:
+        e = dict(e)
+        pid = e.get("pid")
+        if isinstance(pid, int):
+            if pid not in remap:
+                remap[pid] = base + len(remap)
+            e["pid"] = remap[pid]
+        e.setdefault("cat", "device")
+        events.append(e)
+    out = dict(host)
+    out["traceEvents"] = events
+    return out
+
+
+def write_merged_trace(path: str, spans: List[Dict],
+                       profile_dir: str) -> str:
+    """Merge the span tracer's export (with the mesh flight recorders'
+    round tracks of its queries, ``obs/trace.chrome_trace``) and the
+    newest ``torch.profiler`` session under ``profile_dir`` into one
+    Perfetto-loadable JSON file. Missing or unreadable device traces
+    degrade to a host-only trace: the file always lands."""
+    from .trace import chrome_trace
+    host = chrome_trace(spans)
+    device_events: List[Dict] = []
+    for p in find_device_traces(profile_dir):
+        try:
+            device_events.extend(load_trace_events(p))
+        except (OSError, ValueError):
+            continue
+    merged = merge_chrome_traces(host, device_events)
+    with open(path, "w") as f:
+        json.dump(merged, f)
+    return path

@@ -26,8 +26,8 @@ query's spans with ``write_chrome_trace(path, TRACER.export())``. A mesh
 query's flight recorder rounds (``obs/flight.chrome_events``) join its
 spans in the Chrome trace as a "mesh rounds" process, one lane per
 attribution bucket. The re-parenting of spans carried over the wire
-(``task_span``, ``import_spans``) belongs to the cluster and server
-planes and is not ported.
+(``task_span``, ``import_spans``) belongs to the cluster and is not
+ported yet.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """Hierarchical resource groups: admission control for the statement server.
 
-The counterpart of ``presto_tpu/server/resource_groups.py``; until the
-statement server is ported, a caller admits a query itself (``submit``,
-``wait``) and runs it with ``LocalRunner.execute(...,
+The counterpart of ``presto_tpu/server/resource_groups.py``. The
+statement server (``server/protocol.py``) admits every statement through
+its manager; a caller without a server admits a query itself
+(``submit``, ``wait``) and runs it with ``LocalRunner.execute(...,
 serving=QueryServingContext(admission.group))``.
 
 The role of the reference's resource-group subsystem (reference

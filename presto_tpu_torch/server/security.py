@@ -1,11 +1,18 @@
-"""Access control: catalog rules, roles and table privileges.
+"""Security: the statement server's authenticators and access control.
 
-The counterpart of the access-control half of
-``presto_tpu/server/security.py`` (reference security/
-AccessControlManager.java and spi/security/SystemAccessControl with the
-file-based catalog rules; spi/security/RoleGrant and GrantInfo for the
-roles):
+The counterpart of ``presto_tpu/server/security.py`` (reference
+server/security/AuthenticationFilter.java with
+PasswordAuthenticatorManager and the file-based authenticator of
+presto-password-authenticators/.../file/FileAuthenticator.java, the JWT
+authenticator of server/security/jwt; security/AccessControlManager.java
+and spi/security/SystemAccessControl with the file-based catalog rules;
+spi/security/RoleGrant and GrantInfo for the roles):
 
+- ``PasswordAuthenticator``: user -> password map (or a ``user:password``
+  lines file); the statement server challenges with HTTP Basic when one
+  is installed.
+- ``JwtAuthenticator``: HS256 bearer tokens (signature, ``exp`` and
+  audience checks; the principal is the ``sub`` claim).
 - ``AccessControl``: first-match catalog allow / deny rules per user::
 
       {"catalogs": [
@@ -19,8 +26,7 @@ roles):
 - ``SecuredCatalogs``: a catalog-manager view that checks the rules on
   every resolution, so the planner needs no security knowledge.
 
-The password and JWT authenticators belong to the HTTP statement server,
-which is not ported.
+Standard library only (hmac, hashlib, base64), as in the reference.
 """
 from __future__ import annotations
 
@@ -30,6 +36,93 @@ from typing import Dict, List, Optional
 
 class AccessDeniedError(PermissionError):
     pass
+
+
+class PasswordAuthenticator:
+    def __init__(self, users: Optional[Dict[str, str]] = None,
+                 path: Optional[str] = None):
+        self.users = dict(users or {})
+        if path:
+            with open(path, encoding="utf-8") as f:
+                for line in f:
+                    line = line.strip()
+                    if line and ":" in line and not line.startswith("#"):
+                        u, p = line.split(":", 1)
+                        self.users[u] = p
+
+    def authenticate(self, user: str, password: str) -> bool:
+        import hmac
+        expected = self.users.get(user)
+        return expected is not None and hmac.compare_digest(
+            expected, password)
+
+
+class JwtAuthenticator:
+    """Bearer-token (JWT HS256) authentication: this engine's stand-in
+    for the reference's JsonWebTokenAuthenticator (reference
+    server/security/jwt — signature verification + exp check, principal
+    from the ``sub`` claim). Stdlib-only: HMAC-SHA256 over the signing
+    input, base64url decoding, no external JOSE dependency."""
+
+    def __init__(self, secret: str, required_audience: str = ""):
+        self.secret = secret.encode("utf-8")
+        self.audience = required_audience
+
+    def authenticate(self, token: str):
+        """Returns the principal (sub) or None when invalid/expired."""
+        import base64
+        import hashlib
+        import hmac
+        import json
+        import time
+
+        def b64d(s: str) -> bytes:
+            return base64.urlsafe_b64decode(s + "=" * (-len(s) % 4))
+
+        try:
+            header_b64, payload_b64, sig_b64 = token.split(".")
+            header = json.loads(b64d(header_b64))
+            if header.get("alg") != "HS256":
+                return None
+            signing_input = f"{header_b64}.{payload_b64}".encode("ascii")
+            expect = hmac.new(self.secret, signing_input,
+                              hashlib.sha256).digest()
+            if not hmac.compare_digest(expect, b64d(sig_b64)):
+                return None
+            claims = json.loads(b64d(payload_b64))
+            if "exp" in claims and time.time() >= float(claims["exp"]):
+                return None
+            if self.audience:
+                aud = claims.get("aud")
+                auds = aud if isinstance(aud, list) else [aud]
+                if self.audience not in auds:
+                    return None
+            return claims.get("sub")
+        except Exception:
+            return None
+
+    @staticmethod
+    def issue(secret: str, sub: str, exp: Optional[float] = None,
+              aud: str = "") -> str:
+        """Mint a token (tests / trusted internal callers)."""
+        import base64
+        import hashlib
+        import hmac
+        import json
+
+        def b64e(b: bytes) -> str:
+            return base64.urlsafe_b64encode(b).rstrip(b"=").decode()
+
+        claims: dict = {"sub": sub}
+        if exp is not None:
+            claims["exp"] = exp
+        if aud:
+            claims["aud"] = aud
+        h = b64e(json.dumps({"alg": "HS256", "typ": "JWT"}).encode())
+        p = b64e(json.dumps(claims).encode())
+        sig = hmac.new(secret.encode(), f"{h}.{p}".encode(),
+                       hashlib.sha256).digest()
+        return f"{h}.{p}.{b64e(sig)}"
 
 
 class RoleManager:

@@ -62,6 +62,12 @@ def test_sources_found():
                 "obs/timeseries.py", "obs/slo.py", "obs/signals.py",
                 "obs/exposition.py"):
         assert (ROOT / "presto_tpu_torch" / rel) in _SOURCES, rel
+    # the front door and the coordinator fleet
+    for rel in ("exec/discovery.py", "client.py", "server/protocol.py",
+                "server/__init__.py", "dbapi.py", "cli.py", "plugin.py",
+                "serving/fleet.py", "config.py", "server/security.py",
+                "obs/profiler.py"):
+        assert (ROOT / "presto_tpu_torch" / rel) in _SOURCES, rel
     assert (ROOT / "presto_tpu_torch" / "parallel" / "mesh.py") \
         in _SOURCES
     assert (ROOT / "presto_tpu_torch" / "_devtools" / "lockcheck.py") \
@@ -101,3 +107,40 @@ def test_sqlite_catalog_and_verifier_need_a_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Verifier(cpu, LocalRunner(tpch_sf=0.001))
     assert db.page_source(split, ["a"], device="cpu") is not None
+
+
+def test_front_door_without_device_needs_a_gpu(monkeypatch, tmp_path):
+    """With no device named and no GPU, the statement server's default
+    runner, a config-directory boot and the CLI's embedded server raise
+    as LocalRunner does; each runs on the CPU only when asked."""
+    from presto_tpu_torch import cli
+    from presto_tpu_torch.config import server_from_etc
+    from presto_tpu_torch.server import PrestoTpuServer
+    etc = tmp_path / "etc"
+    (etc / "catalog").mkdir(parents=True)
+    (etc / "catalog" / "tpch.properties").write_text(
+        "connector.name=tpch\ntpch.scale-factor=0.001\n")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PrestoTpuServer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server_from_etc(str(etc))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-e", "select 1"])
+    srv, _ = server_from_etc(str(etc), device="cpu")
+    try:
+        assert srv.runner.device.type == "cpu"
+    finally:
+        srv.stop()
+    assert cli.main(["--device", "cpu", "--sf", "0.001",
+                     "-e", "select 1"]) == 0
+
+
+def test_profiled_takes_its_device():
+    """``profiled`` has no default device: a caller must say which
+    clock times its work."""
+    import inspect
+    from presto_tpu_torch.obs import profiler
+    params = inspect.signature(profiler.profiled).parameters
+    assert params["device"].default is inspect.Parameter.empty
+    assert params["on"].default is inspect.Parameter.empty

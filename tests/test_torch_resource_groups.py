@@ -1,6 +1,7 @@
 """Resource groups of presto_tpu_torch (server/resource_groups.py)
 against presto_tpu: the cases of tests/test_resource_groups.py but the
-statement server's, each run on both packages' managers, and the same
+statement server's (in tests/test_torch_protocol.py), each run on both
+packages' managers, and the same
 admission script holding every grant and every ``info()`` document
 equal to the reference's (reference
 execution/resourcegroups/InternalResourceGroup.java)."""

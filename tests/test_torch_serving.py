@@ -2,7 +2,8 @@
 cache (``serving/plancache.py``) and the resource-group bridge
 (``serving/groups.py``) with the fair scheduler's group shares, the
 plan-cache and group cases of tests/test_serving.py. The statement
-server's, the cluster's and the fleet's cases wait for those modules.
+server's cases are in tests/test_torch_protocol.py, the fleet's in
+tests/test_torch_fleet.py; the cluster's wait for the cluster.
 
 Each plan-cache case runs the same statements through both packages'
 LocalRunners (TPC-H SF 0.001 as in the reference's file, SF 0.01 where

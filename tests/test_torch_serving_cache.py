@@ -1,7 +1,8 @@
 """Plan templates and the versioned result cache of presto_tpu_torch
 (``serving/template.py``, ``serving/resultcache.py``) against
 presto_tpu: the cases of tests/test_serving_cache.py up to its statement
-server and cluster cases, which wait for those modules.
+server case (in tests/test_torch_protocol.py) and cluster case, which
+waits for the cluster.
 
 Each case runs the same statements through both packages' LocalRunners
 over the same catalogs (TPC-H SF 0.01, a memory catalog, an ORC catalog

@@ -6,10 +6,10 @@ through both packages' trackers giving the same rows, and an end-to-end
 drill: queries admitted through a resource group with a latency
 objective, slowed by the fair scheduler's service floor, firing WARN
 then PAGE and recovering, visible through ``system.runtime.alerts`` over
-plain SQL. The cases of tests/test_slo.py that need the statement server
-or the repo's tools/ scripts are left out (the drill stands in for the
-server's); the front door's latency record is made by the test, as the
-server makes it.
+plain SQL. The front door's latency record is made by the test, as the
+server makes it; the statement server's own drill is in
+tests/test_torch_protocol.py, and the cases that need the repo's tools/
+scripts are left out.
 
 Burn windows and evaluation instants are synthetic throughout
 (``now=`` everywhere), so window arithmetic is deterministic.

@@ -3,7 +3,8 @@ its exposition (obs/exposition.py) against presto_tpu: counter rates,
 windowed histogram quantiles, retention rings, the range/reduce API,
 the metrics-history document, the system.runtime.timeseries table feed
 and the sampler's own overhead budget (the cases of
-tests/test_timeseries.py but the statement server's history route);
+tests/test_timeseries.py but the servers' history route, whose
+coordinator half is in tests/test_torch_protocol.py);
 the Prometheus text round trip of tests/test_obs_ops.py; and the same
 synthetic series through both packages' stores and renderers giving the
 same reads and the same text, bit for bit.
