@@ -246,6 +246,35 @@ result line):
    Fails if a check fails or a kernel never launched in the phase;
    prints both kernels' launches and the phase wall. The kernels line
    carries each kernel's frontdoor launches.
+15. cluster: the coordinator and its workers (``exec/cluster.py``,
+   ``server/worker.py``, ``exec/spool.py``, ``planner/codec.py``), with
+   the tracer off except in (e). Two in-process ``WorkerServer``s on
+   ``cuda`` under a discovery-fed ``ClusterRunner(device="cuda",
+   heartbeat=True)``, all in 2^23-row batches at CLUSTER_SF (1): (a) the
+   22 TPC-H queries, each cold (scan cache cleared), against the CPU
+   rows, each wall beside the one-device cold wall of the path and tpch
+   phases, with the exchange bytes, pages and responses it sent and the
+   launches of its tasks (the reference's ClusterRunner runs all 22 at
+   SF 0.01, so none is left out); (b) Q3 with
+   ``broadcast_join_row_limit=0`` (BASELINE config 3's partitioned
+   lineitem-orders join, over HTTP) warm CLUSTER_RUNS (5) times in turns
+   with one device, medians; the exchange bytes of a broadcast and a
+   partitioned Q3; (e) a traced Q3: the spans of every task of both
+   workers lie under the query's span; (f) a cluster memory limit of
+   CLUSTER_MEMORY_LIMIT (1 MiB) kills Q3 with the reference's error;
+   (d) a subprocess worker (``python -m presto_tpu_torch.server.worker
+   --device cuda --tpch-sf 1``) announces to a statement server serving
+   the ``ClusterRunner``; Q1 and Q3 over HTTP on the three workers equal
+   the CPU rows, the subprocess's ``/v1/metrics`` counts its own
+   launches of both kernels, and after ``PUT /v1/info/state``
+   SHUTTING_DOWN the process exits within its grace; (c) the chaos
+   scenarios of ``_devtools/chaos.py`` at CLUSTER_CHAOS_SF (0.1) on
+   ``cuda`` with a CLUSTER_STRAGGLER_S (6 s) straggler: rows equal the
+   fault-free run after each fault, recovery counters move, and the
+   spool ends with no per-query directory. Fails if a check fails or a
+   kernel never launched inside the workers' tasks; the kernels line
+   carries each kernel's cluster launches (the workers' tasks in this
+   process and the subprocess worker's, which it also shows apart).
 
 Every breakdown line times the plan's table scans twice: with the scan
 cache cleared (host generation and the copy to the card) and as a warm
@@ -259,7 +288,8 @@ prints the kernels line; ``--surface-only`` runs phases 1 and 7 alone,
 ``--files-only`` phases 1 and 8, ``--chains-only`` phases 1 and 9,
 ``--spill-only`` phases 1 and 10, ``--statements-only`` phases 1 and 11,
 ``--mesh-only`` phases 1 and 12, ``--serving-only`` phases 1 and 13,
-``--frontdoor-only`` phases 1 and 14 (each computes its reference rows
+``--frontdoor-only`` phases 1 and 14, ``--cluster-only`` phases 1 and
+15 (each computes its reference rows
 itself; the mesh phase's are the card's single-device runs).
 Either times whichever ``presto_tpu_torch`` sits beside the script, so
 a copy of the script placed in a checkout of another commit measures
@@ -825,17 +855,19 @@ def check_probe(torch, gen):
             "clustered_bound_ms": cl[5]}
 
 
-def _same_rows(gpu_rows, cpu_rows, rel: float) -> None:
+def _same_rows(gpu_rows, cpu_rows, rel: float, what: str = "") -> None:
+    """``what`` (a query's name) heads the message of a mismatch."""
+    at = f"{what}: " if what else ""
     if len(gpu_rows) != len(cpu_rows):
-        raise AssertionError(f"{len(gpu_rows)} rows on cuda, "
+        raise AssertionError(f"{at}{len(gpu_rows)} rows on cuda, "
                              f"{len(cpu_rows)} on cpu")
     for i, (a, b) in enumerate(zip(gpu_rows, cpu_rows)):
         for u, v in zip(a, b):
             if isinstance(u, float):
                 if not (math.isfinite(u) and abs(u - v) <= rel * abs(v)):
-                    raise AssertionError(f"row {i}: {u!r} vs {v!r}")
+                    raise AssertionError(f"{at}row {i}: {u!r} vs {v!r}")
             elif u != v:
-                raise AssertionError(f"row {i}: {u!r} vs {v!r}")
+                raise AssertionError(f"{at}row {i}: {u!r} vs {v!r}")
 
 
 def phase_path(torch):
@@ -865,6 +897,7 @@ def phase_path(torch):
             q3_launches = (scan.launches - before[0],
                            probe.launches - before[1])
         results[name] = (res, walls)
+        LOCAL_COLD_WALLS[name] = walls[0]
     launches = {"segment_sum_sorted_i64": scan.launches,
                 "direct_probe": probe.launches}
     print(f"path launches: {json.dumps(launches)} q3 (cold+warm): "
@@ -980,6 +1013,7 @@ def phase_tpch(torch):
             res = gpu.execute(sql)
             torch.cuda.synchronize()
             walls[name] = time.perf_counter() - t0
+            LOCAL_COLD_WALLS[name] = walls[name]
             peak_gb = torch.cuda.max_memory_allocated() / 2**30
             counts = (scan.launches - before[0], probe.launches - before[1])
             t0 = time.perf_counter()
@@ -3163,11 +3197,388 @@ def phase_frontdoor(torch, tpch_cpu_rows=None, device="cuda",
     return launches
 
 
+#: the cluster phase: the 22 TPC-H queries on CLUSTER_WORKERS in-process
+#: workers at CLUSTER_SF in 2^23-row batches, cold, beside one device;
+#: config 3's shape (Q3, partitioned joins) warm CLUSTER_RUNS times in
+#: turns with one device; the chaos scenarios at CLUSTER_CHAOS_SF with a
+#: CLUSTER_STRAGGLER_S straggler; a subprocess worker at CLUSTER_SF; a
+#: traced Q3; the memory manager killing Q3 under CLUSTER_MEMORY_LIMIT
+CLUSTER_SF = 1
+CLUSTER_WORKERS = 2
+CLUSTER_RUNS = 5
+CLUSTER_CHAOS_SF = 0.1
+CLUSTER_STRAGGLER_S = 6.0
+CLUSTER_MEMORY_LIMIT = 1 << 20
+#: a drained subprocess worker exits within its grace (5 s) plus this
+CLUSTER_EXIT_SLACK_S = 25.0
+#: walls of the cold one-device runs of the path and tpch phases (the
+#: cluster phase prints them beside its own cold walls; run alone, it
+#: measures them itself)
+LOCAL_COLD_WALLS = {}
+#: the queries the JAX package's ClusterRunner does not run at SF 0.01
+#: (tests/test_torch_cluster*.py hold the port to its rows on all 22)
+CLUSTER_LEFT_OUT = ()
+
+
+@contextlib.contextmanager
+def _task_launches(device, acc):
+    """Adds to ``acc`` the launches of each kernel made under the block
+    outside the coordinator's init plans: with the cluster's workers in
+    this process, the launches of the workers' tasks."""
+    import presto_tpu_torch.exec.local as local
+    plain = local.run_init_plans
+    init = dict.fromkeys(acc, 0)
+
+    def counted(ex, plan):
+        before = _kernel_calls(device)
+        try:
+            return plain(ex, plan)
+        finally:
+            for k, v in _kernel_calls(device).items():
+                init[k] += v - before[k]
+    local.run_init_plans = counted
+    start = _kernel_calls(device)
+    try:
+        yield
+    finally:
+        local.run_init_plans = plain
+        for k, v in _kernel_calls(device).items():
+            acc[k] += v - start[k] - init[k]
+
+
+def _metric_samples(url):
+    from presto_tpu_torch.obs.exposition import parse_exposition
+    samples, _ = parse_exposition(_http_get(f"{url}/v1/metrics").decode())
+    return samples
+
+
+def _worker_kernel_calls(url, device):
+    """A worker's own kernel launches (plain calls on the CPU), from its
+    ``/v1/metrics``."""
+    fam = "kernel_launches_total" if device == "cuda" \
+        else "kernel_plain_calls_total"
+    samples = _metric_samples(url)
+    return {name: int(samples.get((fam, (("key", name),)), 0))
+            for name in ("segment_sum_sorted_i64", "direct_probe")}
+
+
+def phase_cluster(torch, tpch_cpu_rows=None, device="cuda", sf=CLUSTER_SF,
+                  chaos_sf=CLUSTER_CHAOS_SF, runs=CLUSTER_RUNS,
+                  straggler_s=CLUSTER_STRAGGLER_S,
+                  rows_per_batch=ROWS_PER_BATCH, local_walls=None):
+    """The cluster on the card (``device="cpu"`` rehearses the phase on
+    the CPU at a small ``sf``): (a) the 22 TPC-H queries on two
+    in-process workers, cold, against the CPU rows and beside one
+    device; (b) Q3 with partitioned joins, warm, in turns with one
+    device; (c) the chaos scenarios; (d) a subprocess worker announcing
+    to a statement server that serves a discovery-fed ClusterRunner,
+    then drained; (e) a traced Q3; (f) the memory manager. Returns the
+    launches of the workers' tasks in this process and those of the
+    subprocess worker."""
+    import subprocess as sp
+    import urllib.request
+
+    from presto_tpu_torch._devtools import chaos
+    from presto_tpu_torch.client import StatementClient
+    from presto_tpu_torch.exec.cluster import ClusterRunner, QueryFailedError
+    from presto_tpu_torch.exec.discovery import DiscoveryNodeManager
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.scancache import CACHE
+    from presto_tpu_torch.exec.spool import SPOOL
+    from presto_tpu_torch.obs.metrics import REGISTRY, TASKS
+    from presto_tpu_torch.obs.trace import TRACER
+    from presto_tpu_torch.server import PrestoTpuServer
+    from presto_tpu_torch.server.worker import WorkerServer
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+    TRACER.enable(False)
+    queries = _queries()
+    names = [n for n in queries if n not in CLUSTER_LEFT_OUT]
+    launches = dict.fromkeys(("segment_sum_sorted_i64", "direct_probe"), 0)
+
+    def counter(name):
+        return REGISTRY.counter(name).value
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    laps = [time.perf_counter()]
+
+    def lap():
+        laps.append(time.perf_counter())
+        return laps[-1] - laps[-2]
+
+    cpu_rows = dict(tpch_cpu_rows or {}) if cuda else {}
+    missing = [n for n in names if n not in cpu_rows]
+    cpu_s = 0.0
+    if missing:
+        cpu = LocalRunner(tpch_sf=sf, device="cpu",
+                          rows_per_batch=rows_per_batch)
+        for name in missing:
+            cpu_rows[name] = cpu.execute(queries[name]).rows
+        del cpu
+        cpu_s = lap()
+        print(f"cluster cpu reference rows of {len(missing)} queries: "
+              f"{cpu_s:.3f} s", flush=True)
+    local = LocalRunner(tpch_sf=sf, device=device,
+                        rows_per_batch=rows_per_batch)
+    local_walls = dict(local_walls or {})
+    discovery = DiscoveryNodeManager(ttl_s=3600.0)
+    workers = [WorkerServer(tpch_sf=sf, device=device)
+               for _ in range(CLUSTER_WORKERS)]
+    for w in workers:
+        w.start()
+        discovery.announce(w.node_id, f"http://127.0.0.1:{w.port}")
+    runner = ClusterRunner(tpch_sf=sf, heartbeat=True, discovery=discovery,
+                           device=device, rows_per_batch=rows_per_batch)
+    srv = proc = None
+    try:
+        # (a) the 22 queries, cold, against the CPU rows
+        print(f"cluster left out: {list(CLUSTER_LEFT_OUT) or 'none'} (the "
+              f"reference's ClusterRunner runs all 22 at SF 0.01)",
+              flush=True)
+        walls = {}
+        for name in names:
+            sql = queries[name]
+            b0 = counter("exchange_sent_bytes_total")
+            p0 = counter("exchange_sent_pages_total")
+            r0 = counter("exchange_responses_total")
+            CACHE.clear()
+            before = _kernel_calls(device)
+            with _task_launches(device, launches):
+                t0 = time.perf_counter()
+                res = runner.execute(sql)
+                sync()
+                wall = time.perf_counter() - t0
+            counts = {k: v - before[k]
+                      for k, v in _kernel_calls(device).items()}
+            _same_rows(res.rows, cpu_rows[name], 1e-9, f"cluster {name}")
+            if name not in local_walls:
+                CACHE.clear()
+                t0 = time.perf_counter()
+                local.execute(sql)
+                sync()
+                local_walls[name] = time.perf_counter() - t0
+            walls[name] = wall
+            print(f"cluster {name}: cold {wall:.3f} s | one device cold "
+                  f"{local_walls[name]:.3f} s ({wall / local_walls[name]:.2f}"
+                  f"x) | {len(res.rows)} rows match the cpu run | "
+                  f"exchange {counter('exchange_sent_bytes_total') - b0:.0f}"
+                  f" B in {counter('exchange_sent_pages_total') - p0:.0f} "
+                  f"pages, {counter('exchange_responses_total') - r0:.0f} "
+                  f"responses | launches {json.dumps(counts)}", flush=True)
+        print(f"cluster tpch: {len(names)} queries equal the cpu rows; "
+              f"cold walls sum {sum(walls.values()):.3f} s against "
+              f"{sum(local_walls[n] for n in names):.3f} s on one device "
+              f"(part {lap():.3f} s)", flush=True)
+
+        # (b) config 3's shape: Q3 with partitioned joins, warm, in turns
+        q3 = queries["q3"]
+        part = {"broadcast_join_row_limit": 0}
+        for props in (None, part):
+            b0 = counter("exchange_sent_bytes_total")
+            p0 = counter("exchange_sent_pages_total")
+            r0 = counter("exchange_responses_total")
+            with _task_launches(device, launches):
+                runner.execute(q3, properties=props)
+            print(f"cluster q3 {'partitioned' if props else 'broadcast'}: "
+                  f"exchange {counter('exchange_sent_bytes_total') - b0:.0f}"
+                  f" B in {counter('exchange_sent_pages_total') - p0:.0f} "
+                  f"pages, {counter('exchange_responses_total') - r0:.0f} "
+                  f"responses (warm)", flush=True)
+        local.execute(q3, properties=part)
+        cl, one = [], []
+        for _ in range(runs):
+            with _task_launches(device, launches):
+                t0 = time.perf_counter()
+                res = runner.execute(q3, properties=part)
+                sync()
+                cl.append(time.perf_counter() - t0)
+            _same_rows(res.rows, cpu_rows["q3"], 1e-9, "cluster q3")
+            t0 = time.perf_counter()
+            res = local.execute(q3, properties=part)
+            sync()
+            one.append(time.perf_counter() - t0)
+            _same_rows(res.rows, cpu_rows["q3"], 1e-9)
+        ratio = statistics.median(cl) / statistics.median(one)
+        print(f"cluster config 3 shape (q3, partitioned joins, sf {sf}): "
+              f"warm median {statistics.median(cl) * 1e3:.3f} ms (min "
+              f"{min(cl) * 1e3:.3f}) on {CLUSTER_WORKERS} workers against "
+              f"{statistics.median(one) * 1e3:.3f} ms (min "
+              f"{min(one) * 1e3:.3f}) on one device: {ratio:.2f}x "
+              f"(part {lap():.3f} s)", flush=True)
+
+        # (e) a traced Q3: every task's span under the query's span
+        TRACER.clear()
+        TRACER.enable()
+        wait = REGISTRY.histogram("exchange_wait_seconds")
+        w0, s0 = wait.sum, counter("spool_write_bytes_total")
+        try:
+            with _task_launches(device, launches):
+                runner.execute(q3, properties=part)
+        finally:
+            TRACER.enable(False)
+        spans = TRACER.export()
+        TRACER.clear()
+        query = [s for s in spans if s["name"] == "query"
+                 and s["attrs"].get("mode") == "cluster"][-1]
+        by_id = {s["spanId"]: s for s in spans}
+
+        def under_query(s):
+            while s is not None:
+                if s["spanId"] == query["spanId"]:
+                    return True
+                s = by_id.get(s.get("parentId"))
+            return False
+        tasks = [s for s in spans if s["name"] == "task"]
+        qid = query["attrs"]["query_id"]
+        want = {t["task_id"] for t in TASKS.snapshot()
+                if t.get("query_id") == qid}
+        got = {s["attrs"]["task_id"] for s in tasks if under_query(s)}
+        nodes = {s["attrs"]["node_id"] for s in tasks if under_query(s)}
+        if not want or got != want \
+                or nodes != {w.node_id for w in workers}:
+            raise AssertionError(f"traced q3: task spans {sorted(got)} "
+                                 f"under the query span, tasks "
+                                 f"{sorted(want)}, nodes {sorted(nodes)}")
+        print(f"cluster trace: the spans of all {len(want)} tasks on "
+              f"{len(nodes)} workers lie under q3's query span "
+              f"({len(spans)} spans; part {lap():.3f} s)", flush=True)
+        # where the partitioned q3's wall goes: each stage's longest task
+        kinds = {s["attrs"].get("stage_id"): s["attrs"].get("partitioning")
+                 for s in spans if s["name"] == "stage"}
+        per_stage = {}
+        for s in tasks:
+            per_stage.setdefault(s["attrs"]["stage_id"], []).append(
+                s["end"] - s["start"])
+        print(f"cluster q3 breakdown (traced, warm): query span "
+              f"{query['end'] - query['start']:.3f} s; "
+              + "; ".join(f"stage {fid} [{kinds.get(fid)}] {len(ts)} "
+                          f"tasks, longest {max(ts):.3f} s"
+                          for fid, ts in sorted(per_stage.items()))
+              + f"; consumers blocked on remote pages "
+              f"{wait.sum - w0:.3f} s in all; spool written "
+              f"{counter('spool_write_bytes_total') - s0:.0f} B",
+              flush=True)
+
+        # (f) the memory manager: a limit below q3's reservation
+        runner.enable_memory_manager(CLUSTER_MEMORY_LIMIT, interval_s=0.01)
+        killed = None
+        try:
+            for _ in range(10):
+                CACHE.clear()
+                try:
+                    with _task_launches(device, launches):
+                        runner.execute(q3, properties={"scan_cache": False})
+                except QueryFailedError as e:
+                    killed = str(e)
+                    break
+        finally:
+            mm = runner.memory_manager
+            mm.stop()
+            runner.memory_manager = None
+        if killed is None or "exceeded cluster memory limit" not in killed:
+            raise AssertionError(f"q3 ran under a {CLUSTER_MEMORY_LIMIT} B "
+                                 f"cluster limit: {killed}")
+        print(f"cluster memory manager: q3 killed at "
+              f"{json.dumps(mm.killed)} B reserved against a "
+              f"{CLUSTER_MEMORY_LIMIT} B limit: {killed[:120]} "
+              f"(part {lap():.3f} s)", flush=True)
+
+        # (d) a subprocess worker joins by announcement, serves q1 and q3
+        srv = PrestoTpuServer(runner=runner, discovery=discovery)
+        srv.start()
+        url = f"http://127.0.0.1:{srv.port}"
+        env = {k: v for k, v in os.environ.items()
+               if k != "PRESTO_TPU_TORCH_TRACE"}
+        env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        proc = sp.Popen(
+            [sys.executable, "-m", "presto_tpu_torch.server.worker",
+             "--device", device, "--tpch-sf", str(sf),
+             "--coordinator", url], stdout=sp.PIPE, env=env, text=True)
+        hello = json.loads(proc.stdout.readline())
+        wurl = f"http://127.0.0.1:{hello['port']}"
+        deadline = time.time() + 60
+        while wurl not in discovery.active_urls():
+            if time.time() > deadline or proc.poll() is not None:
+                raise AssertionError(f"the subprocess worker never "
+                                     f"announced (exit {proc.poll()})")
+            time.sleep(0.05)
+        boot_s = time.perf_counter() - t0
+        client = StatementClient(url, user="cluster")
+        sub0 = _worker_kernel_calls(wurl, device)
+        for name in ("q1", "q3"):
+            CACHE.clear()
+            t0 = time.perf_counter()
+            with _task_launches(device, launches):
+                rows = client.execute(queries[name]).rows
+            wall = time.perf_counter() - t0
+            _same_rows(rows, _json_rows(cpu_rows[name]), 1e-9,
+                       f"cluster {name} over http")
+            print(f"cluster {name} over http on {CLUSTER_WORKERS + 1} "
+                  f"workers (one a subprocess): {wall:.3f} s cold, rows "
+                  f"equal the cpu rows", flush=True)
+        sub = {k: v - sub0[k]
+               for k, v in _worker_kernel_calls(wurl, device).items()}
+        if min(sub.values()) <= 0:
+            raise AssertionError(f"the subprocess worker's own launches "
+                                 f"{sub}")
+        req = urllib.request.Request(
+            f"{wurl}/v1/info/state", method="PUT",
+            data=json.dumps("SHUTTING_DOWN").encode())
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=30):
+            pass
+        code = proc.wait(timeout=5.0 + CLUSTER_EXIT_SLACK_S)
+        exit_s = time.perf_counter() - t0
+        print(f"cluster subprocess worker: booted and announced in "
+              f"{boot_s:.3f} s; its /v1/metrics counts its own launches "
+              f"{json.dumps(sub)}; drained and exited (code {code}) "
+              f"{exit_s:.3f} s after SHUTTING_DOWN (part {lap():.3f} s)",
+              flush=True)
+        if code != 0:
+            raise AssertionError(f"the drained worker exited with {code}")
+        srv.stop()
+        srv = None
+
+        # (c) the chaos scenarios on the device
+        summary = chaos.run_chaos(sf=chaos_sf, device=device,
+                                  straggler_sleep_s=straggler_s)
+        if not summary.get("ok") or summary.get("orphans") \
+                or SPOOL.query_dirs():
+            raise AssertionError(f"chaos: {summary}, spool directories "
+                                 f"{SPOOL.query_dirs()}")
+        print(f"cluster chaos at sf {chaos_sf}: "
+              f"{json.dumps(summary['scenarios'])}; 0 spool directories "
+              f"left (part {lap():.3f} s)", flush=True)
+    finally:
+        if srv is not None:
+            srv.stop()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        runner.detector.stop()
+        for w in workers:
+            w.stop()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched inside the workers' "
+                             f"tasks: {launches}")
+    wall = time.perf_counter() - t_phase
+    print(f"cluster launches in the workers' tasks: {json.dumps(launches)}"
+          f"; in the subprocess worker {json.dumps(sub)} | phase wall "
+          f"{wall:.3f} s ({wall - cpu_s:.3f} s without the cpu reference "
+          f"runs)", flush=True)
+    return launches, sub
+
+
 def main() -> None:
     t_start = time.perf_counter()
     flags = ("--kernels-only", "--surface-only", "--files-only",
              "--chains-only", "--spill-only", "--statements-only",
-             "--mesh-only", "--serving-only", "--frontdoor-only")
+             "--mesh-only", "--serving-only", "--frontdoor-only",
+             "--cluster-only")
     if sys.argv[1:] and (len(sys.argv) != 2 or sys.argv[1] not in flags):
         fail("device", f"unknown arguments {sys.argv[1:]}")
     only = sys.argv[1] if len(sys.argv) == 2 else None
@@ -3195,7 +3606,9 @@ def main() -> None:
                               ("--serving-only", "serving",
                                phase_serving),
                               ("--frontdoor-only", "frontdoor",
-                               phase_frontdoor)):
+                               phase_frontdoor),
+                              ("--cluster-only", "cluster",
+                               phase_cluster)):
         if only == flag:
             try:
                 phase(torch)
@@ -3264,17 +3677,29 @@ def main() -> None:
             torch, {**tpch_cpu_rows, **tpch_cpu_more})
     except Exception as e:  # noqa: BLE001
         fail("frontdoor", f"{type(e).__name__}: {e}")
+    try:
+        task_launches, sub_launches = phase_cluster(
+            torch, {**tpch_cpu_rows, **tpch_cpu_more},
+            local_walls=LOCAL_COLD_WALLS)
+    except Exception as e:  # noqa: BLE001
+        fail("cluster", f"{type(e).__name__}: {e}")
+    cluster_launches = {k: v + sub_launches[k]
+                        for k, v in task_launches.items()}
     for entry in entries:
         # launches over every phase that drives the engine: path, tpch,
         # tpcds, scan, surface, files, chains, spill, statements, mesh,
-        # serving and frontdoor
+        # serving, frontdoor and cluster
         entry["launches"] = sum(p[entry["name"]] for p in (
             launches, tpch_launches, tpcds_launches, scan_launches,
             surface_launches, files_launches, chains_launches,
             spill_launches, statements_launches, mesh_launches,
-            serving_launches, frontdoor_launches))
+            serving_launches, frontdoor_launches, cluster_launches))
         entry["serving_launches"] = serving_launches[entry["name"]]
         entry["frontdoor_launches"] = frontdoor_launches[entry["name"]]
+        # the workers' tasks: in this process and in the subprocess
+        # worker (counted there, read from its /v1/metrics)
+        entry["cluster_launches"] = cluster_launches[entry["name"]]
+        entry["cluster_subprocess_launches"] = sub_launches[entry["name"]]
         # the mesh runs' share, and its split over the slots
         entry["mesh_launches"] = mesh_launches[entry["name"]]
         entry["mesh_slot_launches"] = mesh_slots[entry["name"]]

@@ -25,11 +25,13 @@ The counterpart of ``presto_tpu/config.py``:
         resource-groups.json     root groups and selectors
 
   ``server_from_etc`` boots a statement server from it on a device (the
-  GPU unless one is named). ``NodeConfig`` parses every key the JAX
-  package parses, so one etc directory boots both packages; the
-  ``spool.*`` and ``autoscale.*`` keys configure modules the port does
-  not have yet (``exec/spool.py``, ``exec/autoscale.py``), and a config
-  that sets them fails the boot rather than being half applied.
+  GPU unless one is named), and a worker (``server/worker.py
+  --etc-dir``) boots from the same loaders. ``NodeConfig`` parses every
+  key the JAX package parses, so one etc directory boots both packages.
+  ``spool.*`` configures the exchange spool (``configure_spool``);
+  ``autoscale.enabled=true`` needs a module the port does not have yet
+  (``exec/autoscale.py``), and a config that sets it fails the boot
+  rather than being half applied.
 
 Environment defaults (read where the property is resolved, when the
 session leaves it unset): ``PRESTO_TPU_TORCH_MESH_EXECUTION`` for
@@ -70,13 +72,36 @@ def _sp(name: str, type_: str, default, doc: str,
                                                validator)
 
 
+def _valid_retry_policy(v):
+    p = str(v).upper()
+    if p not in ("TASK", "QUERY", "NONE"):
+        raise SessionPropertyError(
+            f"retry_policy must be TASK, QUERY or NONE, got {v!r}")
+    return p
+
+
+def _valid_duration(v):
+    from .exec.cluster import parse_duration_s
+    try:
+        parse_duration_s(v)
+    except ValueError as e:
+        raise SessionPropertyError(str(e)) from None
+    return v
+
+
 _sp("broadcast_join_row_limit", "integer", 4_000_000,
     "build sides at or under this many estimated rows broadcast; "
     "larger ones hash-partition")
+_sp("cluster_memory_limit", "integer", None,
+    "cluster-wide reservation cap in bytes; the coordinator memory "
+    "manager kills the largest query above it")
 _sp("dense_grouping", "boolean", True,
     "allow the stats-bounded dense (scatter-path) GROUP BY plan")
 _sp("enable_dynamic_filtering", "boolean", True,
     "build-side key bounds filter the probe side at runtime")
+_sp("exchange_failure_timeout_s", "double", 45.0,
+    "seconds an exchange client retries transport loss before failing "
+    "the upstream task")
 _sp("fair_scheduling", "boolean", True,
     "time-slice concurrent queries through the device scheduler")
 _sp("fused_compact_floor", "integer", 1 << 17,
@@ -92,6 +117,12 @@ _sp("grouped_execution", "boolean", True,
     "(lifespan) at a time")
 _sp("join_dense_path", "boolean", True,
     "stats-driven dense-key direct-address join builds")
+_sp("join_pallas_probe", "boolean", True,
+    "accepted for the JAX package's sessions, where it chooses between "
+    "its fused Pallas probe and a plain XLA gather; it changes no row. "
+    "The port's unique-build probe is always the CUDA kernel on the GPU "
+    "(csrc/probe.cu) and its plain version on the CPU, whatever the "
+    "value")
 
 
 def _valid_mesh_execution(v):
@@ -166,25 +197,22 @@ _sp("query_max_memory", "integer", None,
     "per-query memory pool limit in bytes (join builds, aggregation "
     "states and sorts spill beyond it)")
 
-
-def _valid_duration(v):
-    from .server.resource_groups import parse_duration_s
-    try:
-        parse_duration_s(v)
-    except ValueError as e:
-        raise SessionPropertyError(str(e)) from None
-    return v
-
-
-_sp("query_queued_timeout", "varchar", None,
+_sp("query_max_run_time", "duration", None,
+    "wall-clock deadline (e.g. 30s, 500ms); the query aborts past it",
+    _valid_duration)
+_sp("query_queued_timeout", "duration", None,
     "admission deadline (e.g. 5s): a statement still queued in its "
     "resource group past it fails with QUERY_QUEUED_TIMEOUT "
     "(server/protocol.py)", _valid_duration)
+_sp("query_retry_attempts", "integer", 1,
+    "whole-query re-runs under retry_policy=QUERY")
 _sp("result_cache", "boolean", False,
     "serve repeated statements from the versioned result cache "
     "(serving/resultcache.py): stored host rows when every scanned "
     "table's data_version matches, changed-split delta recompute + "
     "distributive merge when a file table grew append-only")
+_sp("retry_policy", "varchar", "TASK",
+    "fault-tolerance mode: TASK, QUERY or NONE", _valid_retry_policy)
 _sp("role", "varchar", None,
     "active role for access-control checks (SET ROLE)")
 _sp("scan_cache", "boolean", True,
@@ -201,8 +229,19 @@ _sp("scan_threads", "integer", 2,
 _sp("shared_scan", "boolean", True,
     "attach concurrent identical-split scan misses to one in-flight "
     "decode instead of racing duplicates")
+_sp("speculative_execution", "boolean", True,
+    "duplicate straggler tasks on another node, first finished wins")
+_sp("speculative_spool_reads", "boolean", True,
+    "on an exchange transport failure with a committed spool copy, "
+    "race the spool replay against a resumed live pull (first "
+    "complete remainder wins, loser cancelled) instead of committing "
+    "to the replay")
 _sp("spill_partitions", "integer", 16,
     "hash partitions of spilled join builds and aggregation states")
+_sp("spool_exchange", "boolean", True,
+    "write exchange pages through to the durable page-addressed spool "
+    "under retry_policy=TASK (false keeps acked pages in the workers' "
+    "memory instead)")
 _sp("spill_path", "varchar", None,
     "directory for second-tier disk spill pages")
 _sp("spill_to_disk_bytes", "integer", 4 << 30,
@@ -212,6 +251,10 @@ _sp("stats_bounded_grouping", "boolean", True,
     "attach hard per-key bounds from connector stats to aggregations")
 _sp("task_concurrency", "integer", 1,
     "driver threads running a grouped aggregation's partial step")
+_sp("task_retry_attempts", "integer", 2,
+    "per-task retry budget under retry_policy=TASK")
+_sp("task_retry_backoff_s", "double", 0.05,
+    "base backoff between task retry attempts (exponential)")
 
 _TRUE = ("true", "1", "on", "yes")
 _FALSE = ("false", "0", "off", "no")
@@ -400,9 +443,9 @@ def _opt(props: Dict[str, str], key: str, cast, default=None):
 class NodeConfig:
     """Parsed etc/config.properties (reference ServerConfig, NodeConfig
     and the session-default slice of SystemSessionProperties). Every key
-    of the JAX package's ``NodeConfig`` is parsed; the ``spool.*`` and
-    ``autoscale.*`` values are read by ``server_from_etc`` only to refuse
-    them (``unported_keys``)."""
+    of the JAX package's ``NodeConfig`` is parsed; the ``spool.*`` block
+    goes to ``configure_spool``, and ``autoscale.enabled=true`` is read
+    by ``server_from_etc`` only to refuse it (``unported_keys``)."""
 
     def __init__(self, props: Dict[str, str]):
         self.props = props
@@ -419,7 +462,7 @@ class NodeConfig:
         #: process-wide result-cache host-row budget
         #: (serving/resultcache.py); None keeps the built-in default
         self.result_cache_bytes = _opt(props, "result-cache.max-bytes", int)
-        #: exchange-spool backend config (the JAX package's exec/spool.py)
+        #: exchange-spool backend config (exec/spool.py SPOOL)
         self.spool_dir = props.get("spool.dir")
         self.spool_max_bytes = _opt(props, "spool.max-bytes", int)
         self.spool_backend = props.get("spool.backend")
@@ -462,13 +505,11 @@ class NodeConfig:
 
     def unported_keys(self) -> Dict[str, str]:
         """The set keys that configure a module the port does not have
-        yet, each mapped to that module: ``spool.*`` (exec/spool.py, the
-        cluster) and ``autoscale.enabled=true`` (exec/autoscale.py)."""
-        out = {k: "exec/spool.py" for k in sorted(self.props)
-               if k.startswith("spool.")}
+        yet, each mapped to that module: ``autoscale.enabled=true``
+        (exec/autoscale.py)."""
         if self.autoscale_enabled:
-            out["autoscale.enabled"] = "exec/autoscale.py"
-        return out
+            return {"autoscale.enabled": "exec/autoscale.py"}
+        return {}
 
 
 def load_node_config(etc_dir: str) -> NodeConfig:
@@ -487,6 +528,28 @@ def load_resource_groups(etc_dir: str):
         return None
     with open(path) as f:
         return json.load(f)
+
+
+def configure_spool(cfg: NodeConfig,
+                    directory: Optional[str] = None) -> None:
+    """Apply a NodeConfig's ``spool.*`` block to the process-wide store
+    (both the coordinator and the worker boot paths come here); a config
+    without one leaves the store as it is."""
+    if not (directory or cfg.spool_dir or cfg.spool_max_bytes is not None
+            or cfg.spool_backend or cfg.spool_object_dir
+            or cfg.spool_object_put_latency_s is not None
+            or cfg.spool_object_get_latency_s is not None
+            or cfg.spool_object_bandwidth_mbps is not None):
+        return
+    from .exec.spool import SPOOL
+    SPOOL.configure(
+        directory=directory or cfg.spool_dir,
+        max_bytes=cfg.spool_max_bytes,
+        backend=cfg.spool_backend,
+        object_dir=cfg.spool_object_dir,
+        object_put_latency_s=cfg.spool_object_put_latency_s,
+        object_get_latency_s=cfg.spool_object_get_latency_s,
+        object_bandwidth_mbps=cfg.spool_object_bandwidth_mbps)
 
 
 def server_from_etc(etc_dir: str, host: str = "127.0.0.1",
@@ -514,6 +577,7 @@ def server_from_etc(etc_dir: str, host: str = "127.0.0.1",
     load_plugins_from_config(cfg.props)
     catalogs = load_catalogs(etc_dir, device=device)
     apply_node_config(cfg.props)
+    configure_spool(cfg)
     if cfg.failpoints:
         from .exec.failpoints import FAILPOINTS
         FAILPOINTS.configure_from_spec(cfg.failpoints)

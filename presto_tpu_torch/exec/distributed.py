@@ -327,11 +327,12 @@ def select_mesh(session: Session, plan: LogicalPlan,
 #: buckets give the greedy re-balancer ~25%-of-a-shard granularity
 _RESPLIT_FACTOR = 4
 
-#: the engine's one definition of "skewed": the coordinator
-#: StageMonitor's verdict ratio (``presto_tpu/exec/cluster.py``
-#: ``StageMonitor.skew_ratio``; the cluster is not ported, so the port
-#: keeps its value here)
-SKEW_RATIO = 4.0
+def _skew_ratio() -> float:
+    """The engine's one definition of "skewed": the coordinator
+    StageMonitor's verdict ratio (``exec/cluster.py``) also decides when
+    the mesh exchange re-splits hot buckets."""
+    from .cluster import StageMonitor
+    return float(StageMonitor.skew_ratio)
 
 
 def _per_dest_quota(counts: np.ndarray, assign: Sequence[int],
@@ -369,7 +370,7 @@ class _PartitionMap:
             b % n for b in range(self.buckets))
         self.epoch = 0
         self.adaptive = bool(adaptive) and n > 1
-        self.ratio = float(ratio) if ratio is not None else SKEW_RATIO
+        self.ratio = float(ratio) if ratio is not None else _skew_ratio()
         self.changes = 0
         self._totals = np.zeros(self.buckets, dtype=np.int64)
 

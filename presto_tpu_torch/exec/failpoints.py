@@ -3,8 +3,8 @@
 The counterpart of ``presto_tpu/exec/failpoints.py`` (the role of the
 reference's ``@Failpoint``-style fault hooks): production code calls
 ``FAILPOINTS.hit("site.name", key=...)`` at interesting seams (scan
-decode, mesh repartition, and, once their modules are ported, the
-worker task run, exchange pull, heartbeat ping and spool I/O), and the
+decode, mesh repartition, the worker task run, exchange pull, heartbeat
+ping and spool I/O), and the
 call is a dictionary miss unless a test or the
 ``PRESTO_TPU_TORCH_FAILPOINTS`` environment variable armed that site.
 
@@ -30,10 +30,12 @@ Spec grammar (environment variable), ``;``-separated entries::
     PRESTO_TPU_TORCH_FAILPOINTS='mesh.repartition=error:boom,times:1;\
 scan.decode=sleep:0.5,prob:0.1,seed:7'
 
-Sites in use in the port: ``scan.decode`` (``exec/scancache.py``) and
-``mesh.repartition`` (``exec/distributed.py``). The other sites are
-declared as the reference declares them; their call sites arrive with
-the server, spool, cluster and serving modules.
+Sites in use in the port: ``scan.decode`` (``exec/scancache.py``),
+``mesh.repartition`` (``exec/distributed.py``), ``worker.task_run``,
+``exchange.pull``, ``exchange.spec_live`` and ``exchange.spec_replay``
+(``server/worker.py``), ``heartbeat.ping`` (``exec/cluster.py``), the
+``spool.*`` sites (``exec/spool.py``) and the serving plane's
+(``protocol.serve``, ``plancache.plan``, ``resultcache.*``).
 """
 from __future__ import annotations
 

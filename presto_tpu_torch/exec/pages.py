@@ -19,6 +19,14 @@ compression, a marker byte), byte for byte the same format:
   payload of more than 256 bytes.
 
 ARRAY and MAP columns have no wire form yet.
+
+The producer half of the cluster's exchange is ``serialize_partitioned``:
+it hash-partitions a batch's live rows with the mesh exchange's value
+hash (``parallel/exchange.hash_partition_ids``), so both sides of a
+partitioned join land matching rows in the same buffer, and encodes one
+page per non-empty partition. A batch on the GPU crosses to the host
+once, all its columns and the partition ids together, and is sliced
+there.
 """
 from __future__ import annotations
 
@@ -70,25 +78,68 @@ def _encode(schema: Schema, arrays: List[np.ndarray],
     return MAGIC + struct.pack("<BB", _VERSION, marker) + payload
 
 
-def _host_columns(batch: Batch):
-    """(row mask, live data, live validity, vocabularies) of a batch as
-    host numpy arrays: one copy from the device per column."""
+def _to_host(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """Host numpy copies of ``tensors``. From the GPU the copies are
+    queued on the stream into pinned buffers and waited for once, so a
+    batch costs one synchronization, not one per column."""
+    if not tensors or tensors[0].device.type != "cuda":
+        return [t.cpu().numpy() for t in tensors]
+    outs = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        outs.append(h)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [h.numpy() for h in outs]
+
+
+def _host_columns(batch: Batch, extra: Optional[torch.Tensor] = None):
+    """(row mask, live data, live validity, vocabularies, live ``extra``)
+    of a batch as host numpy arrays, copied from the device together."""
     for c in batch.columns:
         if isinstance(c.data, tuple):
             raise NotImplementedError(
                 f"{c.type.display()} columns have no page encoding")
-    mask = batch.row_mask.cpu().numpy()
-    arrays = [c.data.cpu().numpy()[mask] for c in batch.columns]
-    valids = [c.validity.cpu().numpy()[mask] for c in batch.columns]
+    n = len(batch.columns)
+    tensors = [batch.row_mask] + [c.data for c in batch.columns] \
+        + [c.validity for c in batch.columns] \
+        + ([extra] if extra is not None else [])
+    host = _to_host(tensors)
+    mask = host[0]
+    arrays = [a[mask] for a in host[1:1 + n]]
+    valids = [v[mask] for v in host[1 + n:1 + 2 * n]]
     dicts = [c.dictionary if c.type.is_string else None
              for c in batch.columns]
-    return mask, arrays, valids, dicts
+    live_extra = host[-1][mask] if extra is not None else None
+    return mask, arrays, valids, dicts, live_extra
 
 
 def serialize_page(batch: Batch, compress: bool = True) -> bytes:
     """Encode a batch's live rows (copies the batch to the host)."""
-    _, arrays, valids, dicts = _host_columns(batch)
+    _, arrays, valids, dicts, _ = _host_columns(batch)
     return _encode(batch.schema, arrays, valids, dicts, compress)
+
+
+def serialize_partitioned(batch: Batch, key_indices: List[int],
+                          n_parts: int,
+                          compress: bool = True) -> List[Optional[bytes]]:
+    """Hash-partition live rows by key columns (value-deterministic, so
+    both join sides land matching rows in the same bucket) and encode one
+    page per non-empty partition, None for an empty one: the producer
+    half of the exchange (reference
+    operator/PartitionedOutputOperator.java:48)."""
+    from ..parallel.exchange import hash_partition_ids
+    pid = hash_partition_ids(batch, list(key_indices), n_parts)
+    _, arrays, valids, dicts, pid = _host_columns(batch, pid)
+    out: List[Optional[bytes]] = []
+    for p in range(n_parts):
+        sel = pid == p
+        if not sel.any():
+            out.append(None)
+            continue
+        out.append(_encode(batch.schema, [a[sel] for a in arrays],
+                           [v[sel] for v in valids], dicts, compress))
+    return out
 
 
 def deserialize_arrays(data: bytes):

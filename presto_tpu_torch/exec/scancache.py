@@ -67,6 +67,7 @@ import weakref
 from collections import OrderedDict
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
+from .._devtools.lockcheck import checked_rlock, guarded_by
 from ..batch import Batch, bucket_capacity
 from ..connectors import spi
 from ..memory import QueryMemoryPool, batch_device_bytes
@@ -140,12 +141,18 @@ class ScanCache:
     key attach to ONE in-flight decode (``join_inflight`` /
     ``finish_inflight``) instead of racing duplicate decodes."""
 
+    #: guarded-field contracts (lockcheck): the entry map and the
+    #: in-flight decode table only under the cache lock (task threads of
+    #: several in-process workers scan into one cache)
+    _entries = guarded_by(attr="_lock")
+    _inflight = guarded_by(attr="_lock")
+
     def __init__(self, limit_bytes: int = DEFAULT_CACHE_BYTES,
                  label: str = ""):
         self.pool = QueryMemoryPool(limit_bytes)
         self._entries: "OrderedDict[Tuple, _Entry]" = OrderedDict()
         self._inflight: Dict[Tuple, _InFlight] = {}
-        self._lock = threading.RLock()
+        self._lock = checked_rlock("scancache.entries")
         self._resident = REGISTRY.gauge(
             "scan_cache_resident_bytes" + (f".{label}" if label else ""))
 

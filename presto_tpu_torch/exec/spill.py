@@ -138,19 +138,42 @@ def _gather_chunks(schema: Schema,
 
 
 class SpillFile:
-    """Append-only temporary file of compressed wire pages, unlinked on
-    close (the role of reference spiller/FileSingleStreamSpiller.java's
-    file IO, synchronous here: staging already freed the device)."""
+    """Append-only file of compressed wire pages (the role of the
+    reference's spiller/FileSingleStreamSpiller.java file IO, synchronous
+    here: staging already freed the device).
 
-    def __init__(self, directory: Optional[str] = None):
-        fd, self.path = tempfile.mkstemp(
-            prefix="presto-tpu-spill-", suffix=".bin", dir=directory)
-        self._f = os.fdopen(fd, "w+b")
+    Two construction modes share one read/append surface:
+
+    - anonymous (the default): a temporary file unlinked on close, whose
+      lifetime is the operator's;
+    - named (``path=``, ``delete=False``): a durable file at a chosen
+      location that survives close. The exchange spool
+      (``exec/spool.py``) builds its page logs on this, where another
+      process, or a consumer that outlives the writer, reads the bytes
+      back after the writing task is gone; ``flush()`` makes appended
+      bytes visible to those readers.
+    """
+
+    def __init__(self, directory: Optional[str] = None,
+                 path: Optional[str] = None, delete: bool = True):
+        self.delete = delete
+        if path is not None:
+            self.path = path
+            self._f = open(path, "a+b")
+        else:
+            fd, self.path = tempfile.mkstemp(
+                prefix="presto-tpu-spill-", suffix=".bin", dir=directory)
+            self._f = os.fdopen(fd, "w+b")
 
     def append(self, data: bytes) -> Tuple[int, int]:
         off = self._f.seek(0, os.SEEK_END)
         self._f.write(data)
         return off, len(data)
+
+    def flush(self) -> None:
+        """Push appended bytes to the OS, so readers of the path (spool
+        consumers in another process) see complete frames."""
+        self._f.flush()
 
     def read(self, off: int, length: int) -> bytes:
         self._f.seek(off)
@@ -160,10 +183,11 @@ class SpillFile:
         try:
             self._f.close()
         finally:
-            try:
-                os.unlink(self.path)
-            except OSError:
-                pass
+            if self.delete:
+                try:
+                    os.unlink(self.path)
+                except OSError:
+                    pass
 
 
 def _chunk_host_bytes(ch: _StagedChunk) -> int:

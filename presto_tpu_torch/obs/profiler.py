@@ -93,11 +93,15 @@ _DEVICE_SECONDS = REGISTRY.counter("kernel_device_seconds_total")
 
 
 class KernelRecord:
-    """One hand-written kernel's ledger."""
+    """One hand-written kernel's ledger. Its launches and plain calls
+    are also the process's ``kernel_launches_total.<name>`` and
+    ``kernel_plain_calls_total.<name>`` counters, so a worker's
+    ``/v1/metrics`` shows the launches its own tasks made."""
 
     __slots__ = ("name", "kernel", "source", "launches", "plain_calls",
                  "profiled_calls", "device_time_s", "bytes_profiled",
-                 "build_seconds", "_lock")
+                 "build_seconds", "_lock", "_launch_counter",
+                 "_plain_counter")
 
     def __init__(self, name: str, kernel: str, source: str):
         self.name = name
@@ -111,6 +115,10 @@ class KernelRecord:
         self.bytes_profiled = 0
         self.build_seconds = 0.0
         self._lock = threading.Lock()
+        self._launch_counter = REGISTRY.counter(
+            f"kernel_launches_total.{name}")
+        self._plain_counter = REGISTRY.counter(
+            f"kernel_plain_calls_total.{name}")
 
     def note_call(self, launched: bool) -> None:
         with self._lock:
@@ -118,6 +126,7 @@ class KernelRecord:
                 self.launches += 1
             else:
                 self.plain_calls += 1
+        (self._launch_counter if launched else self._plain_counter).inc()
 
     def note_profiled(self, seconds: float, nbytes: int) -> None:
         with self._lock:

@@ -25,9 +25,15 @@ Enable with ``TRACER.enable()`` or ``PRESTO_TPU_TORCH_TRACE=1``; write a
 query's spans with ``write_chrome_trace(path, TRACER.export())``. A mesh
 query's flight recorder rounds (``obs/flight.chrome_events``) join its
 spans in the Chrome trace as a "mesh rounds" process, one lane per
-attribution bucket. The re-parenting of spans carried over the wire
-(``task_span``, ``import_spans``) belongs to the cluster and is not
-ported yet.
+attribution bucket.
+
+Across the cluster, ``context()`` rides each task-create document; the
+worker's task thread opens ``task_span(ctx, ...)``, a span re-parented
+under the coordinator's stage span, and the coordinator harvests each
+worker's spans after the query and merges them with ``import_spans``
+(deduplicated by span id: in-process workers share this ring). A task
+thread starts in a fresh context, so its spans hang off the wire-carried
+parent and never off whatever span the HTTP handler's thread held.
 """
 from __future__ import annotations
 
@@ -168,6 +174,18 @@ class Tracer:
             return Span(self, name, parent.trace_id, parent.span_id, attrs)
         return Span(self, name, uuid.uuid4().hex[:16], None, attrs)
 
+    def task_span(self, ctx: Optional[Dict], name: str, **attrs):
+        """Span re-parented from a wire-carried context (a worker task
+        resuming a coordinator trace). ``ctx`` is what ``context()``
+        produced on the sending side; None or a malformed one degrades
+        to a plain ``span()``."""
+        if not self.enabled:
+            return NOOP_SPAN
+        if not isinstance(ctx, dict) or "traceId" not in ctx:
+            return self.span(name, **attrs)
+        return Span(self, name, str(ctx["traceId"]),
+                    ctx.get("spanId"), attrs)
+
     def context(self) -> Optional[Dict]:
         """Serializable context of the current span (trace and span
         ids); None when disabled or outside a span."""
@@ -202,13 +220,30 @@ class Tracer:
                 span.finish()
         return gen()
 
-    # -- export --------------------------------------------------------------
+    # -- export / merge ------------------------------------------------------
     def export(self, trace_id: Optional[str] = None) -> List[Dict]:
         with self._lock:
             spans = list(self._ring)
         if trace_id is not None:
             spans = [s for s in spans if s["traceId"] == trace_id]
         return spans
+
+    def import_spans(self, spans: List[Dict]) -> int:
+        """Merge foreign (worker-exported) spans, deduplicating by span
+        id: in-process workers share this ring with the coordinator, so
+        a harvest must not record a span twice. Returns spans added."""
+        if not spans:
+            return 0
+        with self._lock:
+            seen = {s.get("spanId") for s in self._ring}
+            added = 0
+            for s in spans:
+                if not isinstance(s, dict) or s.get("spanId") in seen:
+                    continue
+                seen.add(s.get("spanId"))
+                self._ring.append(s)
+                added += 1
+            return added
 
 
 #: the process-wide tracer

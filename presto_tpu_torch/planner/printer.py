@@ -205,6 +205,70 @@ def format_scan_cache_summary(stats, device) -> str:
             f"prefetch stall {stall_s * 1e3:,.1f}ms")
 
 
+def format_retry_summary(info) -> str:
+    """Fault-tolerance section appended to cluster EXPLAIN ANALYZE:
+    task retries, speculative attempts, and the per-event detail the
+    recovery layer recorded (exec/cluster._QueryExecution.summary()).
+    Empty string when the query ran clean — the common case must not
+    grow the plan output."""
+    retries = int(info.get("retries") or 0)
+    q_retries = int(info.get("query_retries") or 0)
+    launched = int(info.get("speculative_launched") or 0)
+    won = int(info.get("speculative_won") or 0)
+    replays = sum(1 for ev in info.get("events") or ()
+                  if ev.get("kind") == "spool_replay")
+    if not (retries or q_retries or launched or won or replays):
+        return ""
+    head = (f"Fault tolerance [{info.get('policy', 'TASK')}]: "
+            f"{retries} task retr{'y' if retries == 1 else 'ies'}, "
+            f"{launched} speculative launched, {won} won"
+            + (f", {q_retries} query rerun"
+               f"{'' if q_retries == 1 else 's'}" if q_retries else "")
+            + (f", {replays} spool replay"
+               f"{'' if replays == 1 else 's'}" if replays else ""))
+    lines = [head]
+    for ev in info.get("events") or ():
+        kind = ev.get("kind", "")
+        if kind == "task_retry":
+            lines.append(
+                f"  retry {ev.get('task')} (attempt "
+                f"{ev.get('attempt')}) {ev.get('from')} -> "
+                f"{ev.get('to')}: {str(ev.get('reason', ''))[:120]}")
+        elif kind == "speculative_launched":
+            lines.append(f"  speculate {ev.get('task')} on "
+                         f"{ev.get('worker')} (straggler "
+                         f"{ev.get('straggler')})")
+        elif kind == "speculative_won":
+            lines.append(f"  speculative win {ev.get('task')} on "
+                         f"{ev.get('worker')}")
+        elif kind == "spool_replay":
+            lines.append(f"  spool replay {ev.get('task')} "
+                         f"(worker {ev.get('worker')} gone, output "
+                         f"served from spool — not re-run)")
+    return "\n".join(lines)
+
+
+def format_kernels_registry(max_rows: int = 12) -> str:
+    """Process-lifetime kernels section of a cluster EXPLAIN ANALYZE
+    under profile mode (per-query attribution lives on the workers):
+    the hand kernels this process launched, by device time. In-process
+    workers share the coordinator's registry; a subprocess worker keeps
+    its own (``system.runtime.executables`` and ``/v1/metrics`` there).
+    Empty when nothing launched or was profiled."""
+    from ..obs.profiler import KERNELS
+    rows = [e for e in KERNELS.snapshot()
+            if e["launches"] or e["profiled_calls"]]
+    if not rows:
+        return ""
+    lines = ["Kernels (process lifetime, by device time):"]
+    for e in rows[:max_rows]:
+        lines.append(
+            f"  {e['name']:<24} x{e['launches']:<6} device "
+            f"{e['device_time_s'] * 1e3:,.1f}ms, build "
+            f"{e['build_seconds']:,.2f}s")
+    return "\n".join(lines)
+
+
 def format_executables_summary(stats, max_rows: int = 12) -> str:
     """EXPLAIN ANALYZE's kernels section under profile mode: the hand
     kernels this query launched, by device time, with their build

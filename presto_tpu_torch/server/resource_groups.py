@@ -80,30 +80,12 @@ def _parse_limit_bytes(v) -> Optional[int]:
     return int(v)
 
 
-#: duration strings accepted by ``queryQueuedTimeout`` (reference
-#: io.airlift.units.Duration): bare numbers are seconds
-_DURATION_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*(ms|s|m|h)?\s*$")
-_DURATION_UNITS = {"ms": 1e-3, "s": 1.0, "m": 60.0, "h": 3600.0, None: 1.0}
-
-
-def parse_duration_s(value) -> Optional[float]:
-    """'500ms' | '30s' | '5m' | '2h' | 12.5 -> seconds; None/'' -> None
-    (the JAX package keeps this helper in ``exec/cluster.py``)."""
-    if value is None or value == "":
-        return None
-    if isinstance(value, (int, float)):
-        return float(value)
-    m = _DURATION_RE.match(str(value))
-    if m is None:
-        raise ValueError(f"bad duration {value!r} (want e.g. 30s, 500ms)")
-    return float(m.group(1)) * _DURATION_UNITS[m.group(2)]
-
-
 def _parse_timeout_s(v) -> Optional[float]:
     if v is None:
         return None
     if isinstance(v, (int, float)):
         return float(v)
+    from ..exec.cluster import parse_duration_s
     return parse_duration_s(v)
 
 

@@ -596,9 +596,12 @@ def split_predicate(session, spec: IncrementalSpec, new_files):
 
 def begin(key: bytes, plan, session, device, rows_per_batch: int,
           cancel_event=None, stats=None):
-    """The runner's entry point: try to serve from the cache; on a miss
-    return ``(None, token)`` where ``token`` carries the pre-execution
-    dep/epoch stamps for :func:`commit`."""
+    """One entry point for both runners (``LocalRunner`` and
+    ``ClusterRunner`` must agree on keying, epochs and the write veto):
+    try to serve from the cache; on a miss return ``(None, token)`` where
+    ``token`` carries the pre-execution dep/epoch stamps for
+    :func:`commit`. A hit, partial hit and delta run stay on ``device``,
+    the coordinator's, even for a cluster query."""
     served = serve(key, session, device, rows_per_batch,
                    cancel_event=cancel_event, stats=stats)
     if served is not None:

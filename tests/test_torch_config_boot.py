@@ -1,7 +1,7 @@
 """Config-directory boot, discovery, plugins and the authenticators of
 presto_tpu_torch against presto_tpu: the port's counterparts of
-tests/test_config_discovery.py (all but the worker-announce case, which
-waits for the cluster), tests/test_plugin.py and the authenticator
+tests/test_config_discovery.py (the worker-announce case included),
+tests/test_plugin.py and the authenticator
 cases of tests/test_security.py, plus parity of the parsed node config,
 of the loaded catalogs and of both authenticators' tokens. Values are
 held exactly; the SQL results are integers."""
@@ -145,14 +145,32 @@ def test_node_config_parses_every_reference_key(tmp_path):
                                  "spool.max-bytes=300",
                                  "autoscale.enabled=true"])
 def test_server_from_etc_refuses_unported_keys(tmp_path, key):
+    """``autoscale.enabled=true`` needs exec/autoscale.py, which the
+    port does not have yet: the boot refuses it. The ``spool.*`` keys
+    configure exec/spool.py, which the port now has: the boot applies
+    them to the process-wide store (restored afterwards, so later tests
+    of this process see the default store)."""
     from presto_tpu_torch.config import server_from_etc
+    from presto_tpu_torch.exec.spool import SPOOL
+    spool_dir = str(tmp_path / "spool")
     etc = _write_etc(tmp_path, {
         "tiny": "connector.name=tpch\ntpch.scale-factor=0.01\n"},
-        extra=key + "\n")
-    module = "exec/autoscale.py" if key.startswith("autoscale") \
-        else "exec/spool.py"
-    with pytest.raises(NotImplementedError, match=module):
-        server_from_etc(etc, port=0, device="cpu")
+        extra=key.replace("/tmp/spool", spool_dir) + "\n")
+    if key.startswith("autoscale"):
+        with pytest.raises(NotImplementedError, match="exec/autoscale.py"):
+            server_from_etc(etc, port=0, device="cpu")
+        return
+    local = SPOOL.local_store
+    saved = (local._dir, local.max_bytes, SPOOL.object_store.max_bytes)
+    try:
+        srv, _ = server_from_etc(etc, port=0, device="cpu")
+        srv.stop()
+        if key.startswith("spool.dir"):
+            assert SPOOL.local_store.directory == spool_dir
+        else:
+            assert SPOOL.usage()["max_bytes"] == 300
+    finally:
+        local._dir, local.max_bytes, SPOOL.object_store.max_bytes = saved
 
 
 def test_server_from_etc(tmp_path):
@@ -253,6 +271,44 @@ def test_announcer_joins_and_leaves_a_statement_server():
         assert srv.discovery.active_urls() == []
     finally:
         srv.stop()
+
+
+def test_worker_announces_to_statement_server():
+    """End to end: a worker joins a coordinator by announcement and a
+    discovery-fed ClusterRunner schedules on it, in both packages."""
+    from presto_tpu.exec.cluster import ClusterRunner as JCluster
+    from presto_tpu.server.protocol import PrestoTpuServer as JServer
+    from presto_tpu.server.worker import WorkerServer as JWorker
+    from presto_tpu_torch.exec.cluster import ClusterRunner
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.server import PrestoTpuServer
+    from presto_tpu_torch.server.worker import WorkerServer
+    rows = []
+    for srv, worker, make_runner in (
+            (PrestoTpuServer(LocalRunner(tpch_sf=0.01, device="cpu")),
+             WorkerServer(tpch_sf=0.01, device="cpu"),
+             lambda d: ClusterRunner(discovery=d, tpch_sf=0.01,
+                                     heartbeat=False, device="cpu")),
+            (JServer(), JWorker(tpch_sf=0.01),
+             lambda d: JCluster(discovery=d, tpch_sf=0.01,
+                                heartbeat=False))):
+        srv.start()
+        worker.start()
+        try:
+            worker.start_announcing(f"http://127.0.0.1:{srv.port}",
+                                    interval_s=0.5)
+            deadline = time.time() + 10
+            while not srv.discovery.active_urls() \
+                    and time.time() < deadline:
+                time.sleep(0.05)
+            assert srv.discovery.active_urls() == [
+                f"http://127.0.0.1:{worker.port}"]
+            rows.append(make_runner(srv.discovery).execute(
+                "select count(*) from nation").rows)
+        finally:
+            worker.stop()
+            srv.stop()
+    assert rows[0] == rows[1] == [(25,)]
 
 
 # -- tests/test_plugin.py ------------------------------------------------------

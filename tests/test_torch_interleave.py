@@ -213,11 +213,13 @@ def test_guarded_field_attr_form_resolves_per_instance():
 
 
 def test_engine_caches_are_guard_annotated():
+    from presto_tpu_torch.exec.scancache import ScanCache
     from presto_tpu_torch.serving.plancache import IdentMemo, PlanCache
     from presto_tpu_torch.serving.resultcache import ResultCache
     for cls, fields in ((PlanCache, ("_entries", "_epoch")),
                         (ResultCache, ("_entries", "_epoch")),
-                        (IdentMemo, ("_entries",))):
+                        (IdentMemo, ("_entries",)),
+                        (ScanCache, ("_entries", "_inflight"))):
         for f in fields:
             d = getattr(cls, f)
             assert type(d).__name__ == "_GuardedField", (cls, f)

@@ -68,6 +68,11 @@ def test_sources_found():
                 "serving/fleet.py", "config.py", "server/security.py",
                 "obs/profiler.py"):
         assert (ROOT / "presto_tpu_torch" / rel) in _SOURCES, rel
+    # the cluster: plan codec, exchange spool, worker and coordinator
+    for rel in ("exec/backoff.py", "planner/codec.py", "exec/spool.py",
+                "server/worker.py", "exec/cluster.py",
+                "_devtools/chaos.py"):
+        assert (ROOT / "presto_tpu_torch" / rel) in _SOURCES, rel
     assert (ROOT / "presto_tpu_torch" / "parallel" / "mesh.py") \
         in _SOURCES
     assert (ROOT / "presto_tpu_torch" / "_devtools" / "lockcheck.py") \
@@ -144,3 +149,28 @@ def test_profiled_takes_its_device():
     params = inspect.signature(profiler.profiled).parameters
     assert params["device"].default is inspect.Parameter.empty
     assert params["on"].default is inspect.Parameter.empty
+
+
+def test_cluster_without_device_needs_a_gpu(monkeypatch):
+    """With no device named and no GPU, a worker, a cluster runner and
+    the worker's command line raise as LocalRunner does; each runs on
+    the CPU only when asked."""
+    from presto_tpu_torch.exec.cluster import ClusterRunner
+    from presto_tpu_torch.server import worker
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.WorkerServer(tpch_sf=0.001)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ClusterRunner(["http://127.0.0.1:1"], tpch_sf=0.001,
+                      heartbeat=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker.main(["--tpch-sf", "0.001"])
+    w = worker.WorkerServer(tpch_sf=0.001, device="cpu")
+    w.start()
+    try:
+        assert w.device.type == "cpu"
+    finally:
+        w.stop()
+    r = ClusterRunner(["http://127.0.0.1:1"], tpch_sf=0.001,
+                      heartbeat=False, device="cpu")
+    assert r.device.type == "cpu"

@@ -328,12 +328,13 @@ def test_skewed_build_resplits_and_keeps_parity(parity):
            "where o_orderkey = l_orderkey and l_linenumber = 1 "
            "group by 1 order by 1")
     resplits0 = REGISTRY.counter("mesh_repartition_resplit_total").value
-    old = D.SKEW_RATIO
-    D.SKEW_RATIO = 1.01
+    from presto_tpu_torch.exec.cluster import StageMonitor
+    old = StageMonitor.skew_ratio
+    StageMonitor.skew_ratio = 1.01
     try:
         parity.check(sql, 8, broadcast_join_row_limit=1)
     finally:
-        D.SKEW_RATIO = old
+        StageMonitor.skew_ratio = old
     assert REGISTRY.counter("mesh_repartition_resplit_total").value \
         > resplits0
 

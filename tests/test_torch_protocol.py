@@ -9,9 +9,10 @@ sends them as strings).
 Then the port's counterparts of the server cases of tests/test_protocol.py,
 test_security.py, test_serving.py, test_serving_cache.py,
 test_resource_groups.py, test_slo.py, test_explain_formats.py and
-test_timeseries.py (the coordinator half of the history endpoint), and a
-check that no context variable leaks between statements that share a
-worker thread. Every server listens on port 0 and stops in a finally."""
+test_timeseries.py (both halves of the history endpoint), the worker and
+coordinator metrics endpoints of test_obs_ops.py over a three-worker
+cluster, and a check that no context variable leaks between statements
+that share a worker thread. Every server listens on port 0 and stops in a finally."""
 import base64
 import contextlib
 import json
@@ -887,6 +888,80 @@ def test_idle_pool_worker_keeps_no_statement_alive(monkeypatch):
         assert ref() is None
     finally:
         srv.stop()
+
+
+# -- the cluster's endpoints (tests/test_obs_ops.py, tests/test_timeseries.py) -
+
+@pytest.fixture(scope="module")
+def worker_cluster():
+    from presto_tpu_torch.exec.cluster import ClusterRunner
+    from presto_tpu_torch.server.worker import WorkerServer
+    workers = [WorkerServer(tpch_sf=0.001, device="cpu") for _ in range(3)]
+    for w in workers:
+        w.start()
+    runner = ClusterRunner([f"http://127.0.0.1:{w.port}" for w in workers],
+                           tpch_sf=0.001, heartbeat=False, device="cpu")
+    yield runner, workers
+    for w in workers:
+        w.stop()
+
+
+def test_worker_metrics_endpoint(worker_cluster):
+    from presto_tpu_torch.obs.exposition import parse_exposition
+    runner, workers = worker_cluster
+    runner.execute("select count(*) from nation")
+    url = f"http://127.0.0.1:{workers[0].port}/v1/metrics"
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        assert resp.headers["Content-Type"].startswith("text/plain")
+        text = resp.read().decode()
+    samples, types = parse_exposition(text)
+    assert samples and types
+    assert samples[("cluster_queries_total", ())] >= 1
+    assert types["query_seconds"] == "histogram"
+    assert text.rstrip().endswith("# EOF")
+
+
+def test_coordinator_metrics_endpoint(worker_cluster):
+    """The coordinator's /v1/metrics carries the node-labelled series
+    federated from the three workers' heartbeats."""
+    from presto_tpu_torch.obs.exposition import parse_exposition
+    crunner, _ = worker_cluster
+    crunner.execute("select count(*) from region")
+    srv = PrestoTpuServer(LocalRunner(tpch_sf=0.001, device="cpu"))
+    with serving(srv) as base:
+        with urllib.request.urlopen(f"{base}/v1/metrics",
+                                    timeout=10) as resp:
+            samples, types = parse_exposition(resp.read().decode())
+    ups = [lbl for (n, lbl), v in samples.items() if n == "node_up"]
+    assert len(ups) >= 3
+    assert types["node_heartbeat_age_seconds"] == "gauge"
+
+
+def test_history_endpoint_on_worker(health_plane):
+    """A worker serves the windowed-history doc as the coordinator does;
+    the route wins over the /v1/metrics prefix."""
+    from presto_tpu_torch.server.worker import WorkerServer
+    TIMESERIES, _ = health_plane
+    TIMESERIES.registry.counter("history_ep_total").inc(5)
+    TIMESERIES.sample()
+    TIMESERIES.registry.counter("history_ep_total").inc(5)
+    TIMESERIES.sample()
+    w = WorkerServer(tpch_sf=0.001, device="cpu")
+    w.start()
+    try:
+        base = f"http://127.0.0.1:{w.port}"
+        status, _, doc = _request(
+            f"{base}/v1/metrics/history?name=history_ep_total&window=300")
+        assert status == 200
+        assert doc["kind"] == "counter" and doc["points"]
+        with urllib.request.urlopen(f"{base}/v1/metrics",
+                                    timeout=10) as r:
+            assert b"history_ep_total" in r.read()
+        assert _request(f"{base}/v1/metrics/history")[0] == 400
+        assert _request(
+            f"{base}/v1/metrics/history?name=nope_total")[0] == 404
+    finally:
+        w.stop()
 
 
 def test_protocol_suite_lock_graph_clean():

@@ -3,7 +3,8 @@ cache (``serving/plancache.py``) and the resource-group bridge
 (``serving/groups.py``) with the fair scheduler's group shares, the
 plan-cache and group cases of tests/test_serving.py. The statement
 server's cases are in tests/test_torch_protocol.py, the fleet's in
-tests/test_torch_fleet.py; the cluster's wait for the cluster.
+tests/test_torch_fleet.py; the cluster's case (a statement server in
+front of a ClusterRunner) is the last one here.
 
 Each plan-cache case runs the same statements through both packages'
 LocalRunners (TPC-H SF 0.001 as in the reference's file, SF 0.01 where
@@ -370,3 +371,66 @@ def test_serving_phase_rehearsed_on_the_cpu():
     launches = smoke.phase_serving(torch, None, device="cpu", sf=0.01,
                                    rows_per_batch=1 << 12)
     assert min(launches.values()) > 0, launches
+
+
+def _metric(name: str) -> float:
+    return float(REGISTRY.counter(name).value)
+
+
+def test_cluster_runner_through_admission_and_plan_cache():
+    """The statement server fronts a ClusterRunner with the same
+    resource-group admission, serving handoff and plan cache that a
+    LocalRunner gets: repeated statements skip parse/plan/optimize, the
+    admitting group's slot frees on every exit path, and the query's
+    quanta bill the group's scheduler share on the in-process workers;
+    its rows equal the reference cluster's."""
+    from presto_tpu.exec.cluster import ClusterRunner as JCluster
+    from presto_tpu.server.worker import WorkerServer as JWorker
+    from presto_tpu_torch.exec.cluster import ClusterRunner
+    from presto_tpu_torch.exec.taskexec import GLOBAL
+    from presto_tpu_torch.server.protocol import (
+        PrestoTpuServer, _runner_accepts_serving,
+    )
+    from presto_tpu_torch.server.worker import WorkerServer
+    workers = [WorkerServer(tpch_sf=0.001, device="cpu") for _ in range(2)]
+    jworkers = [JWorker(tpch_sf=0.001) for _ in range(2)]
+    for w in workers + jworkers:
+        w.start()
+    runner = ClusterRunner([f"http://127.0.0.1:{w.port}" for w in workers],
+                           tpch_sf=0.001, heartbeat=False, device="cpu")
+    assert _runner_accepts_serving(runner)
+    srv = PrestoTpuServer(runner=runner, resource_groups={
+        "rootGroups": [{"name": "fleet", "hardConcurrencyLimit": 2,
+                        "schedulingWeight": 3}],
+        "selectors": [{"group": "fleet"}]})
+    try:
+        sql = ("select n_regionkey, count(*) c from nation "
+               "group by n_regionkey order by n_regionkey")
+        h0 = _metric("plan_cache_hit_total")
+        q1 = srv.create_query(sql, {}, user="alice")
+        q1.done.wait(timeout=60)
+        assert q1.state == "FINISHED", q1.error
+        q2 = srv.create_query(sql, {}, user="alice")
+        q2.done.wait(timeout=60)
+        assert q2.state == "FINISHED", q2.error
+        assert _metric("plan_cache_hit_total") >= h0 + 1
+        info = srv.resource_groups.info()[0]
+        assert info["numRunning"] == 0 and info["numQueued"] == 0
+        assert any(k.endswith("/fleet") for k in GLOBAL.group_shares()), \
+            GLOBAL.group_shares().keys()
+        q3 = srv.create_query(sql, {"retry_policy": "BOGUS"})
+        q3.done.wait(timeout=60)
+        assert q3.state == "FAILED"
+        q4 = srv.create_query(sql, {"retry_policy": "NONE"})
+        q4.done.wait(timeout=60)
+        assert q4.state == "FINISHED", q4.error
+        jrunner = JCluster([f"http://127.0.0.1:{w.port}" for w in jworkers],
+                           tpch_sf=0.001, heartbeat=False)
+        assert runner.execute(sql).rows == jrunner.execute(sql).rows
+    finally:
+        srv.stop()
+        for w in workers + jworkers:
+            try:
+                w.stop()
+            except Exception:
+                pass

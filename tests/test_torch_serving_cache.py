@@ -1,8 +1,8 @@
 """Plan templates and the versioned result cache of presto_tpu_torch
 (``serving/template.py``, ``serving/resultcache.py``) against
 presto_tpu: the cases of tests/test_serving_cache.py up to its statement
-server case (in tests/test_torch_protocol.py) and cluster case, which
-waits for the cluster.
+server case (in tests/test_torch_protocol.py), and its cluster case on
+both packages' ClusterRunners.
 
 Each case runs the same statements through both packages' LocalRunners
 over the same catalogs (TPC-H SF 0.01, a memory catalog, an ORC catalog
@@ -532,3 +532,44 @@ def test_template_cache_invalidated_by_write(files):
     assert len(TEMPLATES) <= n0
     rows, d = files.check(sql % 1, properties=TPROPS)
     assert d["plan_template_cache_miss_total"] == 1
+
+
+def test_cluster_template_and_result_cache_parity():
+    """Row-exact parity on the ClusterRunner path, in both packages:
+    template-cached plans materialize their bindings before fragmenting,
+    and result-cache hits serve the stored rows."""
+    from presto_tpu.exec.cluster import ClusterRunner as JCluster
+    from presto_tpu.server.worker import WorkerServer as JWorker
+    from presto_tpu_torch.exec.cluster import ClusterRunner
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    from presto_tpu_torch.server.worker import WorkerServer
+    workers = [WorkerServer(tpch_sf=0.001, device="cpu") for _ in range(2)]
+    jworkers = [JWorker(tpch_sf=0.001) for _ in range(2)]
+    for w in workers + jworkers:
+        w.start()
+    try:
+        out = []
+        for runner, reg in (
+                (ClusterRunner([f"http://127.0.0.1:{w.port}"
+                                for w in workers], tpch_sf=0.001,
+                               heartbeat=False, device="cpu"), REGISTRY),
+                (JCluster([f"http://127.0.0.1:{w.port}" for w in jworkers],
+                          tpch_sf=0.001, heartbeat=False), JREG)):
+            props = {**TPROPS, **RPROPS}
+            sql = ("select n_regionkey, count(*) c from nation "
+                   "where n_nationkey > %d group by n_regionkey "
+                   "order by n_regionkey")
+            cold = [runner.execute(sql % k).rows for k in (3, 7)]
+            warm = [runner.execute(sql % k, properties=props).rows
+                    for k in (3, 7)]
+            assert warm == cold
+            h0 = reg.counter("result_cache_hit_total").value
+            again = [runner.execute(sql % k, properties=props).rows
+                     for k in (3, 7)]
+            assert again == cold
+            assert reg.counter("result_cache_hit_total").value == h0 + 2
+            out.append(cold)
+        assert out[0] == out[1]
+    finally:
+        for w in workers + jworkers:
+            w.stop()
