@@ -275,6 +275,40 @@ result line):
    kernel never launched inside the workers' tasks; the kernels line
    carries each kernel's cluster launches (the workers' tasks in this
    process and the subprocess worker's, which it also shows apart).
+16. autoscale: the elasticity control loop (``exec/autoscale.py``,
+   ``_devtools/chaos.py``'s drills). (a) ``server_from_etc(etc,
+   device="cuda")`` from an etc directory with ``autoscale.enabled=true``
+   (AUTOSCALE_MIN_WORKERS to AUTOSCALE_MAX_WORKERS workers, one per step,
+   AUTOSCALE_INTERVAL_S ticks, AUTOSCALE_COOLDOWN_S cooldown), a spool
+   directory, TPC-H at AUTOSCALE_SF (1) and one resource group of
+   concurrency 1: the boot seats the floor worker (``python -m
+   presto_tpu_torch.server.worker --device cuda --etc-dir ...``, launched
+   by the controller's ``LocalProcessProvider``), the server serves a
+   ``ClusterRunner`` over its discovery (2^23-row batches), and
+   AUTOSCALE_CLIENTS (6) clients each sending Q3 after Q3 queue deep: the
+   controller confirms ``scale_up`` and launches subprocess workers on
+   the card, which announce and take the queued Q3s (each equal to the
+   CPU rows); the load holds until the pool is at its ceiling and every
+   worker launched both kernels; once idle, ``scale_down`` drains the
+   pool back to its floor (each drained process exits by itself, code
+   0), and the harness drains the floor worker. Prints each worker's
+   ready time, every action with its time, the pool size over time, the
+   counters and ``GET /v1/autoscale``'s policy and streaks; fails unless
+   ``autoscale_actions_total.scale_up`` and ``.scale_down`` moved and
+   every worker's ``/v1/metrics`` (read before its drain) counts its own
+   launches of both kernels. (b) ``run_elastic_ramp(device="cuda")`` at
+   the reference's RAMP (SF 0.02, 1 -> 3 -> 1 workers, 8 s windows, 4
+   clients, a 60 ms device floor in
+   ``PRESTO_TPU_TORCH_DEVICE_FLOOR_MS``, 16384-row batches): no failed
+   query, the pool back at 1, peak QPS at least 1.5x the one-worker
+   floor, every drained worker exiting with code 0; the kernel libraries
+   are unchanged after (no worker built one). (c) the preemption storm and scale to zero (from the cluster
+   phase's chaos run; run alone, the phase runs the scenarios) and
+   ``run_fleet_chaos`` at CLUSTER_CHAOS_SF (0.1) on ``cuda``: rows equal
+   the fault-free run's, the spool and the object store end with no
+   per-query directory. Every line carries the card's name and power
+   limit. The kernels line carries each kernel's autoscale launches (the
+   autoscaled workers' own), also summed into its launches.
 
 Every breakdown line times the plan's table scans twice: with the scan
 cache cleared (host generation and the copy to the card) and as a warm
@@ -289,8 +323,8 @@ prints the kernels line; ``--surface-only`` runs phases 1 and 7 alone,
 ``--spill-only`` phases 1 and 10, ``--statements-only`` phases 1 and 11,
 ``--mesh-only`` phases 1 and 12, ``--serving-only`` phases 1 and 13,
 ``--frontdoor-only`` phases 1 and 14, ``--cluster-only`` phases 1 and
-15 (each computes its reference rows
-itself; the mesh phase's are the card's single-device runs).
+15, ``--autoscale-only`` phases 1 and 16 (each computes its reference
+rows itself; the mesh phase's are the card's single-device runs).
 Either times whichever ``presto_tpu_torch`` sits beside the script, so
 a copy of the script placed in a checkout of another commit measures
 that commit (turn by turn with this one, in one call, to compare them).
@@ -3215,6 +3249,10 @@ CLUSTER_EXIT_SLACK_S = 25.0
 #: cluster phase prints them beside its own cold walls; run alone, it
 #: measures them itself)
 LOCAL_COLD_WALLS = {}
+#: the summary of the cluster phase's chaos run (its preemption storm
+#: and scale to zero are read by the autoscale phase; run alone, that
+#: phase runs the scenarios itself)
+CLUSTER_CHAOS = {}
 #: the queries the JAX package's ClusterRunner does not run at SF 0.01
 #: (tests/test_torch_cluster*.py hold the port to its rows on all 22)
 CLUSTER_LEFT_OUT = ()
@@ -3553,6 +3591,8 @@ def phase_cluster(torch, tpch_cpu_rows=None, device="cuda", sf=CLUSTER_SF,
         print(f"cluster chaos at sf {chaos_sf}: "
               f"{json.dumps(summary['scenarios'])}; 0 spool directories "
               f"left (part {lap():.3f} s)", flush=True)
+        CLUSTER_CHAOS.clear()
+        CLUSTER_CHAOS.update(summary)
     finally:
         if srv is not None:
             srv.stop()
@@ -3573,12 +3613,418 @@ def phase_cluster(torch, tpch_cpu_rows=None, device="cuda", sf=CLUSTER_SF,
     return launches, sub
 
 
+#: the autoscale phase: (a) a coordinator booted from an etc directory with
+#: the autoscaler on (AUTOSCALE_MIN_WORKERS .. AUTOSCALE_MAX_WORKERS
+#: subprocess workers, one per step, AUTOSCALE_INTERVAL_S ticks,
+#: AUTOSCALE_COOLDOWN_S between actions) and one resource group of
+#: concurrency 1, AUTOSCALE_CLIENTS clients sending Q3 at AUTOSCALE_SF
+#: until the pool is at its ceiling and every worker served, then idle
+#: until the pool is back at its floor; (b) the reference's load ramp at
+#: RAMP; (c) the preemption storm, scale to zero and the coordinator-fleet
+#: drill at CLUSTER_CHAOS_SF
+AUTOSCALE_SF = 1
+AUTOSCALE_MIN_WORKERS = 1
+AUTOSCALE_MAX_WORKERS = 3
+AUTOSCALE_INTERVAL_S = 0.5
+AUTOSCALE_COOLDOWN_S = 2.0
+AUTOSCALE_CLIENTS = 6
+#: how long the load may take to grow the pool to its ceiling
+AUTOSCALE_LOAD_S = 150.0
+#: how long the idle pool may take to drain back to its floor
+AUTOSCALE_IDLE_S = 90.0
+#: tools/chaos_smoke.py's own ramp parameters (its ELASTIC_r02 run)
+RAMP = {"sf": 0.02, "phases": (1, 3, 1), "phase_s": 8.0, "clients": 4,
+        "device_floor_ms": 60.0, "rows_per_batch": 16384}
+
+
+def _write_autoscale_etc(root: str, sf) -> str:
+    """An etc directory for an autoscaling coordinator: tpch at ``sf``, a
+    spool directory, the autoscale policy, and one group of concurrency 1
+    so a load queues. The workers boot from the same directory."""
+    etc = os.path.join(root, "etc")
+    os.makedirs(os.path.join(etc, "catalog"))
+    with open(os.path.join(etc, "catalog", "tpch.properties"), "w") as f:
+        f.write(f"connector.name=tpch\ntpch.scale-factor={sf}\n")
+    with open(os.path.join(etc, "config.properties"), "w") as f:
+        f.write("coordinator=true\nhttp-server.http.port=0\n"
+                "session.catalog=tpch\n"
+                f"spool.dir={os.path.join(root, 'spool')}\n"
+                "autoscale.enabled=true\n"
+                f"autoscale.min-workers={AUTOSCALE_MIN_WORKERS}\n"
+                f"autoscale.max-workers={AUTOSCALE_MAX_WORKERS}\n"
+                "autoscale.scale-step=1\n"
+                f"autoscale.interval-s={AUTOSCALE_INTERVAL_S}\n"
+                f"autoscale.cooldown-s={AUTOSCALE_COOLDOWN_S}\n")
+    with open(os.path.join(etc, "resource-groups.json"), "w") as f:
+        json.dump({"rootGroups": [{"name": "autoscale",
+                                   "hardConcurrencyLimit": 1,
+                                   "maxQueued": 1000}],
+                   "selectors": [{"group": "autoscale"}]}, f)
+    return etc
+
+
+def _build_state():
+    """The built kernel libraries and their modification times: a worker
+    that built a kernel would change them."""
+    from presto_tpu_torch.ops import kernels
+    if not kernels.BUILD_DIR.exists():
+        return {}
+    return {p.name: p.stat().st_mtime_ns
+            for p in kernels.BUILD_DIR.iterdir()}
+
+
+def phase_autoscale(torch, tpch_cpu_rows=None, device="cuda", card="",
+                    sf=AUTOSCALE_SF, clients=AUTOSCALE_CLIENTS,
+                    ramp=RAMP,
+                    chaos_sf=CLUSTER_CHAOS_SF, chaos_summary=None,
+                    straggler_s=CLUSTER_STRAGGLER_S,
+                    rows_per_batch=ROWS_PER_BATCH):
+    """The autoscaler on the card (``device="cpu"`` rehearses the phase
+    on the CPU at a small ``sf``): (a) a coordinator booted from an etc
+    directory with ``autoscale.enabled=true`` scales its subprocess
+    workers up under a queue of Q3s and drains them back to the floor
+    when idle; (b) the 1 -> N -> 1 load ramp; (c) the preemption storm,
+    scale to zero (the cluster phase's run of them when given) and the
+    coordinator-fleet drill. Returns the launches of the autoscaled
+    workers' own tasks, read from their ``/v1/metrics``."""
+    import dataclasses
+    import gc
+    import tempfile
+    import threading
+
+    from presto_tpu_torch._devtools import chaos
+    from presto_tpu_torch.client import StatementClient
+    from presto_tpu_torch.config import server_from_etc
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.exec.spool import SPOOL
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    from presto_tpu_torch.obs.signals import cluster_signals
+    from presto_tpu_torch.serving.groups import live_managers
+    cuda = device == "cuda"
+    at = f"[{card}]" if card else f"[{device}]"
+    t_phase = time.perf_counter()
+    q3 = _queries()["q3"]
+    laps = [time.perf_counter()]
+
+    def lap():
+        laps.append(time.perf_counter())
+        return laps[-1] - laps[-2]
+
+    def counter(name):
+        return REGISTRY.counter(name).value
+
+    cpu_q3 = (tpch_cpu_rows or {}).get("q3") if cuda else None
+    cpu_s = 0.0
+    if cpu_q3 is None:
+        cpu_q3 = LocalRunner(tpch_sf=sf, device="cpu",
+                             rows_per_batch=rows_per_batch).execute(q3).rows
+        cpu_s = lap()
+        print(f"autoscale cpu reference rows of q3 {at}: {cpu_s:.3f} s",
+              flush=True)
+    want = _json_rows(cpu_q3)
+    actions = ("scale_up", "scale_down")
+    before = {a: counter(f"autoscale_actions_total.{a}") for a in actions}
+    evals0 = counter("autoscale_evaluations_total")
+
+    def blocked_counts():
+        prefix = "autoscale_blocked_total."
+        return {m["name"][len(prefix):]: m["value"]
+                for m in REGISTRY.collect()
+                if m["name"].startswith(prefix)}
+    blocked0 = blocked_counts()
+    build0 = _build_state()
+    root = tempfile.mkdtemp(prefix="smoke-autoscale-")
+    spool_settings = SPOOL.settings()
+    gc.collect()
+    foreign = sum(1 for m in live_managers())
+    launches = dict.fromkeys(("segment_sum_sorted_i64", "direct_probe"), 0)
+    per_worker = {}
+    srv = None
+    try:
+        # (a) the config-driven controller
+        etc = _write_autoscale_etc(root, sf)
+        t0 = time.perf_counter()
+        srv, cfg = server_from_etc(etc, device=device)
+        boot_s = time.perf_counter() - t0
+        ctl, prov, runner = srv.autoscaler, srv.autoscaler.provider, srv.runner
+        runner.rows_per_batch = runner.local.rows_per_batch = rows_per_batch
+        srv.start()
+        url = f"http://127.0.0.1:{srv.port}"
+        t_start = time.perf_counter()
+        # the feed's groups and nodes are every server's and cluster's
+        # of this process (earlier phases' too): the controller reads
+        # this coordinator's own groups and the nodes its discovery knows
+        own, stack = set(), list(srv.resource_groups.info())
+        while stack:
+            g = stack.pop()
+            own.add(g["id"])
+            stack.extend(g["subGroups"])
+
+        def own_signals():
+            snap = cluster_signals()
+            known = {n["nodeId"] for n in srv.discovery.nodes()}
+            return dataclasses.replace(
+                snap, groups=tuple(g for g in snap.groups
+                                   if g.group in own),
+                nodes=tuple(n for n in snap.nodes if n.node_id in known))
+        ctl.signals_fn = own_signals
+
+        events = []         # (seconds since start, what)
+        ready = {}          # node id -> seconds to its ready line
+        exits = {}          # node id -> (exit code, seconds to exit)
+        plain_launch, plain_drain = prov.launch, prov.drain
+
+        def launch():
+            t = time.perf_counter()
+            h = plain_launch()
+            ready[h.node_id] = time.perf_counter() - t
+            events.append((time.perf_counter() - t_start,
+                           f"launched {h.node_id} "
+                           f"(ready {ready[h.node_id]:.3f} s)"))
+            return h
+
+        def drain(h, timeout_s=30.0):
+            # the worker's own launches, read before it drains
+            per_worker[h.node_id] = _worker_kernel_calls(h.url, device)
+            t = time.perf_counter()
+            ok = plain_drain(h, timeout_s=timeout_s)
+            exits[h.node_id] = (h.proc.returncode,
+                                time.perf_counter() - t)
+            events.append((time.perf_counter() - t_start,
+                           f"drained {h.node_id} ({ok}, exit "
+                           f"{h.proc.returncode} after "
+                           f"{exits[h.node_id][1]:.3f} s)"))
+            return ok
+        prov.launch, prov.drain = launch, drain
+        plain_eval = ctl.evaluate
+
+        def evaluate(signals=None, now=None):
+            rep = plain_eval(signals, now)
+            for a in rep["applied"]:
+                events.append((time.perf_counter() - t_start,
+                               f"{a['action']} x{a['count']} "
+                               f"({a['reason']})"))
+            return rep
+        ctl.evaluate = evaluate
+
+        floor = prov.nodes()
+        # the boot launched the floor before the wrappers: its ready line
+        # came within the boot
+        ready.update({h.node_id: boot_s for h in floor})
+        deadline = time.time() + 60
+        while len(runner.worker_urls) < len(floor):
+            if time.time() > deadline:
+                raise AssertionError("the floor worker never announced")
+            time.sleep(0.05)
+        print(f"autoscale boot {at}: server_from_etc seated "
+              f"{len(floor)} worker(s) ({', '.join(n.node_id for n in floor)}"
+              f") in {boot_s:.3f} s, announced "
+              f"{time.perf_counter() - t_start:.3f} s after "
+              f"the server started; {foreign} resource-group managers "
+              f"live in the process, the controller reads its own groups "
+              f"{sorted(own)}", flush=True)
+
+        pool = []           # (seconds, workers, announced, queued)
+        sampling = threading.Event()
+
+        def sample():
+            last = None
+            while not sampling.wait(0.1):
+                g = own_signals().group("autoscale")
+                cur = (len(prov.nodes()), len(runner.worker_urls),
+                       g.queued if g else 0)
+                if cur != last:
+                    pool.append((time.perf_counter() - t_start, *cur))
+                    last = cur
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        walls, errors = [], []
+        stop_load = threading.Event()
+
+        def client(i):
+            # one client sends Q3 after Q3 until the load stops
+            sc = StatementClient(url, user=f"burst-{i}")
+            try:
+                while not stop_load.is_set():
+                    t = time.perf_counter()
+                    rows = sc.execute(q3).rows
+                    walls.append(time.perf_counter() - t)
+                    _same_rows(rows, want, 1e-9,
+                               f"autoscale q3 {len(walls)}")
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(f"client {i}: {type(e).__name__}: {e}")
+            finally:
+                sc.close()
+
+        def served(h):
+            return min(_worker_kernel_calls(h.url, device).values()) > 0
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(clients)]
+        for t in threads:
+            t.start()
+        try:
+            # the load holds until the pool is at its ceiling and every
+            # worker, the last joiner too, launched both kernels
+            deadline = time.time() + AUTOSCALE_LOAD_S
+            while not errors:
+                nodes = prov.nodes()
+                if len(nodes) >= AUTOSCALE_MAX_WORKERS \
+                        and all(served(h) for h in nodes):
+                    break
+                if time.time() > deadline:
+                    raise AssertionError(
+                        f"under load the pool reached {len(nodes)} "
+                        f"workers in {AUTOSCALE_LOAD_S} s: "
+                        f"{ctl.status()}")
+                time.sleep(0.5)
+        finally:
+            stop_load.set()
+            for t in threads:
+                t.join()
+        if errors:
+            raise AssertionError(f"load: {errors}")
+        burst_s = time.perf_counter() - t_start
+        grown = len(prov.nodes())
+        print(f"autoscale load {at}: {len(walls)} q3 at sf {sf} from "
+              f"{clients} clients over HTTP equal the cpu rows in "
+              f"{burst_s:.3f} s (walls {min(walls):.3f}-"
+              f"{max(walls):.3f} s, median "
+              f"{statistics.median(walls):.3f} s, behind a group of "
+              f"concurrency 1); the pool grew to {grown} workers, each "
+              f"serving (part {lap():.3f} s)", flush=True)
+        deadline = time.time() + AUTOSCALE_IDLE_S
+        while len(prov.nodes()) > AUTOSCALE_MIN_WORKERS:
+            if time.time() > deadline:
+                raise AssertionError(
+                    f"the idle pool stayed at {len(prov.nodes())} "
+                    f"workers: {ctl.status()}")
+            time.sleep(0.1)
+        idle_s = time.perf_counter() - t_start
+        status = json.loads(_http_get(f"{url}/v1/autoscale"))
+        sampling.set()
+        sampler.join(timeout=5)
+        for h in prov.nodes():
+            # the floor: drained like the rest, by the harness
+            if not prov.drain(h, timeout_s=60.0):
+                raise AssertionError(f"the floor worker {h.node_id} did "
+                                     f"not drain")
+        moved = {a: counter(f"autoscale_actions_total.{a}") - before[a]
+                 for a in actions}
+        for line in (f"t+{t:.3f} s {what}" for t, what in events):
+            print(f"autoscale action {at}: {line}", flush=True)
+        print(f"autoscale pool over time {at} (seconds, workers, "
+              f"announced, queued): "
+              + "; ".join(f"{t:.2f} {w} {a} {q}" for t, w, a, q in pool),
+              flush=True)
+        print(f"autoscale status {at}: policy {json.dumps(status['policy'])}, "
+              f"streaks {json.dumps(status['streaks'])}, "
+              f"{counter('autoscale_evaluations_total') - evals0:.0f} "
+              f"evaluations; actions {json.dumps(moved)}; blocked "
+              + json.dumps({k: v - blocked0.get(k, 0)
+                            for k, v in blocked_counts().items()
+                            if v > blocked0.get(k, 0)}), flush=True)
+        if min(moved.values()) < 1:
+            raise AssertionError(f"the controller's actions {moved}")
+        if status["policy"]["maxWorkers"] != AUTOSCALE_MAX_WORKERS \
+                or "streaks" not in status:
+            raise AssertionError(f"/v1/autoscale: {status}")
+        bad = {n: e for n, e in exits.items() if e[0] != 0}
+        if bad or len(exits) != len(ready):
+            raise AssertionError(f"drained workers' exits {exits}, "
+                                 f"launched {sorted(ready)}")
+        for node, calls in per_worker.items():
+            print(f"autoscale worker {node} {at}: ready line "
+                  f"{ready.get(node, boot_s):.3f} s after launch, own "
+                  f"launches {json.dumps(calls)}, drained and exited "
+                  f"(code {exits[node][0]}) {exits[node][1]:.3f} s after "
+                  f"SHUTTING_DOWN", flush=True)
+            if min(calls.values()) <= 0:
+                raise AssertionError(f"worker {node} launched "
+                                     f"{calls}")
+            for k, v in calls.items():
+                launches[k] += v
+        print(f"autoscale controller {at}: grew to {grown} and drained "
+              f"back to {AUTOSCALE_MIN_WORKERS} {idle_s - burst_s:.3f} s "
+              f"after the load stopped (part {lap():.3f} s)", flush=True)
+        srv.stop()
+        runner.detector.stop()
+        srv = None
+        print(f"autoscale coordinator stopped {at} (part {lap():.3f} s)",
+              flush=True)
+
+        # (b) the load ramp on subprocess workers
+        if ramp is not None:
+            ramp_events = []
+            t_ramp = time.perf_counter()
+
+            crashed = []
+
+            def on_event(kind, **f):
+                ramp_events.append(f"t+{time.perf_counter() - t_ramp:.3f} "
+                                   f"s {kind} {json.dumps(f)}")
+                if kind == "drain" and f["code"] != 0:
+                    crashed.append(f)
+            block = chaos.run_elastic_ramp(device=device,
+                                           on_event=on_event, **ramp)
+            ramp_events.append(f"t+{time.perf_counter() - t_ramp:.3f} s "
+                               f"returned")
+            for line in ramp_events:
+                print(f"autoscale ramp event {at}: {line}", flush=True)
+            if crashed:
+                raise AssertionError(f"drained ramp workers exited with "
+                                     f"{crashed}")
+            print(f"autoscale ramp {at}: "
+                  + "; ".join(f"{p['workers']} workers {p['qps']} qps "
+                              f"({p['queries']} queries, {p['failed']} "
+                              f"failed, {p['window_s']} s)"
+                              for p in block["phases"])
+                  + f"; peak_over_floor {block['peak_over_floor']} "
+                  f"(sf {block['sf']}, {block['clients']} clients, "
+                  f"device floor {block['device_floor_ms']} ms; part "
+                  f"{lap():.3f} s)", flush=True)
+        build1 = _build_state()
+        if build1 != build0:
+            raise AssertionError(f"a worker built a kernel: {build0} -> "
+                                 f"{build1}")
+
+        # (c) the drills on the device
+        summary = chaos_summary or chaos.run_chaos(
+            sf=chaos_sf, device=device, straggler_sleep_s=straggler_s)
+        orphans = SPOOL.query_dirs() + SPOOL.object_store.query_dirs()
+        if not summary.get("ok") or orphans:
+            raise AssertionError(f"chaos: {summary}, spool directories "
+                                 f"{orphans}")
+        whose = "" if chaos_summary is None else " (the cluster phase's)"
+        for name in ("preemption_storm", "scale_to_zero"):
+            print(f"autoscale {name} {at} at sf {summary['sf']}{whose}: "
+                  f"{json.dumps(summary['scenarios'][name])}", flush=True)
+        fleet = chaos.run_fleet_chaos(sf=chaos_sf, device=device)
+        print(f"autoscale fleet drill {at} at sf {chaos_sf}: "
+              f"{json.dumps(fleet['scenarios']['coordinator_kill'])}; "
+              f"elastic recovery {summary['elastic']['value']} ms; 0 spool "
+              f"directories left (part {lap():.3f} s)", flush=True)
+    finally:
+        if srv is not None:
+            srv.stop()
+            srv.runner.detector.stop()
+            srv.autoscaler.provider.stop_all()
+        SPOOL.restore(spool_settings)
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    print(f"autoscale launches in the autoscaled workers' tasks {at}: "
+          f"{json.dumps(launches)} | phase wall {wall:.3f} s "
+          f"({wall - cpu_s:.3f} s without the cpu reference run)",
+          flush=True)
+    return launches
+
+
+
 def main() -> None:
     t_start = time.perf_counter()
     flags = ("--kernels-only", "--surface-only", "--files-only",
              "--chains-only", "--spill-only", "--statements-only",
              "--mesh-only", "--serving-only", "--frontdoor-only",
-             "--cluster-only")
+             "--cluster-only", "--autoscale-only")
     if sys.argv[1:] and (len(sys.argv) != 2 or sys.argv[1] not in flags):
         fail("device", f"unknown arguments {sys.argv[1:]}")
     only = sys.argv[1] if len(sys.argv) == 2 else None
@@ -3608,7 +4054,10 @@ def main() -> None:
                               ("--frontdoor-only", "frontdoor",
                                phase_frontdoor),
                               ("--cluster-only", "cluster",
-                               phase_cluster)):
+                               phase_cluster),
+                              ("--autoscale-only", "autoscale",
+                               lambda torch: phase_autoscale(
+                                   torch, card=card))):
         if only == flag:
             try:
                 phase(torch)
@@ -3685,15 +4134,24 @@ def main() -> None:
         fail("cluster", f"{type(e).__name__}: {e}")
     cluster_launches = {k: v + sub_launches[k]
                         for k, v in task_launches.items()}
+    try:
+        autoscale_launches = phase_autoscale(
+            torch, {**tpch_cpu_rows, **tpch_cpu_more}, card=card,
+            chaos_summary=CLUSTER_CHAOS or None)
+    except Exception as e:  # noqa: BLE001
+        fail("autoscale", f"{type(e).__name__}: {e}")
     for entry in entries:
         # launches over every phase that drives the engine: path, tpch,
         # tpcds, scan, surface, files, chains, spill, statements, mesh,
-        # serving, frontdoor and cluster
+        # serving, frontdoor, cluster and autoscale
         entry["launches"] = sum(p[entry["name"]] for p in (
             launches, tpch_launches, tpcds_launches, scan_launches,
             surface_launches, files_launches, chains_launches,
             spill_launches, statements_launches, mesh_launches,
-            serving_launches, frontdoor_launches, cluster_launches))
+            serving_launches, frontdoor_launches, cluster_launches,
+            autoscale_launches))
+        # the autoscaled subprocess workers' own, from their /v1/metrics
+        entry["autoscale_launches"] = autoscale_launches[entry["name"]]
         entry["serving_launches"] = serving_launches[entry["name"]]
         entry["frontdoor_launches"] = frontdoor_launches[entry["name"]]
         # the workers' tasks: in this process and in the subprocess

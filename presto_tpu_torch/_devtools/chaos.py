@@ -30,23 +30,42 @@ fault-free run:
 - ``drain_exit``: a worker is put into SHUTTING_DOWN mid-query while the
   root still reads its output: it exits within its drain grace and the
   consumer finishes from the spool, with no task retry.
+- ``preemption_storm``: seeded Poisson preemptions (drain notices)
+  under query load, a replacement joining each time: no query fails and
+  at least one preempted worker's output is replayed from the spool.
+- ``scale_to_zero``: with the spool on the object-store backend, every
+  worker is killed after the source stage committed and two fresh ones
+  join: the query completes from the object store, and no object-spool
+  query is left (the process-wide spool's settings are restored after).
 
 Recovery is observed through ``system.runtime.metrics`` over SQL
 (``task_retry_total``, ``speculative_won_total``,
 ``spool_replayed_task_total``, ``exchange_spool_fallback_total``,
-``spool_corruption_total``, ``node_joined_total``); at the end the spool
-holds no per-query directory. The JAX package's preemption storm, scale
-to zero, coordinator-fleet drill and load ramp wait for the port's
-autoscaler (``exec/autoscale.py``).
+``spool_corruption_total``, ``node_joined_total``,
+``spool_object_put_total`` / ``_get_total``); at the end the spool
+holds no per-query directory, and ``summary["elastic"]`` holds the
+elastic scenarios' recovery times in the reference's bench format.
+
+``run_fleet_chaos`` kills one of three coordinators over one worker
+pool mid-run (no failed query, ``coordinator_lost_total`` over SQL).
+``run_elastic_ramp`` drives ``exec/autoscale.LocalProcessProvider``
+subprocess workers 1 -> N -> 1 under client load (drain-only
+scale-down; peak QPS at least 1.5x the one-worker floor).
 
 Run it: ``python -m presto_tpu_torch._devtools.chaos --device cpu``
-(prints a JSON summary).
+(prints a JSON summary; ``--ramp`` adds the load ramp's block,
+``--elastic-out PATH`` writes the elastic block, ``--fleet`` runs the
+fleet drill instead).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import random
+import shutil
 import sys
+import tempfile
 import threading
 import time
 
@@ -54,6 +73,14 @@ QUERY = ("select l_returnflag, l_linestatus, count(*) c, "
          "sum(l_quantity) q, sum(l_extendedprice) e from lineitem "
          "where l_shipdate <= date '1998-09-02' "
          "group by 1, 2 order by 1, 2")
+
+#: the load ramp's query: a selective scan, not an aggregate. Its device
+#: cost is the batches scanned (which shrink per worker as the pool
+#: grows), while its small result keeps exchange, sort and client cost
+#: flat; an aggregate collapses each task to about one output page
+RAMP_QUERY = ("select l_orderkey, l_linenumber, l_extendedprice "
+              "from lineitem where l_extendedprice > 90000 "
+              "order by 1, 2")
 
 
 def _metric_sql(runner, name: str) -> float:
@@ -471,6 +498,171 @@ def run_chaos(sf: float = 0.01, device=None, query: str = QUERY,
             not in runner._schedulable_workers()
         finish(task_retries=retries, spool_fallbacks=fallbacks)
 
+        # -- (j) preemption storm: workers are preemptible by design ---
+        # Poisson-cadence preemptions (seeded, so replayable) under
+        # sustained query load: every preemption is a drain notice
+        # (begin_shutdown: active tasks commit their spool, the worker
+        # stops), a replacement joins, and no query fails. The first
+        # preemption is deterministic (the drain_exit recipe), so at
+        # least one coordinator-side spool replay happens whatever the
+        # storm's timing
+        finish = scenario("preemption_storm")
+        # drain_exit left two live workers; the storm's two-live guard
+        # needs headroom after the deterministic first drain
+        while len(live_workers()) < 3:
+            add_worker()
+        before_replay = _metric_sql(runner, "spool_replayed_task_total")
+        before_fb = _metric_sql(runner,
+                                "exchange_spool_fallback_total")
+        victim6 = pick_victim()
+        preempted = threading.Event()
+        pre_lock = threading.Lock()
+
+        def preempt_after_finish(key="", **ctx):
+            with pre_lock:
+                if not preempted.is_set():
+                    wait_stage_finished(victim6, feed_fid)
+                    victim6.begin_shutdown()
+                    preempted.set()
+
+        FAILPOINTS.configure(
+            "exchange.pull", action="callback",
+            callback=preempt_after_finish, times=None,
+            match=rf":{victim6.port}/v1/task/[^/]*\.{feed_fid}\.\d+$")
+        FAILPOINTS.configure(
+            "exchange.pull", action="sleep", sleep_s=1.0, times=None,
+            match=rf":{victim6.port}/v1/task/[^/]*\.{feed_fid}\.\d+$")
+        _assert_rows_equal(runner.execute(query).rows, want,
+                           "preemption_storm")
+        FAILPOINTS.clear()
+        preemptions = [1]
+        storm_stop = threading.Event()
+        rng = random.Random(0xE1A57)
+
+        def storm() -> None:
+            # exponential inter-arrivals: a Poisson preemption process;
+            # never preempt below two live workers (a preemptible pool
+            # has a floor too: the autoscaler's min_workers)
+            while not storm_stop.wait(rng.expovariate(1 / 0.5)):
+                lw = live_workers()
+                if len(lw) < 2:
+                    continue
+                v = max(lw, key=lambda w: f"http://127.0.0.1:{w.port}")
+                v.begin_shutdown()
+                preemptions[0] += 1
+                add_worker()
+
+        st = threading.Thread(target=storm, daemon=True)
+        st.start()
+        storm_queries = 1
+        storm_deadline = time.time() + 60.0
+        try:
+            # bounded by preemptions, not by queries: on a warm cluster
+            # a fixed query budget can end before three arrivals land
+            # (the wall-clock cap guards a wedged storm thread)
+            while (storm_queries < 5 or preemptions[0] < 3) \
+                    and time.time() < storm_deadline:
+                _assert_rows_equal(runner.execute(query).rows, want,
+                                   "preemption_storm")
+                storm_queries += 1
+        finally:
+            storm_stop.set()
+            st.join(timeout=5)
+        while len(live_workers()) < 3:
+            add_worker()
+        replays = _metric_sql(
+            runner, "spool_replayed_task_total") - before_replay
+        fallbacks = _metric_sql(
+            runner, "exchange_spool_fallback_total") - before_fb
+        assert preemptions[0] >= 3, \
+            f"storm landed only {preemptions[0]} preemptions"
+        assert replays >= 1, \
+            "no preempted worker's output was replayed from the spool"
+        finish(queries=storm_queries, preemptions=preemptions[0],
+               spool_replays=replays, spool_fallbacks=fallbacks)
+
+        # -- (k) scale to zero: the worker set vanishes entirely -------
+        # mid-shuffle with the spool on the object-store backend (a
+        # latency-modeled GCS/S3 stand-in): every worker is killed after
+        # the source stage committed, two fresh workers join, and the
+        # query completes with the same rows: shuffle state outlived the
+        # whole worker set because it lives in the object store
+        finish = scenario("scale_to_zero")
+        obj_dir = tempfile.mkdtemp(prefix="chaos-objspool-")
+        saved_spool = SPOOL.settings()
+        SPOOL.configure(backend="object", object_dir=obj_dir,
+                        object_put_latency_s=0.002,
+                        object_get_latency_s=0.002)
+        try:
+            before = _metric_sql(runner, "task_retry_total")
+            before_replay = _metric_sql(runner,
+                                        "spool_replayed_task_total")
+            before_put = _metric_sql(runner, "spool_object_put_total")
+            before_get = _metric_sql(runner, "spool_object_get_total")
+            wiped = threading.Event()
+            wipe_lock = threading.Lock()
+
+            def wipe(key="", **ctx):
+                with wipe_lock:
+                    if wiped.is_set():
+                        return
+                    lw = live_workers()
+                    deadline = time.time() + 30.0
+                    while time.time() < deadline:
+                        src = [t for w in lw
+                               for t in list(w.tasks.values())
+                               if t.task_id.split(".")[1]
+                               == str(source_fid)]
+                        if src and all(t.state == "FINISHED"
+                                       for t in src):
+                            break
+                        time.sleep(0.05)
+                    else:
+                        raise AssertionError(
+                            "source stage never committed before "
+                            "the wipe")
+                    for w in lw:
+                        kill_worker(w)
+                    add_worker()
+                    add_worker()
+                    wiped.set()
+
+            FAILPOINTS.configure(
+                "exchange.pull", action="callback", callback=wipe,
+                times=None,
+                match=rf"/v1/task/[^/]*\.{source_fid}\.\d+$")
+            _assert_rows_equal(runner.execute(query).rows, want,
+                               "scale_to_zero")
+            FAILPOINTS.clear()
+            assert wiped.is_set(), "the wipe callback never fired"
+            replays = _metric_sql(
+                runner, "spool_replayed_task_total") - before_replay
+            retries = _metric_sql(runner, "task_retry_total") - before
+            puts = _metric_sql(
+                runner, "spool_object_put_total") - before_put
+            gets = _metric_sql(
+                runner, "spool_object_get_total") - before_get
+            assert replays >= 1, \
+                "no source task was preserved across the wipe"
+            assert retries >= 1, \
+                "no downstream task was re-created on fresh workers"
+            assert puts >= 1 and gets >= 1, \
+                f"object-store spool never moved (puts={puts}, " \
+                f"gets={gets})"
+            # per-query GC held across the wipe: no orphaned objects
+            obj_orphans = SPOOL.object_store.query_dirs()
+            assert not obj_orphans, \
+                f"orphaned object-spool queries: {obj_orphans}"
+            finish(spool_replays=replays, task_retries=retries,
+                   object_puts=puts, object_gets=gets,
+                   object_orphans=len(obj_orphans))
+        finally:
+            FAILPOINTS.clear()
+            SPOOL.restore(saved_spool)
+            shutil.rmtree(obj_dir, ignore_errors=True)
+        while len(live_workers()) < 3:
+            add_worker()
+
         # the retry count is part of the query history record
         res = runner.local.execute(
             "select retries from system.runtime.completed_queries "
@@ -494,6 +686,24 @@ def run_chaos(sf: float = 0.01, device=None, query: str = QUERY,
             rejected = "unknown failpoint site" in str(e)
         assert rejected, "typo'd failpoint spec was silently accepted"
         finish(rejected=True)
+
+        # the recovery-time summary of the elastic scenarios, in the
+        # reference's bench format (all *_ms: lower is better)
+        elastic_scenarios = ("worker_death", "spool_replay",
+                             "spool_corrupt", "worker_join",
+                             "drain_exit", "preemption_storm",
+                             "scale_to_zero")
+        summary["elastic"] = {
+            "metric": "elastic_recovery_ms",
+            "value": round(sum(
+                summary["scenarios"][s]["elapsed_s"]
+                for s in elastic_scenarios) * 1e3, 1),
+            "sub_metrics": [
+                {"metric": f"{s}_ms",
+                 "value": round(
+                     summary["scenarios"][s]["elapsed_s"] * 1e3, 1)}
+                for s in elastic_scenarios],
+        }
         summary["ok"] = True
         return summary
     finally:
@@ -506,6 +716,400 @@ def run_chaos(sf: float = 0.01, device=None, query: str = QUERY,
         runner.detector.stop()
 
 
+def run_fleet_chaos(sf: float = 0.01, coordinators: int = 3,
+                    clients: int = 2, per_client: int = 3, device=None,
+                    rows_per_batch: int = 1 << 17,
+                    verbose: bool = False) -> dict:
+    """Coordinator-death drill: an in-process fleet of ``coordinators``
+    statement servers over one shared worker pool on ``device`` (the GPU
+    when none is named), one coordinator killed mid-run.
+
+    Holds the fleet contract end to end: no failed query (the
+    ``FleetClient`` re-dispatches around the corpse), the survivors drop
+    the dead coordinator's federated resource-group counts once its
+    heartbeats age past the staleness grace, and the loss is counted:
+    ``coordinator_lost_total``, read back over SQL from a survivor."""
+    from ..client import FleetClient
+    from ..device import resolve_device
+    from ..exec.cluster import ClusterRunner
+    from ..exec.discovery import DiscoveryNodeManager
+    from ..exec.failpoints import FAILPOINTS
+    from ..server.protocol import PrestoTpuServer
+    from ..server.worker import WorkerServer
+    device = resolve_device(device)
+
+    def log(msg: str) -> None:
+        if verbose:
+            print(msg, file=sys.stderr, flush=True)
+
+    groups = {
+        "rootGroups": [
+            {"name": "serving", "hardConcurrencyLimit": 8,
+             "maxQueued": 1000}],
+        "selectors": [{"group": "serving"}]}
+
+    # one shared discovery plane = one shared worker pool: every
+    # coordinator's scheduler reads the same membership
+    discovery = DiscoveryNodeManager(ttl_s=3600.0)
+    worker = WorkerServer(tpch_sf=sf, device=device)
+    worker.start()
+    discovery.announce(worker.node_id,
+                       f"http://127.0.0.1:{worker.port}")
+
+    servers = []
+    summary: dict = {"sf": sf, "coordinators": coordinators,
+                     "device": str(device), "scenarios": {}}
+    FAILPOINTS.clear()
+    try:
+        for _ in range(coordinators):
+            runner = ClusterRunner(tpch_sf=sf, heartbeat=False,
+                                   discovery=discovery, device=device,
+                                   rows_per_batch=rows_per_batch)
+            srv = PrestoTpuServer(runner, resource_groups=groups,
+                                  discovery=discovery)
+            srv.start()
+            servers.append(srv)
+        urls = [f"http://127.0.0.1:{s.port}" for s in servers]
+        for i, srv in enumerate(servers):
+            srv.enable_fleet(
+                f"coord-{i}",
+                peers=[u for j, u in enumerate(urls) if j != i],
+                heartbeat_s=0.2, staleness_grace_s=0.6)
+        victim_idx = coordinators - 1
+        victim_id = f"coord-{victim_idx}"
+
+        # the kill only means something once the victim's heartbeats
+        # are in every survivor's federated admission view
+        deadline = time.time() + 10.0
+        while time.time() < deadline:
+            if all(victim_id in s.fleet.status()["remote"]
+                   for s in servers[:victim_idx]):
+                break
+            time.sleep(0.05)
+        else:
+            raise AssertionError(
+                "victim heartbeats never reached the survivors")
+
+        # warm every coordinator once (round-robin covers the fleet)
+        # and take the fault-free rows
+        warm = FleetClient(urls, user="fleet-chaos")
+        want = warm.execute(QUERY).rows
+        for _ in range(coordinators - 1):
+            _assert_rows_equal(warm.execute(QUERY).rows, want,
+                               "fleet_warmup")
+        warm.close()
+        log(f"fleet warm: {len(want)} rows via {coordinators} "
+            f"coordinators")
+
+        t0 = time.perf_counter()
+        total = clients * per_client
+        kill_after = max(1, total // 3)
+        done = [0]
+        count_lock = threading.Lock()
+        killed = threading.Event()
+        errors: list = []
+        fleet_clients = []
+        kill_gate = threading.Lock()
+
+        def ensure_killed() -> None:
+            # checked by every client before each dispatch: once the
+            # statement count passes the threshold the kill happens
+            # before every remaining dispatch, and the ring rotation
+            # puts at least one of them on the victim's slot (a polling
+            # killer thread can lose the race on a loaded host)
+            if killed.is_set():
+                return
+            with count_lock:
+                due = done[0] >= kill_after
+            if due:
+                with kill_gate:
+                    if not killed.is_set():
+                        log(f"killing {victim_id} after {done[0]} "
+                            f"statements")
+                        servers[victim_idx].kill()
+                        killed.set()
+
+        def client_run(ci: int) -> None:
+            fc = FleetClient(urls, user="fleet-chaos")
+            fleet_clients.append(fc)
+            for _ in range(per_client):
+                ensure_killed()
+                try:
+                    res = fc.execute(QUERY)
+                    _assert_rows_equal(res.rows, want,
+                                       "coordinator_kill")
+                except Exception as e:        # noqa: BLE001
+                    errors.append(f"client {ci}: {e!r}")
+                with count_lock:
+                    done[0] += 1
+
+        threads = [threading.Thread(target=client_run, args=(ci,))
+                   for ci in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert killed.is_set(), "the kill threshold was never reached"
+        assert not errors, f"queries failed across the kill: {errors}"
+
+        # deterministic failover probe: one more statement whose ring
+        # starts at the corpse (the concurrent clients may all have
+        # drawn their victim-slot visit before the kill)
+        probe = FleetClient(urls, user="fleet-chaos")
+        probe._rr = victim_idx
+        fleet_clients.append(probe)
+        _assert_rows_equal(probe.execute(QUERY).rows, want,
+                           "failover_probe")
+        probe.close()
+        total += 1
+
+        # survivors absorb the loss: the dead coordinator ages out of
+        # the federated admission view after the staleness grace and
+        # lands in the lost ledger; the counter is SQL-visible
+        deadline = time.time() + 10.0
+        absorbed = False
+        lost_seen = 0.0
+        views = []
+        while time.time() < deadline:
+            views = [s.fleet.status() for s in servers[:victim_idx]]
+            absorbed = all(
+                victim_id in v["lost"]
+                and victim_id not in v["remote"] for v in views)
+            lost_seen = _metric_sql(servers[0].runner,
+                                    "coordinator_lost_total")
+            if absorbed and lost_seen >= 1.0:
+                break
+            time.sleep(0.1)
+        assert absorbed, \
+            f"survivors still count the dead coordinator: {views}"
+        assert lost_seen >= 1.0, "coordinator_lost_total never moved"
+
+        summary["scenarios"]["coordinator_kill"] = {
+            "elapsed_s": round(time.perf_counter() - t0, 3),
+            "queries": total,
+            "failed": len(errors),
+            "failovers": sum(fc.failovers_total
+                             for fc in fleet_clients),
+            "retries": sum(fc.retries_total for fc in fleet_clients),
+            "coordinator_lost_total": lost_seen,
+            "survivor_lost_view": sorted(views[0]["lost"]),
+        }
+        log(f"coordinator_kill: "
+            f"{summary['scenarios']['coordinator_kill']}")
+        summary["ok"] = True
+        return summary
+    finally:
+        FAILPOINTS.clear()
+        for srv in servers:
+            try:
+                srv.kill()
+            except Exception:
+                pass
+        try:
+            worker.stop()
+        except Exception:
+            pass
+
+
+def run_elastic_ramp(sf: float = 0.02, phases=(1, 3, 1),
+                     phase_s: float = 8.0, clients: int = 4,
+                     device_floor_ms: float = 60.0,
+                     rows_per_batch: int = 16384, device=None,
+                     on_event=None, verbose: bool = False) -> dict:
+    """Load ramp: sustained client load while the worker pool scales
+    1 -> N -> 1 through the autoscaler's node plane, every worker a
+    subprocess on ``device`` (the GPU when none is named; raises
+    without one).
+
+    Workers are real subprocesses (``LocalProcessProvider``, the
+    provider the config-driven autoscaler boots), announcing to an
+    in-process coordinator over HTTP and sharing one spool directory;
+    scale-down is always the drain path (SHUTTING_DOWN -> spool commit
+    -> explicit deregister -> process exit), never a kill. The
+    reference's contract:
+
+    - throughput tracks the ramp: peak-N QPS >= 1.5x the 1-worker floor;
+    - no failed query across every transition, drains included;
+    - the pool really returns to 1.
+
+    ``device_floor_ms`` sets ``PRESTO_TPU_TORCH_DEVICE_FLOOR_MS`` on the
+    worker processes: a fixed-throughput device model (each quantum,
+    and each scanned batch, holds the device at least that long), so
+    per-worker capacity is the bottleneck whatever the host's cores.
+    ``rows_per_batch`` is low so a query scans many batches that can
+    spread across the pool; the query is ``RAMP_QUERY`` (a selective
+    scan) for the same reason. ``on_event(kind, **fields)``, when given,
+    hears each launch, drain and phase as it happens."""
+    from ..client import StatementClient
+    from ..device import resolve_device
+    from ..exec.autoscale import LocalProcessProvider
+    from ..exec.cluster import ClusterRunner
+    from ..exec.discovery import DiscoveryNodeManager
+    from ..exec.spool import SPOOL
+    from ..server.protocol import PrestoTpuServer
+    device = resolve_device(device)
+
+    def log(msg: str) -> None:
+        if verbose:
+            print(msg, file=sys.stderr, flush=True)
+
+    def event(kind: str, **fields) -> None:
+        if on_event is not None:
+            on_event(kind, **fields)
+
+    if not (phases and phases[0] == 1 and phases[-1] == 1
+            and max(phases) > 1):
+        raise ValueError("the ramp must go 1 -> N -> 1 (the scale-down "
+                         f"is part of the claim): {phases}")
+
+    groups = {
+        "rootGroups": [
+            {"name": "ramp", "hardConcurrencyLimit": 8,
+             "maxQueued": 10000}],
+        "selectors": [{"group": "ramp"}]}
+
+    # one shared spool directory: drained workers' committed output
+    # must be replayable by the survivors across process boundaries
+    spool_dir = tempfile.mkdtemp(prefix="ramp-spool-")
+    saved_spool = SPOOL.settings()
+    SPOOL.configure(directory=spool_dir)
+    discovery = DiscoveryNodeManager(ttl_s=3600.0)
+    srv = provider = warm = None
+    stop_evt = threading.Event()
+    count_lock = threading.Lock()
+    completed = [0]
+    errors: list = []
+    threads: list = []
+    want: list = []
+
+    def set_workers(target: int, timeout_s: float = 120.0) -> None:
+        """Converge the pool to ``target``: launches for scale-up, the
+        drain path for scale-down; then wait until the coordinator's
+        discovery view agrees (drained workers leave by an explicit GONE
+        announcement, so membership is prompt)."""
+        while len(provider.nodes()) < target:
+            t0 = time.perf_counter()
+            h = provider.launch()
+            event("launch", node=h.node_id,
+                  ready_s=time.perf_counter() - t0)
+            log(f"ramp: launched {h.node_id}")
+        while len(provider.nodes()) > target:
+            h = provider.nodes()[-1]
+            log(f"ramp: draining {h.node_id}")
+            t0 = time.perf_counter()
+            if not provider.drain(h, timeout_s=timeout_s):
+                raise AssertionError(
+                    f"worker {h.node_id} did not drain out")
+            event("drain", node=h.node_id, code=h.proc.returncode,
+                  exit_s=time.perf_counter() - t0)
+        deadline = time.time() + timeout_s
+        while time.time() < deadline:
+            if len(discovery.active_urls()) == target:
+                return
+            time.sleep(0.05)
+        raise AssertionError(
+            f"discovery never converged to {target} workers: "
+            f"{discovery.nodes()}")
+
+    def client_run(ci: int) -> None:
+        sc = StatementClient(url, user="ramp")
+        try:
+            while not stop_evt.is_set():
+                try:
+                    res = sc.execute(RAMP_QUERY)
+                    _assert_rows_equal(res.rows, want, "ramp")
+                except Exception as e:          # noqa: BLE001
+                    if stop_evt.is_set():
+                        return
+                    errors.append(f"client {ci}: {e!r}")
+                    return
+                with count_lock:
+                    completed[0] += 1
+        finally:
+            sc.close()
+
+    try:
+        runner = ClusterRunner(tpch_sf=sf, heartbeat=False,
+                               discovery=discovery, device=device,
+                               rows_per_batch=rows_per_batch)
+        srv = PrestoTpuServer(runner, resource_groups=groups,
+                              discovery=discovery)
+        srv.start()
+        url = f"http://127.0.0.1:{srv.port}"
+        provider = LocalProcessProvider(
+            [url], tpch_sf=sf, spool_dir=spool_dir, device=device,
+            extra_env={"PRESTO_TPU_TORCH_DEVICE_FLOOR_MS":
+                       str(device_floor_ms)} if device_floor_ms else None)
+        # floor worker and fault-free rows before any load
+        set_workers(1)
+        warm = StatementClient(url, user="ramp")
+        want.extend(warm.execute(RAMP_QUERY).rows)
+        log(f"ramp: reference {len(want)} rows via 1 worker")
+
+        threads = [threading.Thread(target=client_run, args=(ci,),
+                                    daemon=True)
+                   for ci in range(clients)]
+        for t in threads:
+            t.start()
+
+        phase_rows = []
+        for target in phases:
+            set_workers(target)        # the transition happens under load
+            # absorb a fresh worker's first queries (its CUDA context,
+            # its first splits) before the window opens: provisioning
+            # latency, not steady-state throughput
+            for _ in range(2):
+                _assert_rows_equal(warm.execute(RAMP_QUERY).rows,
+                                   want, "ramp-warmup")
+            with count_lock:
+                c0, e0 = completed[0], len(errors)
+            t0 = time.perf_counter()
+            time.sleep(phase_s)
+            with count_lock:
+                c1, e1 = completed[0], len(errors)
+            w = time.perf_counter() - t0
+            phase_rows.append({
+                "workers": target,
+                "queries": c1 - c0,
+                "failed": e1 - e0,
+                "qps": round((c1 - c0) / w, 2),
+                "window_s": round(w, 2)})
+            event("phase", **phase_rows[-1])
+            log(f"ramp: phase {phase_rows[-1]}")
+
+        stop_evt.set()
+        for t in threads:
+            t.join(timeout=30)
+        assert not errors, f"queries failed across the ramp: {errors}"
+        assert len(provider.nodes()) == 1 \
+            and len(discovery.active_urls()) == 1, \
+            "the pool did not return to 1 worker"
+
+        floor = phase_rows[0]["qps"]
+        peak = max(r["qps"] for r in phase_rows
+                   if r["workers"] == max(phases))
+        ratio = round(peak / floor, 3) if floor > 0 else 0.0
+        ramp = {"sf": sf, "clients": clients,
+                "device_floor_ms": device_floor_ms,
+                "phases": phase_rows, "peak_over_floor": ratio}
+        assert ratio >= 1.5, \
+            (f"peak QPS {peak} is only {ratio}x the 1-worker floor "
+             f"{floor} (need >= 1.5x): {phase_rows}")
+        return ramp
+    finally:
+        stop_evt.set()
+        for t in threads:
+            t.join(timeout=10)
+        if warm is not None:
+            warm.close()
+        if srv is not None:
+            srv.kill()
+        if provider is not None:
+            provider.stop_all()
+        SPOOL.restore(saved_spool)
+        shutil.rmtree(spool_dir, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=0.01,
@@ -513,12 +1117,36 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device of the workers (default: the GPU)")
     ap.add_argument("--straggler-sleep-s", type=float, default=10.0)
+    ap.add_argument("--fleet", action="store_true",
+                    help="run the coordinator-fleet death drill instead "
+                         "of the worker scenarios")
+    ap.add_argument("--ramp", action="store_true",
+                    help="also run the 1 -> N -> 1 load ramp (subprocess "
+                         "workers) and attach its block to the elastic "
+                         "summary")
+    ap.add_argument("--elastic-out", default=os.environ.get("ELASTIC_OUT"),
+                    metavar="PATH",
+                    help="write the elastic recovery-time summary (the "
+                         "reference's bench format) to PATH")
     ap.add_argument("-q", "--quiet", action="store_true")
     args = ap.parse_args(argv)
+    if args.fleet:
+        summary = run_fleet_chaos(sf=args.sf, device=args.device,
+                                  verbose=not args.quiet)
+        print(json.dumps(summary, indent=2))
+        return 0 if summary.get("ok") else 1
     summary = run_chaos(sf=args.sf, device=args.device,
                         straggler_sleep_s=args.straggler_sleep_s,
                         verbose=not args.quiet)
+    if args.ramp and summary.get("elastic"):
+        summary["elastic"]["ramp"] = run_elastic_ramp(
+            device=args.device, verbose=not args.quiet)
     print(json.dumps(summary, indent=2))
+    if args.elastic_out and summary.get("elastic"):
+        tmp = args.elastic_out + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(summary["elastic"], f, indent=2)
+        os.replace(tmp, args.elastic_out)
     return 0 if summary.get("ok") else 1
 
 

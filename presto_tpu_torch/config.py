@@ -29,9 +29,9 @@ The counterpart of ``presto_tpu/config.py``:
   --etc-dir``) boots from the same loaders. ``NodeConfig`` parses every
   key the JAX package parses, so one etc directory boots both packages.
   ``spool.*`` configures the exchange spool (``configure_spool``);
-  ``autoscale.enabled=true`` needs a module the port does not have yet
-  (``exec/autoscale.py``), and a config that sets it fails the boot
-  rather than being half applied.
+  ``autoscale.enabled=true`` attaches and starts an
+  ``exec/autoscale.AutoscaleController`` over subprocess workers on the
+  boot's device (``autoscale.*`` sets its policy).
 
 Environment defaults (read where the property is resolved, when the
 session leaves it unset): ``PRESTO_TPU_TORCH_MESH_EXECUTION`` for
@@ -444,8 +444,8 @@ class NodeConfig:
     """Parsed etc/config.properties (reference ServerConfig, NodeConfig
     and the session-default slice of SystemSessionProperties). Every key
     of the JAX package's ``NodeConfig`` is parsed; the ``spool.*`` block
-    goes to ``configure_spool``, and ``autoscale.enabled=true`` is read
-    by ``server_from_etc`` only to refuse it (``unported_keys``)."""
+    goes to ``configure_spool``, and the ``autoscale.*`` block to the
+    controller ``server_from_etc`` attaches."""
 
     def __init__(self, props: Dict[str, str]):
         self.props = props
@@ -503,14 +503,6 @@ class NodeConfig:
             if k.startswith("session.")
             and k not in ("session.catalog", "session.schema")}
 
-    def unported_keys(self) -> Dict[str, str]:
-        """The set keys that configure a module the port does not have
-        yet, each mapped to that module: ``autoscale.enabled=true``
-        (exec/autoscale.py)."""
-        if self.autoscale_enabled:
-            return {"autoscale.enabled": "exec/autoscale.py"}
-        return {}
-
 
 def load_node_config(etc_dir: str) -> NodeConfig:
     path = os.path.join(etc_dir, "config.properties")
@@ -559,19 +551,22 @@ def server_from_etc(etc_dir: str, host: str = "127.0.0.1",
     config binding, plugins, catalog store, resource groups). Its runner
     runs on ``device``: the GPU when none is named, and the boot raises
     without one. Returns ``(server, NodeConfig)``; the caller starts the
-    server."""
+    server.
+
+    With ``autoscale.enabled=true`` the server's ``autoscaler`` is a
+    started ``AutoscaleController`` (policy from ``autoscale.*``) whose
+    ``LocalProcessProvider`` launches workers on the same device from
+    the same directory, and the runner is a ``ClusterRunner`` over the
+    server's discovery, so the statements run on the workers the
+    controller launches; the boot seats ``autoscale.min-workers`` of
+    them. (The JAX package's boot keeps a ``LocalRunner`` there, which
+    its autoscaled workers never serve.)"""
     from .device import resolve_device
     from .exec.runner import LocalRunner
     from .plugin import load_plugins_from_config
     from .server.protocol import PrestoTpuServer
     device = resolve_device(device)
     cfg = load_node_config(etc_dir)
-    unported = cfg.unported_keys()
-    if unported:
-        raise NotImplementedError(
-            "config.properties sets " + ", ".join(
-                f"{k} (needs {m})" for k, m in unported.items())
-            + ", which presto_tpu_torch does not have yet")
     # plugins install connector factories / functions BEFORE catalogs
     # mount (reference PrestoServer.run: loadPlugins then catalog store)
     load_plugins_from_config(cfg.props)
@@ -581,8 +576,17 @@ def server_from_etc(etc_dir: str, host: str = "127.0.0.1",
     if cfg.failpoints:
         from .exec.failpoints import FAILPOINTS
         FAILPOINTS.configure_from_spec(cfg.failpoints)
-    runner = LocalRunner(catalogs=catalogs, catalog=cfg.catalog,
-                         schema=cfg.schema, device=device)
+    discovery = None
+    if cfg.autoscale_enabled:
+        from .exec.cluster import ClusterRunner
+        from .exec.discovery import DiscoveryNodeManager
+        discovery = DiscoveryNodeManager()
+        runner = ClusterRunner(catalogs=catalogs, catalog=cfg.catalog,
+                               schema=cfg.schema, device=device,
+                               discovery=discovery)
+    else:
+        runner = LocalRunner(catalogs=catalogs, catalog=cfg.catalog,
+                             schema=cfg.schema, device=device)
     # session.<name> defaults go through the same registry gate as SET
     # SESSION: a typo'd default fails the boot, not a dashboard
     runner.session.properties.update(
@@ -591,5 +595,33 @@ def server_from_etc(etc_dir: str, host: str = "127.0.0.1",
     srv = PrestoTpuServer(
         runner=runner, host=host,
         port=cfg.http_port if port is None else port,
-        resource_groups=load_resource_groups(etc_dir))
+        resource_groups=load_resource_groups(etc_dir), discovery=discovery)
+    if cfg.autoscale_enabled:
+        # close the elasticity loop: signals feed -> rules -> subprocess
+        # workers on the boot's device, announcing back to this
+        # coordinator. The loop starts now (harmless before the server
+        # does) and stops with the server (PrestoTpuServer.stop)
+        from .exec.autoscale import (AutoscaleController, AutoscalePolicy,
+                                     LocalProcessProvider)
+        policy = AutoscalePolicy(
+            min_workers=cfg.autoscale_min_workers,
+            max_workers=cfg.autoscale_max_workers,
+            scale_step=cfg.autoscale_scale_step,
+            cooldown_s=cfg.autoscale_cooldown_s,
+            interval_s=cfg.autoscale_interval_s)
+        provider = LocalProcessProvider(
+            [f"http://{host}:{srv.port}"], spool_dir=cfg.spool_dir,
+            etc_dir=etc_dir, device=device)
+        try:
+            # the floor: a cluster runner with no worker fails every
+            # SELECT, so no queue could ever build to scale it up
+            for _ in range(policy.min_workers):
+                provider.launch()
+        except BaseException:
+            provider.stop_all()
+            srv.stop()
+            runner.detector.stop()
+            raise
+        srv.autoscaler = AutoscaleController(provider, policy=policy)
+        srv.autoscaler.start()
     return srv, cfg

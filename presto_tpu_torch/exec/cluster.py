@@ -62,8 +62,10 @@ coordinator's init plans run there; result pages decode on the host.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import re
+import secrets
 import statistics
 import threading
 import time
@@ -97,6 +99,14 @@ class QueryFailedError(RuntimeError):
 class _QueryRetry(Exception):
     """Internal: ``retry_policy=QUERY`` requested a whole-query rerun."""
 
+
+#: cluster query ids: unique among every ClusterRunner of this process
+#: (a sequence) and among coordinators of other processes (a random tag):
+#: coordinators sharing a worker pool and a spool directory name their
+#: tasks and spool directories by these ids, so two coordinators' ids
+#: must never meet on a worker
+_QUERY_TAG = secrets.token_hex(3)
+_QUERY_SEQ = itertools.count(1)
 
 #: duration strings accepted by ``query_max_run_time`` (reference
 #: io.airlift.units.Duration): bare numbers are seconds
@@ -998,7 +1008,6 @@ class ClusterRunner:
         self.device = self.local.device
         self.session = self.local.session
         self.rows_per_batch = rows_per_batch
-        self._seq = 0
         #: worker url -> node id learned from /v1/info (node federator)
         self._node_ids: Dict[str, str] = {}
         #: worker url -> last seen /v1/info state — the drain-aware
@@ -1423,8 +1432,7 @@ class ClusterRunner:
                        cancel_event=None, user: str = "") -> QueryResult:
         session = session if session is not None else self.session
         workers = self._schedulable_or_raise()
-        self._seq += 1
-        qid = f"cq_{self._seq:06d}"
+        qid = f"cq_{_QUERY_TAG}_{next(_QUERY_SEQ):06d}"
         REGISTRY.counter("cluster_queries_total").inc()
         from ..connectors.system import QueryLogEntry
         from ..events import QueryCompletedEvent

@@ -878,6 +878,27 @@ class SwitchableSpoolStore(SpoolStore):
             self._impl = self._object if backend == "object" \
                 else self._local
 
+    def settings(self) -> tuple:
+        """The store's configuration (backend, both directories, the
+        object store's modeled wire), for :meth:`restore`: a harness
+        that reconfigures the process-wide store puts it back after."""
+        o = self._object
+        with self._local._lock:
+            local_dir = self._local._dir
+        with o._lock:
+            return (self._impl, local_dir, o._dir, o.put_latency_s,
+                    o.get_latency_s, o.bandwidth_bytes_per_s)
+
+    def restore(self, settings: tuple) -> None:
+        o = self._object
+        impl, local_dir, *wire = settings
+        with self._local._lock:
+            self._local._dir = local_dir
+        with o._lock:
+            (o._dir, o.put_latency_s, o.get_latency_s,
+             o.bandwidth_bytes_per_s) = wire
+        self._impl = impl
+
     def writer(self, query_id: str, task_id: str, n_buffers: int):
         return self._impl.writer(query_id, task_id, n_buffers)
 

@@ -42,8 +42,10 @@ from __future__ import annotations
 
 import contextvars
 import json
+import os
 import queue as _queue
 import struct
+import sys
 import threading
 import time
 import urllib.error
@@ -1322,7 +1324,15 @@ def main(argv=None) -> None:
         while not w.stopped.wait(timeout=3600):
             pass
     except KeyboardInterrupt:
-        pass
+        return
+    # drained: every task finished and its output is in the spool. Exit
+    # without tearing the interpreter down under the daemon threads (the
+    # scan cache's prefetch pool, the metrics sampler) that may still be
+    # inside torch or CUDA: a CUDA worker finalizing under them aborted
+    # (exit -6) instead of exiting 0
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 if __name__ == "__main__":

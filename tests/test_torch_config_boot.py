@@ -145,20 +145,58 @@ def test_node_config_parses_every_reference_key(tmp_path):
                                  "spool.max-bytes=300",
                                  "autoscale.enabled=true"])
 def test_server_from_etc_refuses_unported_keys(tmp_path, key):
-    """``autoscale.enabled=true`` needs exec/autoscale.py, which the
-    port does not have yet: the boot refuses it. The ``spool.*`` keys
-    configure exec/spool.py, which the port now has: the boot applies
-    them to the process-wide store (restored afterwards, so later tests
-    of this process see the default store)."""
+    """No key of the config is refused as unported any more. The
+    ``spool.*`` keys configure exec/spool.py: the boot applies them to
+    the process-wide store (restored afterwards, so later tests of this
+    process see the default store). ``autoscale.enabled=true`` attaches
+    and starts an ``AutoscaleController`` (exec/autoscale.py) whose
+    policy is read from the ``autoscale.*`` keys and whose subprocess
+    provider runs workers on the boot's device from the same etc
+    directory, announcing to this server, whose runner is a
+    ``ClusterRunner`` over the server's discovery (``min-workers=0``
+    here: the boot seats no worker); ``GET /v1/autoscale`` returns its
+    ``status()``."""
     from presto_tpu_torch.config import server_from_etc
     from presto_tpu_torch.exec.spool import SPOOL
     spool_dir = str(tmp_path / "spool")
+    extra = key.replace("/tmp/spool", spool_dir) + "\n"
+    if key.startswith("autoscale"):
+        extra += ("autoscale.min-workers=0\nautoscale.max-workers=3\n"
+                  "autoscale.scale-step=2\nautoscale.cooldown-s=1.5\n"
+                  "autoscale.interval-s=30\n")
     etc = _write_etc(tmp_path, {
         "tiny": "connector.name=tpch\ntpch.scale-factor=0.01\n"},
-        extra=key.replace("/tmp/spool", spool_dir) + "\n")
+        extra=extra)
     if key.startswith("autoscale"):
-        with pytest.raises(NotImplementedError, match="exec/autoscale.py"):
-            server_from_etc(etc, port=0, device="cpu")
+        from presto_tpu_torch.exec.autoscale import (AutoscaleController,
+                                                     LocalProcessProvider)
+        from presto_tpu_torch.exec.cluster import ClusterRunner
+        srv, _ = server_from_etc(etc, port=0, device="cpu")
+        srv.start()
+        try:
+            assert isinstance(srv.runner, ClusterRunner)
+            assert srv.runner.discovery is srv.discovery
+            assert srv.runner.device.type == "cpu"
+            ctl = srv.autoscaler
+            assert isinstance(ctl, AutoscaleController)
+            assert isinstance(ctl.provider, LocalProcessProvider)
+            assert ctl.provider.device.type == "cpu"
+            assert ctl.provider.etc_dir == etc
+            assert ctl.provider.coordinator_urls == [
+                f"http://127.0.0.1:{srv.port}"]
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/v1/autoscale",
+                    timeout=30) as resp:
+                doc = json.loads(resp.read())
+            assert doc["running"] is True
+            assert doc["policy"] == {
+                "minWorkers": 0, "maxWorkers": 3, "scaleStep": 2,
+                "cooldownS": 1.5, "confirmEvals": 2, "intervalS": 30.0}
+            assert doc["workers"] == [] and doc["streaks"] == {}
+        finally:
+            srv.stop()
+            srv.runner.detector.stop()
+        assert ctl.status()["running"] is False
         return
     local = SPOOL.local_store
     saved = (local._dir, local.max_bytes, SPOOL.object_store.max_bytes)

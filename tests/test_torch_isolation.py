@@ -73,6 +73,10 @@ def test_sources_found():
                 "server/worker.py", "exec/cluster.py",
                 "_devtools/chaos.py"):
         assert (ROOT / "presto_tpu_torch" / rel) in _SOURCES, rel
+    # the autoscaler: rules, providers, controller, and its devtools
+    for rel in ("exec/autoscale.py", "_devtools/autoscale_watch.py",
+                "_devtools/fleet.py"):
+        assert (ROOT / "presto_tpu_torch" / rel) in _SOURCES, rel
     assert (ROOT / "presto_tpu_torch" / "parallel" / "mesh.py") \
         in _SOURCES
     assert (ROOT / "presto_tpu_torch" / "_devtools" / "lockcheck.py") \
@@ -174,3 +178,27 @@ def test_cluster_without_device_needs_a_gpu(monkeypatch):
     r = ClusterRunner(["http://127.0.0.1:1"], tpch_sf=0.001,
                       heartbeat=False, device="cpu")
     assert r.device.type == "cpu"
+
+
+def test_autoscaler_without_device_needs_a_gpu(monkeypatch):
+    """With no device named and no GPU, both providers, the load ramp and
+    the fleet launcher raise as LocalRunner does; each runs on the CPU
+    only when asked."""
+    from presto_tpu_torch._devtools import chaos, fleet
+    from presto_tpu_torch.exec.autoscale import (InProcessProvider,
+                                                 LocalProcessProvider)
+    from presto_tpu_torch.exec.discovery import DiscoveryNodeManager
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    discovery = DiscoveryNodeManager()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InProcessProvider(discovery)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LocalProcessProvider(["http://127.0.0.1:1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos.run_elastic_ramp()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        chaos.run_fleet_chaos()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet.launch_fleet()
+    assert InProcessProvider(discovery, device="cpu").device.type == "cpu"
+    assert LocalProcessProvider([], device="cpu").device.type == "cpu"

@@ -8,8 +8,8 @@ objective, slowed by the fair scheduler's service floor, firing WARN
 then PAGE and recovering, visible through ``system.runtime.alerts`` over
 plain SQL. The front door's latency record is made by the test, as the
 server makes it; the statement server's own drill is in
-tests/test_torch_protocol.py, and the cases that need the repo's tools/
-scripts are left out.
+tests/test_torch_protocol.py. The autoscale watcher's contract test runs
+the port's watcher against the reference tool's decisions.
 
 Burn windows and evaluation instants are synthetic throughout
 (``now=`` everywhere), so window arithmetic is deterministic.
@@ -215,6 +215,30 @@ def test_cluster_signals_snapshot_is_frozen():
     # cache limits come from the live serving caches
     assert snap.caches.scan_cache_limit_bytes >= 0
     assert 0.0 <= snap.caches.plan_cache_pressure <= 1.0
+
+
+def test_autoscale_watcher_consumes_the_feed():
+    """The watcher (``_devtools/autoscale_watch.py``) exercises every
+    classic rule against the synthetic snapshot: the feed's contract
+    test, with the reference watcher's decisions."""
+    import tools.autoscale_watch as ref_watch
+    from presto_tpu_torch._devtools import autoscale_watch as watch
+
+    decisions = watch.decide(watch.demo_signals())
+    by_action = {}
+    for d in decisions:
+        by_action.setdefault(d["action"], []).append(d["target"])
+    assert by_action["scale_up"] == ["serving.dash", "serving.adhoc"]
+    assert by_action["scale_down"] == ["batch"]
+    assert by_action["replace_node"] == ["w1"]
+    assert by_action["grow_cache"] == ["scan_cache"]
+    # every decision carries the signal values that justified it
+    assert all("reason" in d and "signals" in d for d in decisions)
+    # a paging group is never scaled down, even when idle
+    paged = watch.demo_signals().group("serving.adhoc")
+    assert paged.alert_state == "PAGE"
+    assert "serving.adhoc" not in by_action["scale_down"]
+    assert decisions == ref_watch.decide(ref_watch.demo_signals())
 
 
 # -- end to end: failpoint latency spike through the whole plane --------------
