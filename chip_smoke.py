@@ -44,11 +44,11 @@ result line):
    through ``LocalRunner(catalog="tpcds", rows_per_batch=2**23)`` on
    ``cuda`` (one cold run each) against the port's ``device="cpu"`` run
    as above, printing per query the cuda and cpu walls, the rows, the
-   peak device memory and the launches of each kernel; then q55 and q27
-   at SF10 (``store_sales`` 28.8 M rows, four batches), cold and warm
-   on ``cuda``, against the CPU run; fails if the probe never launched
-   in the phase, reports the segment sum's launches, and breaks down the
-   slowest of those queries' walls;
+   peak device memory and the launches of each kernel; then the CPU
+   rows of q55 and q27 at SF10 (``store_sales`` 28.8 M rows, four
+   batches), which the scan phase's runs on the card are held to; fails
+   if the probe never launched in the phase, reports the segment sum's
+   launches, and breaks down the slowest of those queries' walls;
 6. scan: the device scan cache and the prefetching scan pipeline. With
    every launch count set to 0 and the scan cache cleared, runs Q1 and Q3
    at SF1 and q55 and q27 at SF10 on ``cuda``, cold then warm, printing
@@ -309,6 +309,19 @@ result line):
    per-query directory. Every line carries the card's name and power
    limit. The kernels line carries each kernel's autoscale launches (the
    autoscaled workers' own), also summed into its launches.
+17. tools: the port's reference tools (``_devtools/``). With every
+   launch count read before and after: ``profile_query`` of Q3 at
+   TOOLS_SF (1) on ``cuda``, warm (its second run profiled): prints the
+   operator table (wall, self, rows, batches, device and kernel seconds,
+   bound-formula bytes, join strategy) and the kernel rows; fails unless
+   the document lists both hand kernels with launches and device seconds
+   and its rows equal the CPU rows; then the same query on the card
+   seen as TOOLS_MESH_SLOTS (4) slots, whose flight attribution must
+   pass ``mesh_report.validate_attribution``; then
+   ``slo_report.validate_slo_block`` over the live ``GET /v1/slo`` block
+   of a small server (SF 0.01, one SLO'd group) that served three
+   statements. The kernels line carries each kernel's tools launches,
+   also summed into its launches.
 
 Every breakdown line times the plan's table scans twice: with the scan
 cache cleared (host generation and the copy to the card) and as a warm
@@ -323,8 +336,9 @@ prints the kernels line; ``--surface-only`` runs phases 1 and 7 alone,
 ``--spill-only`` phases 1 and 10, ``--statements-only`` phases 1 and 11,
 ``--mesh-only`` phases 1 and 12, ``--serving-only`` phases 1 and 13,
 ``--frontdoor-only`` phases 1 and 14, ``--cluster-only`` phases 1 and
-15, ``--autoscale-only`` phases 1 and 16 (each computes its reference
-rows itself; the mesh phase's are the card's single-device runs).
+15, ``--autoscale-only`` phases 1 and 16, ``--tools-only`` phases 1
+and 17 (each computes its reference rows itself; the mesh phase's are
+the card's single-device runs).
 Either times whichever ``presto_tpu_torch`` sits beside the script, so
 a copy of the script placed in a checkout of another commit measures
 that commit (turn by turn with this one, in one call, to compare them).
@@ -1098,8 +1112,10 @@ def _tpcds_queries():
 
 def phase_tpcds(torch):
     """q27 and the TPC-DS battery at TPCDS_SF on the card, each against the
-    port's CPU run; then q55 and q27 at SF10, cold and warm. Returns the
-    launches, the SF10 CPU rows and the battery's CPU rows."""
+    port's CPU run; then the CPU rows of q55 and q27 at SF10, which the
+    scan phase's cold and warm runs on the card (and the chains phase's
+    q27) are held to. Returns the launches, the SF10 CPU rows and the
+    battery's CPU rows."""
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.exec.scancache import CACHE
     from presto_tpu_torch.ops import probe, scan
@@ -1149,23 +1165,20 @@ def phase_tpcds(torch):
           flush=True)
     _breakdown(torch, gpu, slowest, queries[slowest])
     del gpu, cpu
-    gpu, cpu = runners(TPCDS_BIG_SF)
+    # the card's runs of q55 and q27 at SF10, cold and warm, are the scan
+    # phase's (they ran here too up to PR 14: the same queries, scale and
+    # reference rows, cut to keep the whole script inside its limit)
+    cpu = LocalRunner(tpch_sf=TPCDS_BIG_SF, catalog="tpcds", device="cpu",
+                      rows_per_batch=ROWS_PER_BATCH)
     cpu_rows = {}
     for name in ("q55", "q27"):
-        cold, cold_s, cold_gb, cold_n = on_card(gpu, queries[name])
-        warm, warm_s, warm_gb, warm_n = on_card(gpu, queries[name],
-                                                cold=False)
         ref, cpu_s = on_cpu(cpu, queries[name])
         cpu_rows[name] = ref.rows
-        _same_rows(cold.rows, ref.rows, 1e-9)
-        _same_rows(warm.rows, ref.rows, 1e-9)
         if not ref.rows:
             raise AssertionError(f"{name} at SF{TPCDS_BIG_SF} has no rows")
-        print(f"tpcds sf{TPCDS_BIG_SF} {name}: cuda cold {cold_s:.3f} s "
-              f"warm {warm_s:.3f} s | cpu {cpu_s:.3f} s | {len(ref.rows)} "
-              f"rows match the cpu run | peak {max(cold_gb, warm_gb):.2f} "
-              f"GiB | launches (cold+warm) scan {cold_n[0] + warm_n[0]} "
-              f"probe {cold_n[1] + warm_n[1]}", flush=True)
+        print(f"tpcds sf{TPCDS_BIG_SF} {name}: cpu {cpu_s:.3f} s, "
+              f"{len(ref.rows)} rows (the scan phase's reference)",
+              flush=True)
     launches = {"segment_sum_sorted_i64": scan.launches,
                 "direct_probe": probe.launches}
     print(f"tpcds launches: {json.dumps(launches)}", flush=True)
@@ -4019,12 +4032,170 @@ def phase_autoscale(torch, tpch_cpu_rows=None, device="cuda", card="",
 
 
 
+TOOLS_SF = 1
+TOOLS_MESH_SLOTS = 4
+#: the resource groups of the tools phase's small server: one group
+#: under a latency and an availability objective
+TOOLS_GROUPS = {
+    "rootGroups": [{"name": "tools", "hardConcurrencyLimit": 4,
+                    "subGroups": [
+                        {"name": "dash", "hardConcurrencyLimit": 2,
+                         "slo": {"latencyTargetMs": 2000,
+                                 "latencyObjective": 0.95,
+                                 "availabilityObjective": 0.99}}]}],
+    "selectors": [{"group": "tools.dash"}]}
+
+
+def _print_profile(doc, at: str) -> None:
+    """The profile document's operator table and kernel rows, one line
+    each."""
+    print(f"tools profile {at}: wall {doc['wall_s']:.6f} s, device "
+          f"{json.dumps(doc['device'])}, verdict "
+          f"{json.dumps(doc['cost_verdict'])}", flush=True)
+    for r in doc["operators"]:
+        dev = (f" device {r['device_time_s'] * 1e3:.3f} ms kernels "
+               f"{r['kernel_s'] * 1e3:.3f} ms {r['bytes']} B"
+               if "device_time_s" in r else "")
+        wall = (f" wall {r['wall_s'] * 1e3:.3f} ms self "
+                f"{r['self_s'] * 1e3:.3f} ms {r['rows']} rows "
+                f"{r['batches']} batches" if "wall_s" in r else "")
+        js = f" [{r['join_strategy']}]" if "join_strategy" in r else ""
+        print(f"tools op {'  ' * r['depth']}{r['operator'][:90]}{wall}"
+              f"{dev}{js}", flush=True)
+    for k in doc["kernels"]:
+        print(f"tools kernel {k['name']} ({k['source']}): "
+              f"{k['launches']} launches, device "
+              f"{k['device_time_s'] * 1e3:.4f} ms, "
+              f"{k['bytes_per_call']:.0f} B a call", flush=True)
+
+
+def phase_tools(torch, tpch_cpu_rows=None, device="cuda", sf=TOOLS_SF,
+                rows_per_batch=ROWS_PER_BATCH, card=""):
+    """The port's reference tools on the card (``device="cpu"``
+    rehearses the phase on the CPU at a small ``sf``):
+    ``_devtools/profile_query`` of Q3 at ``sf``, warm, whose document
+    must list both hand kernels with launches and device seconds and
+    whose rows must equal the CPU rows; the same on TOOLS_MESH_SLOTS
+    slots of the card, whose flight attribution must pass
+    ``_devtools/mesh_report.validate_attribution``; and
+    ``_devtools/slo_report.validate_slo_block`` over the live
+    ``GET /v1/slo`` block of a small server that served statements in
+    an SLO'd group. Reference rows not given are a CPU runner's. Returns
+    the launches of the phase."""
+    import gc
+
+    from presto_tpu_torch._devtools import mesh_report, slo_report
+    from presto_tpu_torch._devtools.profile_query import (
+        make_runner, profile_query,
+    )
+    from presto_tpu_torch.client import StatementClient
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.obs.metrics import REGISTRY
+    from presto_tpu_torch.obs.slo import SLO
+    from presto_tpu_torch.obs.timeseries import TIMESERIES
+    from presto_tpu_torch.server import PrestoTpuServer
+    t_phase = time.perf_counter()
+    at = f"({card})" if card else f"({device})"
+    q3 = _queries()["q3"]
+    cpu_s = 0.0
+    if tpch_cpu_rows is None or device != "cuda":
+        t0 = time.perf_counter()
+        want = LocalRunner(tpch_sf=sf, device="cpu",
+                           rows_per_batch=rows_per_batch).execute(q3).rows
+        cpu_s = time.perf_counter() - t0
+    else:
+        want = tpch_cpu_rows["q3"]
+    want = [list(r) for r in _json_rows(want)]
+    runner = make_runner("tpch", sf, rows_per_batch, device)
+    base = _kernel_calls(device)
+
+    def phase_launches():
+        now = _kernel_calls(device)
+        return {k: now[k] - base[k] for k in now}
+
+    # (a) Q3, warm: the second run is the profiled one
+    doc = profile_query(runner, q3, rows=True)
+    _print_profile(doc, at)
+    _same_rows(doc["rows"], want, 1e-9, "q3 profile")
+    kernels = {k["name"]: k for k in doc["kernels"]}
+    if set(kernels) != set(KERNEL_SYMBOLS):
+        raise AssertionError(f"the profile lists kernels {sorted(kernels)}"
+                             f", not {sorted(KERNEL_SYMBOLS)}")
+    for k in kernels.values():
+        if k["launches"] <= 0 or k["device_time_s"] <= 0.0:
+            raise AssertionError(f"profile kernel row {k}")
+    if device == "cuda" and doc["device"]["name"] is None:
+        raise AssertionError("the profile names no card")
+    # (b) the same query on the card seen as TOOLS_MESH_SLOTS slots
+    old = os.environ.get("PRESTO_TPU_TORCH_MESH_SLOTS")
+    os.environ["PRESTO_TPU_TORCH_MESH_SLOTS"] = str(TOOLS_MESH_SLOTS)
+    try:
+        mdoc = profile_query(runner, q3, mesh=TOOLS_MESH_SLOTS, rows=True)
+    finally:
+        if old is None:
+            os.environ.pop("PRESTO_TPU_TORCH_MESH_SLOTS", None)
+        else:
+            os.environ["PRESTO_TPU_TORCH_MESH_SLOTS"] = old
+    mesh = mdoc["mesh"]
+    if not (mesh["selected"] and mesh["n_devices"] == TOOLS_MESH_SLOTS
+            and "attribution" in mesh):
+        raise AssertionError(f"the mesh profile did not run on "
+                             f"{TOOLS_MESH_SLOTS} slots: {mesh}")
+    _same_rows(mdoc["rows"], want, 1e-9, "q3 mesh profile")
+    verdict = mesh_report.validate_attribution(
+        mesh_report.profile_pin(mdoc))
+    attr = mesh["attribution"]
+    print(f"tools mesh profile {at}: {len(mesh['stages'])} stages, wall "
+          f"{mdoc['wall_s']:.6f} s, attribution "
+          f"{json.dumps(attr['buckets'])} dominant "
+          f"{attr['dominant_bucket']} reconciled {attr['reconciled_pct']}%"
+          f"; mesh_report {json.dumps(verdict)}", flush=True)
+    if not verdict["ok"] or verdict["blocks"] != 1:
+        raise AssertionError(f"mesh_report: {verdict}")
+    launches = phase_launches()
+    # (c) the live SLO block of a small server that served statements
+    gc.collect()                       # stopped servers' groups go
+    TIMESERIES.stop()
+    TIMESERIES.reset(keep_listeners=False)
+    SLO.reset()
+    srv = PrestoTpuServer(LocalRunner(tpch_sf=0.01, device=device),
+                          resource_groups=TOOLS_GROUPS)
+    try:
+        for fam in ("serving_latency_seconds", "serving_requests_total",
+                    "serving_errors_total"):
+            getattr(REGISTRY, "histogram" if fam.endswith("seconds")
+                    else "counter")(f"{fam}.tools.dash")
+        TIMESERIES.sample()
+        srv.start()
+        url = f"http://127.0.0.1:{srv.port}"
+        client = StatementClient(url, user="tools")
+        for _ in range(3):
+            if client.execute("select count(*) from nation").rows != [[25]]:
+                raise AssertionError("the SLO server's statement")
+        flat = slo_report.live_pin([url])
+        slo = slo_report.validate_slo_block(flat)
+        print(f"tools slo {at}: {json.dumps(slo)}", flush=True)
+        print(slo_report.render(flat, slo), flush=True)
+        if not slo["ok"] or slo["blocks"] != 1:
+            raise AssertionError(f"slo_report: {slo}")
+    finally:
+        srv.stop()
+        TIMESERIES.stop()
+    wall = time.perf_counter() - t_phase
+    print(f"tools launches {at}: {json.dumps(launches)} | phase wall "
+          f"{wall:.3f} s ({wall - cpu_s:.3f} s without the cpu reference "
+          f"run)", flush=True)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     flags = ("--kernels-only", "--surface-only", "--files-only",
              "--chains-only", "--spill-only", "--statements-only",
              "--mesh-only", "--serving-only", "--frontdoor-only",
-             "--cluster-only", "--autoscale-only")
+             "--cluster-only", "--autoscale-only", "--tools-only")
     if sys.argv[1:] and (len(sys.argv) != 2 or sys.argv[1] not in flags):
         fail("device", f"unknown arguments {sys.argv[1:]}")
     only = sys.argv[1] if len(sys.argv) == 2 else None
@@ -4057,6 +4228,9 @@ def main() -> None:
                                phase_cluster),
                               ("--autoscale-only", "autoscale",
                                lambda torch: phase_autoscale(
+                                   torch, card=card)),
+                              ("--tools-only", "tools",
+                               lambda torch: phase_tools(
                                    torch, card=card))):
         if only == flag:
             try:
@@ -4140,16 +4314,22 @@ def main() -> None:
             chaos_summary=CLUSTER_CHAOS or None)
     except Exception as e:  # noqa: BLE001
         fail("autoscale", f"{type(e).__name__}: {e}")
+    try:
+        tools_launches = phase_tools(torch, dict(tpch_cpu_rows), card=card)
+    except Exception as e:  # noqa: BLE001
+        fail("tools", f"{type(e).__name__}: {e}")
     for entry in entries:
         # launches over every phase that drives the engine: path, tpch,
         # tpcds, scan, surface, files, chains, spill, statements, mesh,
-        # serving, frontdoor, cluster and autoscale
+        # serving, frontdoor, cluster, autoscale and tools
         entry["launches"] = sum(p[entry["name"]] for p in (
             launches, tpch_launches, tpcds_launches, scan_launches,
             surface_launches, files_launches, chains_launches,
             spill_launches, statements_launches, mesh_launches,
             serving_launches, frontdoor_launches, cluster_launches,
-            autoscale_launches))
+            autoscale_launches, tools_launches))
+        # the profiled Q3 runs of the tools phase
+        entry["tools_launches"] = tools_launches[entry["name"]]
         # the autoscaled subprocess workers' own, from their /v1/metrics
         entry["autoscale_launches"] = autoscale_launches[entry["name"]]
         entry["serving_launches"] = serving_launches[entry["name"]]

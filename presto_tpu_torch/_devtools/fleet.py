@@ -150,7 +150,9 @@ def serve_worker(args) -> None:
     uris = [u.strip() for u in (args.coordinators or "").split(",")
             if u.strip()]
     # announce to every coordinator: one worker pool, fleet-wide; the
-    # 1 s beat keeps membership fresh inside discovery's TTL
+    # 1 s beat keeps membership fresh inside discovery's TTL, and the
+    # announce list follows the fleet, so a coordinator added later
+    # (add_coordinator, the autoscaler's scale_up) sees this worker
     w.start_announcing(uris, interval_s=1.0)
     print(json.dumps({"ok": True, "role": "worker",
                       "nodeId": w.node_id,

@@ -239,7 +239,52 @@ class StatementClient:
             if doc.get("columns") and not columns:
                 columns = [(c["name"], c["type"]) for c in doc["columns"]]
             rows.extend(doc.get("data") or [])
+        nested = [(i, t) for i, (_, t) in enumerate(columns)
+                  if t.startswith(("array(", "map("))]
+        for row in rows if nested else ():
+            for i, t in nested:
+                row[i] = _typed_value(row[i], t)
         return ClientResult(columns=columns, rows=rows, query_id=qid)
+
+
+def _type_args(text: str) -> List[str]:
+    """The top-level arguments of ``name(a, b(c, d))``: ``['a',
+    'b(c, d)']``."""
+    inner = text[text.index("(") + 1:text.rindex(")")]
+    out, depth, start = [], 0, 0
+    for i, ch in enumerate(inner):
+        depth += (ch == "(") - (ch == ")")
+        if ch == "," and depth == 0:
+            out.append(inner[start:i].strip())
+            start = i + 1
+    out.append(inner[start:].strip())
+    return out
+
+
+def _typed_value(v, type_text: str):
+    """An ARRAY's JSON array as a list and a MAP's JSON object as a dict
+    whose keys take the key type back from their text (the protocol
+    carries every map key as a JSON string), element by element."""
+    if v is None:
+        return None
+    if type_text.startswith("array("):
+        (elem,) = _type_args(type_text)
+        return [_typed_value(x, elem) for x in v]
+    if type_text.startswith("map("):
+        key_t, val_t = _type_args(type_text)
+        return {_typed_key(k, key_t): _typed_value(x, val_t)
+                for k, x in v.items()}
+    return v
+
+
+def _typed_key(k: str, type_text: str):
+    if type_text in ("tinyint", "smallint", "integer", "bigint"):
+        return int(k)
+    if type_text in ("double", "real"):
+        return float(k)
+    if type_text == "boolean":
+        return k == "true"
+    return k
 
 
 class FleetClient:

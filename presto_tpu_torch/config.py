@@ -303,10 +303,19 @@ def validate_session_property(name: str, value):
 
 
 # -- node config (config.properties) ------------------------------------------
-#: the node-config keys that size the process-wide caches and the
-#: time-series sampler (``apply_node_config``; ``NodeConfig`` parses the
-#: rest)
-NODE_CONFIG_KEYS: Dict[str, str] = {
+#: every key the port reads from a parsed ``*.properties`` file
+#: (config.properties, catalog/*.properties): the declarations the
+#: static analyzer (``_devtools/analyze/registries.py``) resolves each
+#: read against; a ``*`` entry covers a family of keys
+CONFIG_KEYS: Dict[str, str] = {
+    "node.id": "stable node identity (defaults to worker-<port>)",
+    "coordinator": "true/false: run the coordinator role",
+    "http-server.http.port": "statement/worker HTTP port (0 = ephemeral)",
+    "discovery.uri": "coordinator discovery endpoint workers announce to",
+    "session.catalog": "default catalog for new sessions",
+    "session.schema": "default schema for new sessions",
+    "session.*": "session-property defaults (validated against "
+                 "SESSION_PROPERTIES at boot)",
     "scan-cache.max-bytes": "device scan-cache resident limit per device "
                             "(exec/scancache.py)",
     "result-cache.max-bytes": "result-cache host-row budget "
@@ -317,6 +326,72 @@ NODE_CONFIG_KEYS: Dict[str, str] = {
     "timeseries.retention-points": "bounded ring size per series "
                                    "(default 360 = 30 min at the "
                                    "default cadence)",
+    "spool.dir": "exchange spool directory (exec/spool.py); point every "
+                 "node at shared storage for cross-node replay",
+    "spool.max-bytes": "spool disk budget (default 4 GiB)",
+    "spool.backend": "local (append-only page logs, the default) or "
+                     "object (the content-addressed emulated bucket)",
+    "spool.object.*": "object-backend bucket directory and its modeled "
+                      "put/get latency and bandwidth",
+    "autoscale.*": "the autoscaling coordinator: enabled, min-workers, "
+                   "max-workers, scale-step, cooldown-s, interval-s",
+    "failpoints": "deterministic fault-injection spec "
+                  "(exec/failpoints.py grammar)",
+    "connector.name": "catalog properties: which connector factory",
+    "tpch.scale-factor": "tpch catalog scale factor",
+    "tpcds.scale-factor": "tpcds catalog scale factor",
+    "orc.root": "orc catalog data directory",
+    "parquet.root": "parquet catalog data directory",
+    "sqlite.path": "sqlite catalog database file",
+    "path": "sqlite catalog database file (the older alias)",
+    "plugin.modules": "comma-separated plugin modules to import",
+    "plugin.dir": "directory of plugin modules to load",
+}
+
+#: the node-config keys that size the process-wide caches and the
+#: time-series sampler (``apply_node_config``; ``NodeConfig`` parses the
+#: rest)
+NODE_CONFIG_KEYS: Dict[str, str] = {
+    k: CONFIG_KEYS[k] for k in (
+        "scan-cache.max-bytes", "result-cache.max-bytes",
+        "timeseries.sample-interval-s", "timeseries.retention-points")}
+
+#: every environment variable the port (or its chip script) reads: the
+#: same two-way contract as the other string-keyed registries: each
+#: ``PRESTO_TPU_TORCH_*`` read must resolve to an entry here, each entry
+#: must be read somewhere, and the table in docs/torch_static_analysis.md
+#: round-trips both ways
+ENV_VARS: Dict[str, str] = {
+    "PRESTO_TPU_TORCH_LOCKCHECK": "force the runtime lock-order "
+                                  "validator on/off (default: on under "
+                                  "pytest only)",
+    "PRESTO_TPU_TORCH_LOG": "structured JSON-lines log destination "
+                            "(obs/log.py; empty = disabled)",
+    "PRESTO_TPU_TORCH_TRACE": "enable the span tracer outside explicit "
+                              "--trace-out runs (obs/trace.py)",
+    "PRESTO_TPU_TORCH_MESH_EXECUTION": "environment default of the "
+                                       "mesh_execution session property "
+                                       "(auto/on/off)",
+    "PRESTO_TPU_TORCH_MESH_FLIGHT": "environment default of the "
+                                    "mesh_flight session property "
+                                    "(on/off; default on)",
+    "PRESTO_TPU_TORCH_MESH_SLOTS": "see every visible device as N mesh "
+                                   "slots (read at each routing "
+                                   "decision)",
+    "PRESTO_TPU_TORCH_FAILPOINTS": "failpoint arming spec applied at "
+                                   "import (exec/failpoints.py grammar)",
+    "PRESTO_TPU_TORCH_DEVICE_FLOOR_MS": "modeled per-quantum and "
+                                        "per-scanned-batch device floor "
+                                        "in ms (exec/taskexec.py; 0 = "
+                                        "off): the load ramp's "
+                                        "fixed-throughput device model",
+    "PRESTO_TPU_TORCH_TIMESERIES": "set to 'off' to disable the "
+                                   "background health-plane sampler "
+                                   "(obs/timeseries.py)",
+    "SERVING_INLINE_LANE": "set to 0 to disable the statement POST "
+                           "inline lane; default on",
+    "ELASTIC_OUT": "write the chaos drills' recovery-time summary here "
+                   "(_devtools/chaos.py)",
 }
 
 

@@ -46,9 +46,16 @@ from .spi import (
 )
 
 
+#: Hive's directory value for a NULL partition key
+NULL_PARTITION = "__HIVE_DEFAULT_PARTITION__"
+
+
 def _parse_partition_value(raw: str):
     """Hive path convention: values are strings in the path; int-looking
-    values are served as BIGINT (the common date_sk-style layout)."""
+    values are served as BIGINT (the common date_sk-style layout), and
+    ``NULL_PARTITION`` is NULL, of no type of its own: ``(None, None)``."""
+    if raw == NULL_PARTITION:
+        return None, None
     try:
         return int(raw), T.BIGINT
     except ValueError:
@@ -77,7 +84,15 @@ class _PartitionedSource(PageSource):
             by_name = dict(zip(b.schema.names,
                                zip(b.columns, b.schema.types)))
             for (name, t), v in zip(self.part_fields, self.part_values):
-                if t.is_string:
+                if v is None:
+                    col = Column(t, torch.full((b.capacity,),
+                                               t.null_storage(),
+                                               dtype=t.storage_dtype,
+                                               device=b.device),
+                                 torch.zeros(b.capacity, dtype=torch.bool,
+                                             device=b.device),
+                                 ("",) if t.is_string else None)
+                elif t.is_string:
                     col = Column(t, torch.zeros(b.capacity, dtype=torch.int32,
                                                 device=b.device),
                                  b.row_mask, (str(v),))
@@ -111,6 +126,9 @@ class FileConnectorBase(Connector):
         # scan prefetch threads open readers concurrently
         self._readers_lock = threading.Lock()
         self._declared_parts: Dict[str, List[str]] = {}
+        #: partition key types of the tables this connector created: the
+        #: type of a key whose every directory is NULL_PARTITION
+        self._declared_part_types: Dict[str, Dict[str, T.Type]] = {}
         #: per-table partition-field cache: page_source runs once per
         #: split and must not re-walk the directory tree per file
         self._pfields_cache: Dict[str, List[Tuple[str, T.Type]]] = {}
@@ -210,12 +228,17 @@ class FileConnectorBase(Connector):
         if cached is not None:
             return cached
         keys = self.partition_keys(table)
-        if not keys:
-            out: List[Tuple[str, T.Type]] = []
-        else:
-            _, values = self.partitioned_files(table)[0]
-            out = [(k, _parse_partition_value(v)[1])
-                   for k, v in zip(keys, values)]
+        out: List[Tuple[str, T.Type]] = []
+        if keys:
+            files = self.partitioned_files(table)
+            declared = self._declared_part_types.get(table, {})
+            for i, k in enumerate(keys):
+                # the first non-NULL directory value types the key
+                t = next((_parse_partition_value(values[i])[1]
+                          for _, values in files
+                          if len(values) > i
+                          and values[i] != NULL_PARTITION), None)
+                out.append((k, t or declared.get(k, T.VARCHAR)))
         self._pfields_cache[table] = out
         return out
 
@@ -247,6 +270,11 @@ class FileConnectorBase(Connector):
                     continue
                 raw = part_values[pnames.index(name)]
                 v, _t = _parse_partition_value(raw)
+                if v is None and (lo is not None or hi is not None):
+                    # a NULL key satisfies no range: p = 0 never reads
+                    # the NULL partition
+                    decodestats.PARTITIONS_PRUNED.inc()
+                    return _EmptySource()
                 if not isinstance(v, int):
                     continue
                 if (lo is not None and v < lo) or \
@@ -287,6 +315,8 @@ class FileConnectorBase(Connector):
                     f"partition column {k!r} not in table schema")
         os.makedirs(path)
         self._declared_parts[name] = list(partitioned_by)
+        self._declared_part_types[name] = {
+            k: schema.types[schema.names.index(k)] for k in partitioned_by}
         self._pfields_cache.pop(name, None)
         self._data_changed(name)
 
@@ -299,6 +329,7 @@ class FileConnectorBase(Connector):
         elif not if_exists:
             raise KeyError(f"table {name!r} does not exist")
         self._declared_parts.pop(name, None)
+        self._declared_part_types.pop(name, None)
         self._pfields_cache.pop(name, None)
         self._data_changed(name)
 
@@ -335,23 +366,26 @@ class FileConnectorBase(Connector):
             arr = c.data.cpu().numpy()
             if c.type.is_string:
                 vocab = c.dictionary or ()
-                part_cols.append(np.asarray(
+                arr = np.asarray(
                     [vocab[v] if 0 <= v < len(vocab) else ""
-                     for v in arr.tolist()], dtype=object))
-            else:
-                part_cols.append(arr)
+                     for v in arr.tolist()], dtype=object)
+            # a NULL key is routed by its validity, never by the storage
+            # value under it (Hive's default partition)
+            part_cols.append((arr, ~c.validity.cpu().numpy()))
         n = 0
         live = np.nonzero(mask)[0]
-        keys_here = {tuple(pc[r] for pc in part_cols) for r in live}
+        keys_here = {tuple(None if nulls[r] else arr[r]
+                           for arr, nulls in part_cols) for r in live}
         for kv in sorted(keys_here, key=str):
             sel = mask.copy()
-            for pc, v in zip(part_cols, kv):
-                sel &= pc == v
+            for (arr, nulls), v in zip(part_cols, kv):
+                sel &= nulls if v is None else (~nulls & (arr == v))
             sub = Batch(data_schema, [batch.columns[i] for i in data_idx],
                         batch.row_mask
                         & torch.from_numpy(sel).to(batch.device))
             d = base
             for k, v in zip(part_keys, kv):
+                v = NULL_PARTITION if v is None else v
                 d = os.path.join(d, f"{k}={v}")
             os.makedirs(d, exist_ok=True)
             path = os.path.join(d, f"part-{fid}{self.extension}")

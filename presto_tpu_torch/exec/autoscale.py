@@ -52,6 +52,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import uuid
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -364,9 +365,13 @@ class LocalProcessProvider(NodeProvider):
         self._lock = threading.Lock()
 
     def launch(self) -> NodeHandle:
+        # each worker is named here: workers booted from one etc
+        # directory would otherwise all take its node.id, and discovery
+        # keeps one entry per id
         argv = [sys.executable, "-m", "presto_tpu_torch.server.worker",
                 "--device", str(self.device),
                 "--host", self.host, "--port", "0",
+                "--node-id", f"worker-{uuid.uuid4().hex[:12]}",
                 "--tpch-sf", str(self.tpch_sf)]
         if self.coordinator_urls:
             argv += ["--coordinator", ",".join(self.coordinator_urls)]
@@ -567,9 +572,8 @@ class AutoscaleController:
 
     def stop(self) -> None:
         self._stop.set()
-        t = self._thread
-        if t is not None:
-            t.join(timeout=10)
+        if self._thread is not None:
+            self._thread.join(timeout=10)
         self._thread = None
 
     def _loop(self) -> None:

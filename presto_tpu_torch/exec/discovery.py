@@ -101,7 +101,12 @@ class Announcer:
     ``discovery_uri`` may be a single coordinator URI or a list: a
     worker in a multi-coordinator fleet announces to EVERY coordinator
     each beat, so all fleet members schedule over the same pool without
-    any cross-coordinator membership relay."""
+    any cross-coordinator membership relay. The list follows the fleet's
+    membership: each beat first reads a coordinator's ``GET /v1/fleet``
+    and adds its URL and peers, so a coordinator that joins after the
+    worker started hears of it within a beat of its first fleet
+    heartbeat, with no worker restart (a coordinator that is no fleet
+    member answers 404 and adds nothing)."""
 
     def __init__(self, discovery_uri, node_id: str, self_url: str,
                  interval_s: float = 5.0, role: str = "worker"):
@@ -149,16 +154,43 @@ class Announcer:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop the loop and wait for a beat in flight to land."""
         self._stop.set()
+        if self._thread.is_alive() \
+                and self._thread is not threading.current_thread():
+            self._thread.join(timeout=10.0)
 
     def deregister(self) -> None:
         """Explicit leave: stop the loop and push one final ``GONE``
         announcement so the coordinator drops this node now (elastic
-        scale-in), not after the TTL."""
-        self._stop.set()
+        scale-in), not after the TTL. The loop is joined first: a beat
+        still in flight would otherwise land after the ``GONE`` and
+        announce the node back as ``ACTIVE``."""
+        self.stop()
         self.state = "GONE"
         self.announce_once()
 
+    def follow_once(self) -> None:
+        """Add the fleet members the first answering coordinator lists
+        (its own URL and its peers) to the announce list. The list is
+        replaced, never mutated, so a concurrent announce iterates a
+        whole one."""
+        for uri in list(self.discovery_uris):
+            try:
+                with urllib.request.urlopen(f"{uri}/v1/fleet",
+                                            timeout=2) as r:
+                    doc = json.loads(r.read().decode("utf-8"))
+            except Exception:
+                # not a fleet member (404), or gone: ask the next one
+                continue
+            members = [doc.get("url") or ""] + list(doc.get("peers") or ())
+            new = [m.rstrip("/") for m in members
+                   if m and m.rstrip("/") not in self.discovery_uris]
+            if new:
+                self.discovery_uris = self.discovery_uris + new
+            return
+
     def _loop(self) -> None:
         while not self._stop.wait(self.interval_s):
+            self.follow_once()
             self.announce_once()

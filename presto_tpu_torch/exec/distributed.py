@@ -99,8 +99,8 @@ from ..planner.planner import LogicalPlan, Session, bool_property
 from .failpoints import FAILPOINTS
 from .fused import keys_in_build_vocab
 from .local import (
-    QueryResult, _Executor, _default_grouping_batch, _plan_schema,
-    key_bounds_violation,
+    QueryResult, _Executor, _default_grouping_batch, _note_join_strategy,
+    _plan_schema, key_bounds_violation,
 )
 
 #: mesh-path auto-selection: one count per query the router placed on
@@ -168,14 +168,6 @@ def _tensors(values) -> Iterator[torch.Tensor]:
             yield from _tensors(v)
 
 
-def _block(values) -> None:
-    """Wait for the devices that hold ``values`` (the counterpart of
-    ``jax.block_until_ready``); nothing to wait for on the CPU."""
-    devs = {t.device for t in _tensors(values) if t.device.type == "cuda"}
-    for d in devs:
-        torch.cuda.synchronize(d)
-
-
 @contextlib.contextmanager
 def _sync_record(what: str, kind: str = "sync"):
     """A ``device-sync`` trace span that also records the host-blocking
@@ -195,12 +187,17 @@ def _sync_record(what: str, kind: str = "sync"):
 def _drain_inputs(*values) -> None:
     """Wait out the device work feeding a control-scalar fetch, recorded
     as a ``drain`` flight round (device_compute bucket), so the sync
-    bracket after it times only the control round trip itself."""
+    bracket after it times only the control round trip itself. It waits
+    for the devices that hold ``values`` (the counterpart of
+    ``jax.block_until_ready``); on the CPU there is nothing to wait for."""
     fl = _flight.current_flight()
     t0 = time.perf_counter() if fl is not None else 0.0
     try:
         with TRACER.span("device-sync", what="input-drain"):
-            _block([v for v in values if v is not None])
+            for d in {t.device for t in _tensors(
+                    [v for v in values if v is not None])
+                    if t.device.type == "cuda"}:
+                torch.cuda.synchronize(d)
     finally:
         if fl is not None:
             fl.record("drain", wall=time.perf_counter() - t0)
@@ -1302,6 +1299,10 @@ class DistributedExecutor(_Executor):
         prep_smap = self._smap(prep_local, 1, replicated_in=prep_in,
                                replicated_out=replicated, stage="join")
         prepared = prep_smap(build_side)
+        _note_join_strategy(
+            self.stats, node,
+            ("direct" if kb_plan is not None else "sorted")
+            if node.build_unique else "expand", node.distribution)
         # probe programs: build + prepared ride the same sharding
         rep_in2 = (1, 2) if replicated else ()
 
@@ -1558,6 +1559,11 @@ class DistributedExecutor(_Executor):
         else:
             build_rep = self._replicate_device(build)
             repart_src = None
+        # the EXECUTED distribution: a residual mark join the planner
+        # marked partitioned still runs replicated here
+        _note_join_strategy(self.stats, node, "sorted",
+                            "partitioned" if partitioned
+                            else "replicated")
 
         if node.residual is None:
             # prepare the membership table ONCE per shard

@@ -129,6 +129,17 @@ _FUSED_TAIL_LANES = REGISTRY.counter("fused_tail_lanes_total")
 _FUSED_READBACKS = REGISTRY.counter("fused_liveness_readbacks_total")
 
 
+def _note_join_strategy(stats, node, strategy: str, dist: str) -> None:
+    """One count per executed join or semi-join operator, labeled
+    strategy (direct / sorted / expand) x distribution, and the
+    operator's entry in the query's stats (the profile document's
+    ``join_strategy``)."""
+    REGISTRY.counter(
+        f"join_strategy_selected_total.{strategy}.{dist}").inc()
+    if stats is not None and hasattr(stats, "record_join_strategy"):
+        stats.record_join_strategy(node, strategy, dist)
+
+
 @dataclasses.dataclass
 class QueryResult:
     names: List[str]
@@ -1271,6 +1282,10 @@ class _Executor:
                 build = build.compact(scap, check=False)
             prep = self._prepare_join_build(build, rkeys, summary,
                                             nd.key_bounds)
+            _note_join_strategy(
+                self.stats, nd,
+                "direct" if is_direct_prepared(prep) else "sorted",
+                nd.distribution)
             payload = tuple(range(len(nd.right.fields)))
             dyn_keys: Tuple[int, ...] = ()
             dyn_val: Tuple[Tuple[int, int], ...] = ()
@@ -1378,6 +1393,11 @@ class _Executor:
                 build = build.compact(scap, check=False)
             prep = self._prepare_join_build(build, rkeys, summary,
                                             node.key_bounds)
+            _note_join_strategy(
+                self.stats, node,
+                ("direct" if is_direct_prepared(prep) else "sorted")
+                if node.build_unique else "expand",
+                node.distribution)
             if not node.build_unique:
                 maxk = self._build_multiplicity(prep)
                 # a direct build the planner could not prove unique (file
@@ -1476,6 +1496,9 @@ class _Executor:
         outer semantics compose to the global outer join."""
         lkeys, rkeys = list(node.left_keys), list(node.right_keys)
         full = node.join_type == "full"
+        _note_join_strategy(
+            self.stats, node,
+            "sorted" if node.build_unique else "expand", "partitioned")
         pstore: Optional[HostPartitionStore] = None
         try:
             for probe in probes:
@@ -1756,6 +1779,10 @@ class _Executor:
         if build is not None:
             prep = self._prepare_join_build(build, fkeys,
                                             key_bounds=node.key_bounds)
+            _note_join_strategy(
+                self.stats, node,
+                "direct" if is_direct_prepared(prep) else "sorted",
+                node.distribution)
             if residual is not None:
                 res_maxk = self._build_multiplicity(prep)
         for b in self.run(node.source):

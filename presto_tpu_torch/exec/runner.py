@@ -53,7 +53,7 @@ from typing import Dict, Optional
 
 from .. import types as T
 from .._devtools.lockcheck import checked_lock
-from ..batch import Batch, Schema
+from ..batch import Batch, Column, Schema
 from ..config import validate_session_property
 from ..connectors.memory import MemoryConnector
 from ..connectors.spi import CatalogManager, TableHandle
@@ -715,19 +715,64 @@ class LocalRunner:
         catalog, conn, table = self._writable(stmt.name, user)
         schema, batches = self._run_to_batches(stmt.query, session,
                                                cancel_event)
+        handle = TableHandle(catalog, "default", table)
         order = None
         if stmt.columns:
-            target = conn.metadata.table_schema(
-                TableHandle(catalog, "default", table))
+            target = conn.metadata.table_schema(handle)
             order = _column_order(table, target, stmt.columns, schema)
             schema = Schema([(n, schema.types[i])
                              for n, i in zip(target.names, order)])
+        else:
+            try:
+                target = conn.metadata.table_schema(handle)
+            except KeyError:
+                # no such table, or a file table with no file yet: the
+                # catalog's append raises or writes the query's schema
+                target = None
+        casts = None
+        if target is not None and len(target) == len(schema):
+            # Presto's INSERT coerces each query column to the table's
+            # type where an implicit coercion exists, and the rows take
+            # the table's column names (a file table writes them into
+            # the new file); any other type difference is left for the
+            # catalog's own schema check to refuse
+            casts = [t if _insert_coercible(s, t) else None
+                     for s, t in zip(schema.types, target.types)]
+            schema = Schema([(n, c or s) for n, s, c in
+                             zip(target.names, schema.types, casts)])
         n = 0
         for b in batches:
             cols = b.columns if order is None else [b.columns[i]
                                                     for i in order]
+            if casts is not None:
+                cols = [_coerce_column(c, t) for c, t in zip(cols, casts)]
             n += conn.append(table, Batch(schema, cols, b.row_mask))
         return QueryResult(["rows"], [T.BIGINT], [(n,)])
+
+
+def _insert_coercible(src: T.Type, dst: T.Type) -> bool:
+    """The implicit coercions Presto applies to an INSERT's columns:
+    varchar(n) into varchar(m) with n <= m (or into an unbounded
+    varchar), and integer widening (tinyint -> smallint -> integer ->
+    bigint). Equal types need none."""
+    if src.display() == dst.display():
+        return False
+    if isinstance(src, T.VarcharType) and isinstance(dst, T.VarcharType):
+        return dst.length is None or (src.length is not None
+                                      and src.length <= dst.length)
+    if T.is_integral(src) and T.is_integral(dst):
+        return T.common_super_type(src, dst) == dst
+    return False
+
+
+def _coerce_column(col, to: Optional[T.Type]):
+    """``col`` as type ``to`` (None: unchanged). A varchar keeps its
+    codes and dictionary; a widened integer is cast to the wider
+    storage."""
+    if to is None:
+        return col
+    return Column(to, col.data.to(to.storage_dtype), col.validity,
+                  col.dictionary)
 
 
 def _column_order(table: str, target: Schema, columns, schema: Schema):

@@ -66,6 +66,10 @@ class StatsCollector:
         #: plan node -> {KernelRecord: [launches, device_s, bytes]}: the
         #: hand kernels each operator launched while profiled
         self.exe_by_node: Dict[object, Dict[object, list]] = {}
+        #: plan node -> (strategy, distribution) each join or semi-join
+        #: actually executed (direct / sorted / expand x replicated /
+        #: partitioned)
+        self.join_strategy: Dict[object, tuple] = {}
         # prefetch worker threads record concurrently: an unlocked += would
         # drop updates
         self._lock = threading.Lock()
@@ -128,6 +132,16 @@ class StatsCollector:
                for rec, (n, secs, nbytes) in agg.items()]
         out.sort(key=lambda d: -d["device_time_s"])
         return out
+
+    def record_join_strategy(self, node, strategy: str,
+                             distribution: str) -> None:
+        """The executed join dispatch of one join or semi-join operator
+        (exec/local._note_join_strategy's sink)."""
+        with self._lock:
+            self.join_strategy[node] = (strategy, distribution)
+
+    def join_strategy_for(self, node) -> Optional[tuple]:
+        return self.join_strategy.get(node)
 
     def record_split(self, table: str, split_no: int, started_at: float,
                      wall_s: float, batches: int) -> None:

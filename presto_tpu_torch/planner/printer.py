@@ -468,6 +468,11 @@ def _walk(n: PlanNode, depth: int, lines: List[str], stats=None) -> None:
             if dev is not None:
                 suffix += (f" [device {dev['device_time_s'] * 1e3:,.1f}ms"
                            f", {_si(dev['bytes'])}B kernels]")
+            # executed join dispatch (strategy x distribution)
+            js = (stats.join_strategy_for(n)
+                  if hasattr(stats, "join_strategy_for") else None)
+            if js is not None:
+                suffix += f" [strategy {js[0]}/{js[1]}]"
         elif not isinstance(n, OutputNode):
             suffix = "   [not executed]"
     lines.append("  " * depth + "- " + _label(n) + suffix)

@@ -62,7 +62,20 @@ def _json_value(v):
         return v.isoformat()
     if isinstance(v, Decimal):
         return str(v)
+    # Presto's client protocol: an ARRAY is a JSON array and a MAP a
+    # JSON object (keys as their text), element by element
+    if isinstance(v, (list, tuple)):
+        return [_json_value(x) for x in v]
+    if isinstance(v, dict):
+        return {_json_key(k): _json_value(x) for k, x in v.items()}
     return str(v)
+
+
+def _json_key(k) -> str:
+    k = _json_value(k)
+    if isinstance(k, bool):
+        return "true" if k else "false"
+    return str(k)
 
 
 def _runner_accepts_serving(runner) -> bool:

@@ -1126,7 +1126,8 @@ class WorkerServer:
         ``discovery_uri`` may be a list (or a comma-separated string)
         of coordinator URIs: a fleet worker announces to every
         coordinator each beat, making ONE worker pool visible to all
-        fleet members."""
+        fleet members, and the coordinators that join the fleet later
+        (``exec/discovery.Announcer``)."""
         from ..exec.discovery import Announcer
         if isinstance(discovery_uri, str) and "," in discovery_uri:
             discovery_uri = [u.strip() for u in discovery_uri.split(",")
@@ -1143,6 +1144,8 @@ class WorkerServer:
             # instead of waiting out the announcement TTL
             self._announcer.deregister()
         self.httpd.shutdown()
+        if self._thread.is_alive():
+            self._thread.join(timeout=10.0)
         # release the listening socket too: a stopped worker must
         # REFUSE connections — a bound-but-unserved socket makes every
         # peer (exchange pulls, coordinator probes) hang to its full
@@ -1267,7 +1270,9 @@ def main(argv=None) -> None:
     import argparse
     p = argparse.ArgumentParser(description="presto_tpu_torch worker node")
     p.add_argument("--host", default="127.0.0.1")
-    p.add_argument("--port", type=int, default=0)
+    p.add_argument("--port", type=int, default=None,
+                   help="HTTP port (0 = ephemeral; default: the etc "
+                        "directory's http-server.http.port, else 0)")
     p.add_argument("--tpch-sf", type=float, default=0.01)
     p.add_argument("--node-id", default=None)
     p.add_argument("--etc-dir", default=None,
@@ -1302,7 +1307,9 @@ def main(argv=None) -> None:
         cfg = load_node_config(args.etc_dir)
         catalogs = load_catalogs(args.etc_dir, device=device)
         node_id = node_id or cfg.node_id
-        port = port or cfg.http_port
+        # an explicit --port 0 stays ephemeral: only a port not given
+        # at all takes the directory's
+        port = cfg.http_port if port is None else port
         discovery_uri = discovery_uri or cfg.discovery_uri
         if cfg.failpoints:
             FAILPOINTS.configure_from_spec(cfg.failpoints)
@@ -1312,7 +1319,7 @@ def main(argv=None) -> None:
     elif spool_dir:
         from ..exec.spool import SPOOL
         SPOOL.configure(directory=spool_dir)
-    w = WorkerServer(catalogs=catalogs, host=args.host, port=port,
+    w = WorkerServer(catalogs=catalogs, host=args.host, port=port or 0,
                      node_id=node_id, tpch_sf=args.tpch_sf, device=device)
     print(json.dumps({"nodeId": w.node_id, "port": w.port}), flush=True)
     w.start()

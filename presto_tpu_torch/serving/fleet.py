@@ -181,17 +181,20 @@ class FleetMember:
 
     def stop(self) -> None:
         """Hard stop (the process-death stand-in in tests): heartbeats
-        cease, peers notice via the staleness grace."""
+        cease, peers notice via the staleness grace. A heartbeat in
+        flight lands before this returns."""
         self._stopped.set()
+        if self._hb_thread is not None \
+                and self._hb_thread is not threading.current_thread():
+            self._hb_thread.join(timeout=10.0)
 
     def leave(self) -> None:
-        """Clean drain: one final ``leaving`` heartbeat so peers drop
-        this member's counts NOW (and never count it as lost), then
-        stop."""
-        try:
-            self.heartbeat_once(leaving=True)
-        finally:
-            self.stop()
+        """Clean drain: stop the loop, then one final ``leaving``
+        heartbeat so peers drop this member's counts NOW (and never count
+        it as lost). The loop stops first: a beat still in flight would
+        otherwise land after the farewell and count the member back in."""
+        self.stop()
+        self.heartbeat_once(leaving=True)
 
     def set_peers(self, peers) -> None:
         with self._lock:

@@ -578,3 +578,115 @@ def test_fleet_handle_is_the_coordinator_scaler(monkeypatch):
         fleet.stop()
     assert all(c["proc"].returncode is not None
                for c in fleet.coordinators + fleet.workers)
+
+
+# -- faults of the reference that the port repairs ----------------------------
+
+def _newcomer_sees(fleet, timeout_s):
+    """Seconds until the last-added coordinator lists a worker in its
+    ``/v1/fleet``, or None when it never does within ``timeout_s``."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout_s:
+        if fleet.fleet_status(len(fleet.coordinators) - 1)["workers"]:
+            return time.monotonic() - t0
+        time.sleep(0.05)
+    return None
+
+
+def test_added_coordinator_sees_the_workers(monkeypatch):
+    """A coordinator added by ``scale_up`` after the workers started:
+    the port's workers follow the fleet's membership, so within the
+    fleet's staleness grace the newcomer lists the worker and a SELECT
+    sent to it returns the single-device rows. The reference's workers
+    announce only to the coordinators named at their launch: its
+    newcomer lists no worker for the same grace, and its SELECT fails."""
+    import tools.fleet as jfleet
+    from presto_tpu_torch._devtools.fleet import launch_fleet
+    from presto_tpu_torch.client import QueryFailed, StatementClient
+    from presto_tpu_torch.exec.runner import LocalRunner
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    sql = "select n_regionkey, count(*) from nation group by 1 order by 1"
+    want = [list(r) for r in
+            LocalRunner(tpch_sf=0.001, device="cpu").execute(sql).rows]
+    grace = 5.0
+    jf = jfleet.launch_fleet(n_coordinators=2, sf=0.001, workers=1,
+                             heartbeat_s=0.5, staleness_grace_s=grace,
+                             ready_timeout_s=120.0)
+    try:
+        jf.scale_up("test")
+        assert _newcomer_sees(jf, grace) is None       # the reference
+        with pytest.raises(QueryFailed):
+            StatementClient(jf.coordinators[-1]["url"]).execute(sql)
+    finally:
+        jf.stop()
+    tf = launch_fleet(n_coordinators=2, sf=0.001, workers=1,
+                      heartbeat_s=0.5, staleness_grace_s=grace,
+                      device="cpu", ready_timeout_s=120.0)
+    try:
+        tf.scale_up("test")
+        seen = _newcomer_sees(tf, grace)
+        assert seen is not None and seen < grace
+        assert StatementClient(tf.coordinators[-1]["url"]).execute(
+            sql).rows == want
+    finally:
+        tf.stop()
+
+
+def _etc_with_node_id_and_port(root, port):
+    etc = root / "etc"
+    (etc / "catalog").mkdir(parents=True)
+    (etc / "config.properties").write_text(
+        f"node.id=etc-worker\nhttp-server.http.port={port}\n")
+    (etc / "catalog" / "tpch.properties").write_text(
+        "connector.name=tpch\ntpch.scale-factor=0.001\n")
+    return str(etc)
+
+
+def test_workers_from_one_etc_directory_get_their_own_id_and_port(
+        tmp_path, monkeypatch):
+    """Two workers launched by ``LocalProcessProvider`` from one etc
+    directory that sets ``node.id`` and ``http-server.http.port``: the
+    port names each worker and keeps the provider's ``--port 0``
+    ephemeral, so both come up in discovery under distinct ids and
+    ports. The reference's workers take the directory's id and, as
+    ``0 or port`` drops the 0, its port: the first binds it under
+    ``etc-worker`` and the second cannot start."""
+    from presto_tpu.exec import autoscale as JA
+    from presto_tpu_torch._devtools.fleet import _free_ports
+    from presto_tpu_torch.exec.autoscale import LocalProcessProvider
+    from presto_tpu_torch.exec.discovery import DiscoveryNodeManager
+    from presto_tpu_torch.exec.runner import LocalRunner
+    from presto_tpu_torch.server import PrestoTpuServer
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    (port,) = _free_ports(1)
+    etc = _etc_with_node_id_and_port(tmp_path, port)
+    discovery = DiscoveryNodeManager(ttl_s=3600.0)
+    srv = PrestoTpuServer(LocalRunner(tpch_sf=0.001, device="cpu"),
+                          discovery=discovery)
+    srv.start()
+    url = f"http://127.0.0.1:{srv.port}"
+    jprov = JA.LocalProcessProvider([url], tpch_sf=0.001, etc_dir=etc,
+                                    ready_timeout_s=60.0)
+    try:
+        first = jprov.launch()                         # the reference
+        assert (first.node_id, first.url) == (
+            "etc-worker", f"http://127.0.0.1:{port}")
+        with pytest.raises(Exception):
+            jprov.launch()
+    finally:
+        jprov.stop_all()
+    prov = LocalProcessProvider([url], tpch_sf=0.001, etc_dir=etc,
+                                device="cpu", ready_timeout_s=60.0)
+    try:
+        handles = [prov.launch(), prov.launch()]
+        ids = {h.node_id for h in handles}
+        urls = {h.url for h in handles}
+        assert len(ids) == 2 and "etc-worker" not in ids
+        assert len(urls) == 2 and f"http://127.0.0.1:{port}" not in urls
+        deadline = time.time() + 60
+        while not urls <= set(discovery.active_urls()):
+            assert time.time() < deadline, discovery.nodes()
+            time.sleep(0.05)
+    finally:
+        prov.stop_all()
+        srv.stop()

@@ -1,7 +1,8 @@
 """presto_tpu_torch stands alone: no module of the port, and not
-chip_smoke.py, imports JAX, anything of presto_tpu, or pyarrow (the card's
-machine has none; the port writes its own ORC and Parquet files); and the
-runner never falls back to the CPU on its own."""
+chip_smoke.py, imports JAX, anything of presto_tpu, the reference's tools
+or bench harness, or pyarrow (the card's machine has none; the port writes
+its own ORC and Parquet files); and the runner never falls back to the CPU
+on its own."""
 import ast
 import pathlib
 
@@ -11,7 +12,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 _SOURCES = sorted((ROOT / "presto_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-_FORBIDDEN = ("jax", "jaxlib", "presto_tpu", "pyarrow")
+_FORBIDDEN = ("jax", "jaxlib", "presto_tpu", "pyarrow", "tools", "bench")
 
 
 def _imports(path: pathlib.Path):
@@ -77,6 +78,18 @@ def test_sources_found():
     for rel in ("exec/autoscale.py", "_devtools/autoscale_watch.py",
                 "_devtools/fleet.py"):
         assert (ROOT / "presto_tpu_torch" / rel) in _SOURCES, rel
+    # the last reference tools: the device profile, the SLO and mesh
+    # reports and the static-analysis plane
+    for rel in ("_devtools/profile_query.py", "_devtools/slo_report.py",
+                "_devtools/mesh_report.py", "_devtools/analyze/__init__.py",
+                "_devtools/analyze/__main__.py", "_devtools/analyze/base.py",
+                "_devtools/analyze/locks.py",
+                "_devtools/analyze/registries.py",
+                "_devtools/analyze/caches.py", "_devtools/analyze/tracing.py",
+                "_devtools/analyze/metric_names.py"):
+        assert (ROOT / "presto_tpu_torch" / rel) in _SOURCES, rel
+    assert (ROOT / "presto_tpu_torch" / "_devtools" / "analyze"
+            / "baseline.json").is_file()
     assert (ROOT / "presto_tpu_torch" / "parallel" / "mesh.py") \
         in _SOURCES
     assert (ROOT / "presto_tpu_torch" / "_devtools" / "lockcheck.py") \
@@ -202,3 +215,14 @@ def test_autoscaler_without_device_needs_a_gpu(monkeypatch):
         fleet.launch_fleet()
     assert InProcessProvider(discovery, device="cpu").device.type == "cpu"
     assert LocalProcessProvider([], device="cpu").device.type == "cpu"
+
+
+def test_profile_query_without_device_needs_a_gpu(monkeypatch):
+    """With no device named and no GPU, the profile's runner raises as
+    LocalRunner does; it runs on the CPU only when asked."""
+    from presto_tpu_torch._devtools import profile_query
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_query.make_runner("tpch", 0.001, 1 << 12, None)
+    assert profile_query.make_runner(
+        "tpch", 0.001, 1 << 12, "cpu").device.type == "cpu"

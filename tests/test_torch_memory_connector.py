@@ -160,3 +160,32 @@ def test_write_statements_outside_the_port_raise(runners):
             r.execute("insert into memory.nope (a) select 1")
     assert tr.execute("start transaction").rows[0][0].startswith("tx_")
     assert tr.execute("rollback").rows == [(True,)]
+
+
+def test_insert_coerces_to_the_tables_types(runners):
+    """INSERT widens varchar(1) into a varchar(25) column and an integer
+    into a bigint, as Presto does. The reference compares the type
+    displays exactly and raises; the port inserts the row. A type with
+    no implicit coercion still raises the same error in both."""
+    jr, tr = runners
+    ctas = ("create table memory.default.co as select n_nationkey k, "
+            "n_name name, n_regionkey r from nation")
+    insert = "insert into memory.default.co select 999, 'X', 9"
+    for r in runners:
+        r.execute(ctas)
+    with pytest.raises(ValueError, match="insert schema mismatch"):
+        jr.execute(insert)                     # the reference's answer
+    assert tr.execute(insert).rows == [(1,)]
+    assert tr.execute("select k, name, r from memory.default.co "
+                      "where k = 999").rows == [(999, "X", 9)]
+    tr.execute("insert into memory.default.co "
+               "select cast(1000 as integer), 'Y', cast(1 as smallint)")
+    got = tr.execute("select k, name, r from memory.default.co "
+                     "where k >= 999 order by k")
+    assert got.rows == [(999, "X", 9), (1000, "Y", 1)]
+    assert [t.display() for t in got.types] == [
+        "bigint", "varchar(25)", "bigint"]
+    for r in runners:
+        with pytest.raises(ValueError, match="insert schema mismatch"):
+            r.execute("insert into memory.default.co "
+                      "select 1.5, 'Z', 1")
