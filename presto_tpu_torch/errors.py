@@ -8,6 +8,15 @@ per-batch scalar (max over live rows), and the executor checks the collected
 scalars once per query — one host sync — raising ``QueryError`` with the
 Presto error name. ``TRY(expr)`` clears the codes and yields NULL for the
 failed rows (reference operator/scalar/TryFunction.java).
+
+Codes: DIVISION_BY_ZERO, NUMERIC_VALUE_OUT_OF_RANGE (integral and decimal
+arithmetic, narrowing integral casts and integral ``sum`` states whose
+exact value leaves their type), INVALID_FUNCTION_ARGUMENT,
+GENERIC_USER_ERROR, STATS_BOUND_VIOLATION (the port's own) and
+INVALID_CAST_ARGUMENT (a DOUBLE, REAL or DECIMAL value that does not fit
+the integral or DECIMAL type it is cast to: DoubleOperators.castToLong,
+DecimalCasts). When rows of one query fail with several codes, the
+highest code wins.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ GENERIC_USER_ERROR = 4
 # dense slot code would be garbage, so the query fails loudly instead of
 # returning misgrouped rows
 STATS_BOUND_VIOLATION = 5
+INVALID_CAST_ARGUMENT = 6
 
 ERROR_NAMES = {
     DIVISION_BY_ZERO: "DIVISION_BY_ZERO",
@@ -27,6 +37,7 @@ ERROR_NAMES = {
     INVALID_FUNCTION_ARGUMENT: "INVALID_FUNCTION_ARGUMENT",
     GENERIC_USER_ERROR: "GENERIC_USER_ERROR",
     STATS_BOUND_VIOLATION: "STATS_BOUND_VIOLATION",
+    INVALID_CAST_ARGUMENT: "INVALID_CAST_ARGUMENT",
 }
 
 

@@ -125,38 +125,37 @@ def _dec_limbs(v: Val, to_scale: int):
 
 def _cast_long_decimal(v: Val, to: Type) -> Val:
     """Casts where the source or the target is a long decimal (p > 18):
-    limb rescales with range checks (DecimalCasts.java). Out-of-range rows
-    raise NUMERIC_VALUE_OUT_OF_RANGE."""
+    limb rescales with range checks (DecimalCasts.java). Out-of-range
+    rows raise NUMERIC_VALUE_OUT_OF_RANGE, or INVALID_CAST_ARGUMENT where
+    a DOUBLE or REAL source does not fit the decimal or a decimal does
+    not fit the integral target."""
     f = v.type
     if isinstance(to, T.DecimalType):
-        if isinstance(f, T.DecimalType) or T.is_integral(f) \
-                or isinstance(f, T.BigintType):
+        code = E.NUMERIC_VALUE_OUT_OF_RANGE
+        if isinstance(f, T.DecimalType) or T.is_integral(f):
             x, ovf = _dec_limbs(v, to.scale)
         elif T.is_floating(f):
             bound = 10.0 ** (to.precision - to.scale)
-            scaled = v.data.to(torch.float64) * (10.0 ** to.scale)
-            x = I.from_f64(_round_half_away(scaled))
             ovf = ~(v.data.to(torch.float64).abs() < bound)
+            scaled = v.data.to(torch.float64) * (10.0 ** to.scale)
+            x = I.from_f64(_round_half_away(torch.where(ovf, 0.0, scaled)))
+            code = E.INVALID_CAST_ARGUMENT
         else:
             raise NotImplementedError(
                 f"cast {f.display()} -> {to.display()}")
         fits = I.fits_decimal(x, to.precision) & ~ovf
-        err = flag_err(v.valid & ~fits, E.NUMERIC_VALUE_OUT_OF_RANGE)
-        return Val(x if to.is_long else I.lo(x), v.valid & fits, to,
-                   err=err)
+        return _checked(v, x if to.is_long else I.lo(x), fits, to, code)
     # the source is a long decimal
     if isinstance(to, (T.DoubleType, T.RealType)):
         out = (I.to_f64(v.data) / (10.0 ** f.scale)).to(to.storage_dtype)
         return Val(out, v.valid, to)
-    if T.is_integral(to) or isinstance(to, T.BigintType):
+    if T.is_integral(to):
         x, _ = I.rescale(v.data, -f.scale)
         fits = I.hi(x) == (I.lo(x) >> 63)       # the value fits one limb
         narrow = I.lo(x)
-        if not isinstance(to, T.BigintType):
-            info = torch.iinfo(to.storage_dtype)
-            fits = fits & (narrow >= info.min) & (narrow <= info.max)
-        err = flag_err(v.valid & ~fits, E.NUMERIC_VALUE_OUT_OF_RANGE)
-        return Val(narrow.to(to.storage_dtype), v.valid & fits, to, err=err)
+        fits = fits & _in_int_range(narrow, to)
+        return _checked(v, torch.where(fits, narrow, 0).to(to.storage_dtype),
+                        fits, to, E.INVALID_CAST_ARGUMENT)
     if isinstance(to, T.BooleanType):
         return Val(~I.is_zero(v.data), v.valid, to)
     raise NotImplementedError(f"cast {f.display()} -> {to.display()}")
@@ -182,6 +181,38 @@ def _unify_numeric(a: Val, b: Val) -> Tuple[Val, Val, Type]:
 
 def _round_half_away(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * torch.floor(x.abs() + 0.5)
+
+
+#: SQL value range of each integral type. tinyint, smallint and integer
+#: share int32 storage, so range checks hold a value to its SQL type,
+#: not to its dtype
+_INT_RANGE = {"tinyint": (-(1 << 7), (1 << 7) - 1),
+              "smallint": (-(1 << 15), (1 << 15) - 1),
+              "integer": (-(1 << 31), (1 << 31) - 1),
+              "bigint": (-(1 << 63), (1 << 63) - 1)}
+
+
+def int_range(t: Type) -> Tuple[int, int]:
+    """[min, max] of an integral SQL type."""
+    return _INT_RANGE[t.name]
+
+
+def _in_int_range(x: torch.Tensor, t: Type) -> torch.Tensor:
+    """Rows of integer tensor ``x`` that lie in ``t``'s range."""
+    lo, hi = int_range(t)
+    info = torch.iinfo(x.dtype)
+    if lo <= info.min and hi >= info.max:
+        return torch.ones_like(x, dtype=torch.bool)
+    return (x >= lo) & (x <= hi)
+
+
+def _checked(v: Val, out: torch.Tensor, ok: torch.Tensor, to: Type,
+             code: int) -> Val:
+    """A cast's result whose rows outside ``ok`` fail with ``code``:
+    they turn NULL (so TRY yields NULL) and raise through the row-error
+    channel."""
+    err = flag_err(v.valid & ~ok, code)
+    return Val(out, v.valid & ok, to, err=merge_err(v.err, err))
 
 
 def cast_val(v: Val, to: Type) -> Val:
@@ -221,17 +252,39 @@ def cast_val(v: Val, to: Type) -> Val:
         if T.is_integral(f):
             return Val(data.to(torch.int64) * (10 ** to.scale), v.valid, to)
         if T.is_floating(f):
-            scaled = data.to(torch.float64) * (10.0 ** to.scale)
-            return Val(_round_half_away(scaled).to(torch.int64), v.valid, to)
-    if T.is_integral(to) or isinstance(to, T.BigintType):
+            # DecimalCasts.doubleToShortDecimal: NaN, infinities and
+            # values of more than `precision` digits raise, checked
+            # before the conversion
+            scaled = _round_half_away(
+                data.to(torch.float64) * (10.0 ** to.scale))
+            ok = scaled.abs() < float(10 ** to.precision)
+            return _checked(v, torch.where(ok, scaled, 0.0).to(torch.int64),
+                            ok, to, E.INVALID_CAST_ARGUMENT)
+    if T.is_integral(to):
         if T.is_floating(f):
-            # Presto DoubleOperators.castToLong: Math.round = half-up
-            return Val(torch.floor(data + 0.5).to(to.storage_dtype),
-                       v.valid, to)
+            # Presto DoubleOperators.castToLong: Math.round = half-up.
+            # NaN, infinities and values past the type's range raise
+            # INVALID_CAST_ARGUMENT; the bad rows never reach the
+            # conversion, so the CPU and the card give the same rows
+            lo, hi = int_range(to)
+            r = torch.floor(data.to(torch.float64) + 0.5)
+            ok = (r >= float(lo)) & (r < float(hi + 1))
+            out = torch.floor(torch.where(ok, data, 0) + 0.5)
+            return _checked(v, out.to(to.storage_dtype), ok, to,
+                            E.INVALID_CAST_ARGUMENT)
         if isinstance(f, T.DecimalType):
-            return Val(rescale_decimal(data, f.scale, 0).to(to.storage_dtype),
-                       v.valid, to)
-        if T.is_integral(f) or isinstance(f, T.BooleanType):
+            # DecimalCasts: a value past the integral type raises
+            r = rescale_decimal(data, f.scale, 0)
+            ok = _in_int_range(r, to)
+            return _checked(v, torch.where(ok, r, 0).to(to.storage_dtype),
+                            ok, to, E.INVALID_CAST_ARGUMENT)
+        if T.is_integral(f):
+            # a narrowing cast raises past the target's range
+            # (IntegerOperators.castToTinyint and its siblings)
+            ok = _in_int_range(data, to)
+            return _checked(v, torch.where(ok, data, 0).to(to.storage_dtype),
+                            ok, to, E.NUMERIC_VALUE_OUT_OF_RANGE)
+        if isinstance(f, T.BooleanType):
             return Val(data.to(to.storage_dtype), v.valid, to)
     if isinstance(to, T.BooleanType) and T.is_numeric(f):
         return Val(data != 0, v.valid, to)

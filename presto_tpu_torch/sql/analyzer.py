@@ -166,6 +166,11 @@ def coerce(e: ir.Expr, to: T.Type) -> ir.Expr:
             return ir.lit(None, to)
         if isinstance(to, (T.DoubleType, T.RealType)):
             return ir.lit(float(v), to)
+        if isinstance(v, float) and not math.isfinite(v) and (
+                T.is_integral(to) or isinstance(to, T.DecimalType)):
+            # NaN and infinities: the runtime cast raises
+            # INVALID_CAST_ARGUMENT through the row error channel
+            return ir.cast(e, to)
         if T.is_integral(to):
             # Presto integral casts round half-up and range-check; an
             # out-of-range constant falls through to the runtime cast,
