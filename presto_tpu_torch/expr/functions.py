@@ -456,10 +456,11 @@ def lookup(name: str) -> FunctionImpl:
 
 def _long_decimal_arith(op: str, a: Val, b: Val, out, valid) -> Val:
     """Decimal arithmetic through int128 limbs (DecimalOperators.java's
-    long-decimal paths): add/sub/mul exact with NUMERIC_VALUE_OUT_OF_RANGE
-    past 38 digits; division by a short divisor (precision <= 9) through
-    the base-2^32 short division, by any other through the general
-    int128 division; a zero divisor raises DIVISION_BY_ZERO."""
+    long-decimal paths, and every decimal division): add/sub/mul exact
+    with NUMERIC_VALUE_OUT_OF_RANGE past 38 digits; division by a short
+    divisor (precision <= 9) through the base-2^32 short division, by any
+    other through the general int128 division, rounding half up away from
+    zero; a zero divisor raises DIVISION_BY_ZERO."""
     s_out = out.scale
     sa = a.type.scale if isinstance(a.type, T.DecimalType) else 0
     sb = b.type.scale if isinstance(b.type, T.DecimalType) else 0
@@ -523,14 +524,9 @@ def _arith(op):
             if op == "mul":
                 data = rescale_decimal(da * db, sa + sb, s_out)
             elif op == "div":
-                num = rescale_decimal(da, sa, s_out + sb)
-                den = torch.where(db == 0, 1, db)
-                q = num.to(torch.float64) / den.to(torch.float64)
-                data = (torch.sign(q) * torch.floor(
-                    num.abs().to(torch.float64) / den.abs().to(torch.float64)
-                    + 0.5)).to(torch.int64)
-                err = flag_err(valid & (db == 0), E.DIVISION_BY_ZERO)
-                return Val(data, valid & (db != 0), out, err=err)
+                # exact: the rescaled numerator may leave int64, so the
+                # quotient is the limbs' half-up division, narrowed
+                return _long_decimal_arith(op, a, b, out, valid)
             elif op == "mod":
                 sc = max(sa, sb)
                 da2 = rescale_decimal(da, sa, sc)

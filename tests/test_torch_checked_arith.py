@@ -10,6 +10,8 @@ Presto's behaviour is that of its scalar operators and aggregations:
 ``LongSumAggregation`` (``Math.addExact``: NUMERIC_VALUE_OUT_OF_RANGE),
 ``StringFunctions.substr``, and the analyzer's refusal of ``date ±
 date``."""
+from decimal import Decimal
+
 import pytest
 
 from presto_tpu.exec.runner import LocalRunner
@@ -83,3 +85,46 @@ def test_in_range_double_casts_keep_their_rows(runners):
            "cast(n_nationkey * 1.25e0 as decimal(10,2)) "
            "from nation order by n_nationkey")
     assert_results_match(port.execute(sql), ref.execute(sql))
+
+
+#: (statement, the reference's row, Presto's row): the reference divides
+#: short decimals through float64 and loses the digits past 2^53
+DECIMAL_DIVISIONS = [
+    ("select cast(999999999999999999 as decimal(18,0)) "
+     "/ cast(3 as decimal(1,0))",
+     (Decimal("333333333333333312"),), (Decimal("333333333333333333"),)),
+    ("select cast(9007199254740993 as decimal(16,0)) "
+     "/ cast(1 as decimal(1,0))",
+     (Decimal("9007199254740992"),), (Decimal("9007199254740993"),)),
+    ("select cast(12345678901234.5678 as decimal(18,4)) "
+     "/ cast(3 as decimal(1,0))",
+     (Decimal("4115226300411.5224"),), (Decimal("4115226300411.5226"),)),
+]
+
+
+@pytest.mark.parametrize("sql,ref_row,presto_row", DECIMAL_DIVISIONS)
+def test_short_decimal_division_is_exact(runners, sql, ref_row, presto_row):
+    ref, port = runners
+    assert _ref_rows(ref, sql, 1) == [ref_row]
+    assert [tuple(r) for r in port.execute(sql).rows] == [presto_row]
+
+
+def test_short_decimal_division_keeps_rows_that_fit(runners):
+    """Quotients that float64 gave right stay bit-identical: half-up
+    rounding away from zero, negative divisors, a wide divisor."""
+    ref, port = runners
+    sql = ("select cast(o_totalprice as decimal(12,2)) "
+           "/ cast(o_custkey as decimal(10,0)), "
+           "cast(-o_custkey as decimal(10,0)) / cast(4 as decimal(1,0)), "
+           "cast(o_custkey as decimal(10,0)) / cast(-8 as decimal(2,1)), "
+           "cast(o_orderkey as decimal(12,2)) / 7 "
+           "from orders order by o_orderkey")
+    assert_results_match(port.execute(sql), ref.execute(sql))
+
+
+def test_short_decimal_division_by_zero(runners):
+    _, port = runners
+    sql = "cast(n_nationkey as decimal(3,0)) / cast(0 as decimal(3,0))"
+    _raises(port, f"select {sql} from nation", "DIVISION_BY_ZERO")
+    rows = port.execute(f"select try({sql}) from nation").rows
+    assert rows == [(None,)] * 25
