@@ -759,10 +759,19 @@ def _vocab_transform(fn):
 register("lower")(_vocab_transform(lambda s: s.lower()))
 register("upper")(_vocab_transform(lambda s: s.upper()))
 register("trim")(_vocab_transform(lambda s: s.strip()))
-# SQL substr is 1-based
-register("substr")(_vocab_transform(
-    lambda s, start, length=None: s[start - 1: start - 1 + length]
-    if length is not None else s[start - 1:]))
+def _substr(s: str, start: int, length: Optional[int] = None) -> str:
+    """StringFunctions.substr over code points (a Python str's
+    characters): ``start`` is 1-based, a negative start counts from the
+    end, and a start of 0 or a length of 0 or below gives ''."""
+    if start == 0 or (length is not None and length <= 0):
+        return ""
+    begin = start - 1 if start > 0 else start + len(s)
+    if begin < 0:
+        return ""
+    return s[begin:] if length is None else s[begin:begin + length]
+
+
+register("substr")(_vocab_transform(_substr))
 
 
 @register("length")

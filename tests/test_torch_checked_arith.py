@@ -128,3 +128,32 @@ def test_short_decimal_division_by_zero(runners):
     _raises(port, f"select {sql} from nation", "DIVISION_BY_ZERO")
     rows = port.execute(f"select try({sql}) from nation").rows
     assert rows == [(None,)] * 25
+
+
+#: (statement, the reference's rows, Presto's rows): StringFunctions.substr
+#: counts a negative start from the end, and a start of 0 gives ''
+SUBSTRS = [
+    ("select substr('hello', -3)", [("ello",)], [("llo",)]),
+    ("select substr('hello', -3, 2)", [("el",)], [("ll",)]),
+    ("select substr('hello', 0)", [("o",)], [("",)]),
+    ("select substr(n_name, -3) from nation order by n_nationkey",
+     [("ERIA",), ("TINA",)], [("RIA",), ("INA",)]),
+]
+
+
+@pytest.mark.parametrize("sql,ref_head,presto_head", SUBSTRS)
+def test_substr_counts_a_negative_start_from_the_end(runners, sql, ref_head,
+                                                     presto_head):
+    ref, port = runners
+    assert _ref_rows(ref, sql, len(ref_head)) == ref_head
+    assert _ref_rows(port, sql, len(presto_head)) == presto_head
+
+
+def test_substr_edges(runners):
+    _, port = runners
+    rows = port.execute(
+        "select substr('hello', -9), substr('hello', 2, 0), "
+        "substr('hello', 2, -1), substr('héllo', -4, 2), "
+        "substr('hello', 9), substr('hello', 2, 3), substr('hello', -1)"
+    ).rows
+    assert [tuple(r) for r in rows] == [("", "", "", "él", "", "ell", "o")]
