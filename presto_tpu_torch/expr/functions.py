@@ -1478,7 +1478,8 @@ def infer_call_type(name: str, arg_types: List[Type]) -> Type:
             p = min(38, max(pa - sa, pb - sb) + s + 1)
             return T.DecimalType(p, s)
         t = T.common_super_type(a, b)
-        if t is None:
+        if t is None or isinstance(t, T.DateType):
+            # Presto has no arithmetic operator over two dates
             raise TypeError(f"{name}({a.display()}, {b.display()})")
         return t
     if name == "negate" or name == "abs":

@@ -10,6 +10,7 @@ Presto's behaviour is that of its scalar operators and aggregations:
 ``LongSumAggregation`` (``Math.addExact``: NUMERIC_VALUE_OUT_OF_RANGE),
 ``StringFunctions.substr``, and the analyzer's refusal of ``date ±
 date``."""
+import datetime
 from decimal import Decimal
 
 import pytest
@@ -157,3 +158,31 @@ def test_substr_edges(runners):
         "substr('hello', 9), substr('hello', 2, 3), substr('hello', -1)"
     ).rows
     assert [tuple(r) for r in rows] == [("", "", "", "él", "", "ell", "o")]
+
+
+#: (statement, the reference's first row): DATE ± DATE was typed DATE;
+#: Presto has no such operator and refuses the statement at analysis
+DATE_PAIRS = [
+    ("select date '2020-01-05' - date '2020-01-01'",
+     (datetime.date(1970, 1, 5),)),
+    ("select date '2020-01-05' + date '2020-01-01'",
+     (datetime.date(2070, 1, 4),)),
+    ("select o_orderdate - date '1995-01-01' from orders "
+     "order by o_orderkey limit 2", (datetime.date(1968, 11, 22),)),
+]
+
+
+@pytest.mark.parametrize("sql,ref_row", DATE_PAIRS)
+def test_date_plus_minus_date_raises_at_analysis(runners, sql, ref_row):
+    ref, port = runners
+    assert _ref_rows(ref, sql, 1) == [ref_row]
+    with pytest.raises(TypeError):
+        port.execute(sql)
+
+
+def test_date_interval_arithmetic_keeps_its_types(runners):
+    ref, port = runners
+    sql = ("select o_orderdate - interval '3' day, "
+           "o_orderdate + interval '2' month from orders "
+           "order by o_orderkey limit 5")
+    assert_results_match(port.execute(sql), ref.execute(sql))
