@@ -508,6 +508,57 @@ def _long_decimal_arith(op: str, a: Val, b: Val, out, valid) -> Val:
                err=err)
 
 
+def _integral_arith(op: str, da: torch.Tensor, db: torch.Tensor,
+                    valid: torch.Tensor, out: Type) -> Val:
+    """add / sub / mul / div of tinyint..bigint, checked like Presto's
+    BigintOperators and IntegerOperators (``Math.addExact`` and its
+    siblings): a row whose exact result leaves the SQL type's range
+    raises NUMERIC_VALUE_OUT_OF_RANGE. Narrower types compute exactly in
+    int64 and check the range; bigint checks the wrapped result's sign
+    bits (add, sub), divides the wrapped product back
+    (``Math.multiplyExact``), and flags MIN / -1. Integer division
+    truncates toward zero; a zero divisor raises DIVISION_BY_ZERO."""
+    x, y = da.to(torch.int64), db.to(torch.int64)
+    bigint = isinstance(out, T.BigintType)
+    i64_min = int_range(T.BIGINT)[0]
+    zero = None
+    ovf = None
+    if op == "add":
+        r = x + y
+        if bigint:
+            ovf = ((x ^ r) & (y ^ r)) < 0
+    elif op == "sub":
+        r = x - y
+        if bigint:
+            ovf = ((x ^ y) & (x ^ r)) < 0
+    elif op == "mul":
+        r = x * y
+        if bigint:
+            m1 = y == -1
+            den = torch.where((y == 0) | m1, 1, y)
+            back = torch.div(r, den, rounding_mode="trunc")
+            ovf = torch.where(m1, x == i64_min, (y != 0) & (back != x))
+    elif op == "div":
+        zero = y == 0
+        m1 = y == -1
+        den = torch.where(zero | m1, 1, y)
+        # -x for a divisor of -1: MIN / -1 wraps, and is flagged below
+        r = torch.where(m1, -x, torch.div(x, den, rounding_mode="trunc"))
+        if bigint:
+            ovf = m1 & (x == i64_min)
+    else:
+        raise AssertionError(op)
+    if ovf is None:
+        ovf = ~_in_int_range(r, out)
+    err = flag_err(valid & ovf, E.NUMERIC_VALUE_OUT_OF_RANGE)
+    ok = ~ovf
+    if zero is not None:
+        ok = ok & ~zero
+        err = torch.maximum(err, flag_err(valid & zero, E.DIVISION_BY_ZERO))
+    return Val(torch.where(ok, r, 0).to(out.storage_dtype), valid & ok, out,
+               err=err)
+
+
 def _arith(op):
     def impl(args: List[Val], out: Type) -> Val:
         a, b = args
@@ -542,6 +593,8 @@ def _arith(op):
             return Val(data, valid, out)
         a2, b2 = cast_val(a, out), cast_val(b, out)
         da, db = a2.data, b2.data
+        if T.is_integral(out) and op != "mod":
+            return _integral_arith(op, da, db, valid, out)
         if op == "add":
             data = da + db
         elif op == "sub":
@@ -549,12 +602,6 @@ def _arith(op):
         elif op == "mul":
             data = da * db
         elif op == "div":
-            if T.is_integral(out):
-                den = torch.where(db == 0, 1, db)
-                # SQL integer division truncates toward zero
-                data = (torch.sign(da) * torch.sign(den)) * (da.abs() // den.abs())
-                err = flag_err(valid & (db == 0), E.DIVISION_BY_ZERO)
-                return Val(data, valid & (db != 0), out, err=err)
             # double/real: IEEE semantics (DoubleOperators.divide)
             data = da / db
         elif op == "mod":
@@ -576,11 +623,22 @@ for _name, _op in [("add", "add"), ("subtract", "sub"), ("multiply", "mul"),
     register(_name)(_arith(_op))
 
 
+def _checked_sign_flip(a: Val, data: torch.Tensor, out: Type) -> Val:
+    """negate / abs of an integral value: the type's minimum has no
+    positive counterpart and raises NUMERIC_VALUE_OUT_OF_RANGE
+    (BigintOperators.negate, MathFunctions.abs)."""
+    ok = a.data != int_range(a.type)[0]
+    err = flag_err(a.valid & ~ok, E.NUMERIC_VALUE_OUT_OF_RANGE)
+    return Val(torch.where(ok, data, 0), a.valid & ok, out, err=err)
+
+
 @register("negate")
 def _negate(args, out):
     (a,) = args
     if _is_long_dec(a.type):
         return Val(I.neg(a.data), a.valid, out)
+    if T.is_integral(a.type):
+        return _checked_sign_flip(a, -a.data, out)
     return Val(-a.data, a.valid, out)
 
 
@@ -589,6 +647,8 @@ def _abs(args, out):
     (a,) = args
     if _is_long_dec(a.type):
         return Val(I.abs_(a.data), a.valid, out)
+    if T.is_integral(a.type):
+        return _checked_sign_flip(a, torch.abs(a.data), out)
     return Val(torch.abs(a.data), a.valid, out)
 
 

@@ -186,3 +186,93 @@ def test_date_interval_arithmetic_keeps_its_types(runners):
            "o_orderdate + interval '2' month from orders "
            "order by o_orderkey limit 5")
     assert_results_match(port.execute(sql), ref.execute(sql))
+
+
+#: (statement, the reference's first rows): integral arithmetic and
+#: narrowing casts wrap in the reference; the port raises
+#: NUMERIC_VALUE_OUT_OF_RANGE
+INTEGRAL_OVERFLOWS = [
+    ("select cast(9223372036854775807 as bigint) + 1", [(I64_MIN,)]),
+    ("select cast(2147483647 as integer) + cast(1 as integer)",
+     [(I32_MIN,)]),
+    ("select abs(cast(-9223372036854775808 as bigint))", [(I64_MIN,)]),
+    ("select cast(-9223372036854775808 as bigint) / -1", [(I64_MIN,)]),
+    ("select 9223372036854775807 * 2", [(-2,)]),
+    ("select cast(300 as tinyint)", [(300,)]),
+    ("select cast(3000000000 as integer)", [(-1294967296,)]),
+    ("select cast(o_orderkey as bigint) * 4611686018427387904 "
+     "from orders order by o_orderkey",
+     [(1 << 62,), (I64_MIN,), (-(1 << 62),)]),
+]
+
+
+@pytest.mark.parametrize("sql,ref_head", INTEGRAL_OVERFLOWS)
+def test_integral_overflow_raises_numeric_value_out_of_range(
+        runners, sql, ref_head):
+    ref, port = runners
+    assert _ref_rows(ref, sql, len(ref_head)) == ref_head
+    _raises(port, sql, "NUMERIC_VALUE_OUT_OF_RANGE")
+
+
+@pytest.mark.parametrize("expr,want", [
+    ("-cast(-9223372036854775808 as bigint)", None),
+    ("cast(-9223372036854775807 as bigint) - 2", None),
+    ("cast(3037000500 as bigint) * 3037000500", None),
+    ("cast(-128 as tinyint) / cast(-1 as tinyint)", None),
+    ("-cast(-128 as tinyint)", None),
+    ("cast(100 as tinyint) + cast(100 as tinyint)", None),
+    ("cast(-32768 as smallint) * cast(-1 as smallint)", None),
+    ("cast(o_orderkey as integer) + cast(2147483600 as integer)", None),
+    ("cast(-9223372036854775808 as bigint) / 2", -(1 << 62)),
+    ("cast(-9223372036854775807 as bigint) / 2", -((1 << 62) - 1)),
+    ("cast(-3037000499 as bigint) * 3037000499", -3037000499 ** 2),
+    ("cast(-4611686018427387904 as bigint) * 2", I64_MIN),
+    ("cast(-9223372036854775807 as bigint) - 1", I64_MIN),
+    ("cast(-128 as tinyint) / cast(2 as tinyint)", -64),
+    ("cast(-9223372036854775808 as bigint) % -1", 0),
+    ("-cast(-127 as tinyint)", 127),
+    ("cast(2147483647 as integer) * cast(-1 as integer)", -I32_MAX),
+])
+def test_integral_edges(runners, expr, want):
+    """Results at the edge of each type's range: those that fit are
+    exact (integer division truncates toward zero), the others raise."""
+    _, port = runners
+    sql = f"select {expr} from orders order by o_orderkey limit 9"
+    if want is None:
+        _raises(port, sql, "NUMERIC_VALUE_OUT_OF_RANGE")
+    else:
+        assert [r[0] for r in port.execute(sql).rows] == [want] * 9
+
+
+#: TRY of every raising statement above gives NULL in the port, where the
+#: reference gives its wrong row
+TRY_FORMS = [
+    ("try(cast(1e10 as integer))", [(I32_MAX,)], [(None,)]),
+    ("try(cast(nan() as bigint))", None, [(None,)]),
+    ("try(cast(cast(n_nationkey as double) * 1e9 as integer)) "
+     "from nation order by n_nationkey",
+     [(0,), (1000000000,), (2000000000,), (I32_MAX,)],
+     [(0,), (1000000000,), (2000000000,), (None,)]),
+    ("try(cast(9223372036854775807 as bigint) + 1)", [(I64_MIN,)],
+     [(None,)]),
+    ("try(cast(2147483647 as integer) + cast(1 as integer))", [(I32_MIN,)],
+     [(None,)]),
+    ("try(abs(cast(-9223372036854775808 as bigint)))", [(I64_MIN,)],
+     [(None,)]),
+    ("try(cast(-9223372036854775808 as bigint) / -1)", [(I64_MIN,)],
+     [(None,)]),
+    ("try(cast(300 as tinyint))", [(300,)], [(None,)]),
+    ("try(cast(3000000000 as integer))", [(-1294967296,)], [(None,)]),
+    ("try(cast(o_orderkey as bigint) * 4611686018427387904) "
+     "from orders order by o_orderkey",
+     [(1 << 62,), (I64_MIN,)], [(1 << 62,), (None,)]),
+]
+
+
+@pytest.mark.parametrize("body,ref_head,port_head", TRY_FORMS)
+def test_try_gives_null(runners, body, ref_head, port_head):
+    ref, port = runners
+    sql = f"select {body}"
+    if ref_head is not None:
+        assert _ref_rows(ref, sql, len(ref_head)) == ref_head
+    assert _ref_rows(port, sql, len(port_head)) == port_head
