@@ -459,6 +459,34 @@ group by u order by u"""),
 select count(*), sum(x), min(x), max(x), sum(o)
 from unnest(sequence(1, 100000)) with ordinality as t(x, o)"""),
 )
+#: the surface phase's checked-arithmetic statements (name, SQL, the
+#: error name the card and the CPU must both raise, or None where their
+#: rows must match): the column-level out-of-range cast (the card's
+#: conversion saturated it, the CPU's wrapped it), a sort-path grouped
+#: sum whose groups leave int64, the exact short-decimal division past
+#: 2^53, and substr with a negative start
+SURFACE_CHECKED = (
+    ("cast_out_of_range", """
+select max(cast(cast(o_orderkey as double) * 1e6 as integer))
+from orders""", "INVALID_CAST_ARGUMENT"),
+    ("sum_overflow_sort", """
+select o_orderkey % 7 k, sum(cast(o_orderkey as bigint) * 1000000000000)
+from orders group by 1 order by 1""", "NUMERIC_VALUE_OUT_OF_RANGE"),
+    ("decimal_division", """
+select o_orderkey, cast(cast(o_orderkey as bigint) * 100000000000
+                        as decimal(18,0)) / cast(3 as decimal(1,0))
+from orders order by o_orderkey desc limit 5""", None),
+    ("substr_negative", """
+select n_nationkey, substr(n_name, -3) from nation order by 1""", None),
+)
+#: the sort-path grouped sum near the int64 edge: its factor is chosen
+#: from the CPU run so that the largest group lies within one factor of
+#: 2^63 - 1
+SURFACE_EDGE_KEYS = """
+select o_orderkey % 7 k, sum(o_orderkey) from orders group by 1"""
+SURFACE_EDGE_SUM = """
+select o_orderkey % 7 k, sum(cast(o_orderkey as bigint) * {factor})
+from orders group by 1 order by 1"""
 #: rows a block of csrc/scan.cu sums (ops/scan.py TILE_ROWS); a constant
 #: here so that the script also times kernels of commits that predate it
 SCAN_TILE_ROWS = 2048
@@ -1326,6 +1354,7 @@ def phase_surface(torch):
               f"{walls[1]:.3f} s | cpu {cpu_s:.3f} s | {len(res.rows)} rows "
               f"match the cpu run | peak {peak_gb:.2f} GiB | launches "
               f"(cold+warm) scan {counts[0]} probe {counts[1]}", flush=True)
+    _surface_checked(gpu, cpu, torch.cuda.synchronize)
     launches = {"segment_sum_sorted_i64": scan.launches,
                 "direct_probe": probe.launches}
     print(f"surface launches: {json.dumps(launches)} | phase wall "
@@ -1333,6 +1362,60 @@ def phase_surface(torch):
     if min(launches.values()) <= 0:
         raise AssertionError("a kernel never launched in the surface phase")
     return launches
+
+
+def _error_name(runner, sql: str):
+    """(rows or None, the QueryError's name or None) of one statement."""
+    from presto_tpu_torch.errors import QueryError
+    try:
+        return runner.execute(sql).rows, None
+    except QueryError as e:
+        return None, e.name
+
+
+def _surface_checked(gpu, cpu, sync, counter: str = "launches") -> None:
+    """SURFACE_CHECKED and the near-edge sum on the card (``gpu``)
+    against the CPU run: the same error names, or the same rows; the
+    sort-path sums call the segment sum (``scan.<counter>`` rises:
+    launches on the card, plain_calls in a CPU rehearsal)."""
+    from presto_tpu_torch.ops import scan
+    i64_max = (1 << 63) - 1
+    keys = dict(cpu.execute(SURFACE_EDGE_KEYS).rows)
+    factor = i64_max // max(int(v) for v in keys.values())
+    edge = ("sum_near_edge", SURFACE_EDGE_SUM.format(factor=factor), None)
+    for name, sql, want in SURFACE_CHECKED + (edge,):
+        before = getattr(scan, counter)
+        t0 = time.perf_counter()
+        rows, err = _error_name(gpu, sql)
+        sync()
+        wall = time.perf_counter() - t0
+        launched = getattr(scan, counter) - before
+        t0 = time.perf_counter()
+        cpu_rows, cpu_err = _error_name(cpu, sql)
+        cpu_s = time.perf_counter() - t0
+        if err != want or cpu_err != want:
+            raise AssertionError(
+                f"surface {name}: cuda raised {err}, cpu raised {cpu_err}, "
+                f"expected {want}")
+        if want is None:
+            _same_rows(rows, cpu_rows, 0.0, name)
+        if name.startswith("sum_") and launched <= 0:
+            raise AssertionError(
+                f"surface {name} did not launch the segment sum")
+        if name == "sum_near_edge":
+            exact = sorted((k, int(v) * factor) for k, v in keys.items())
+            if [(int(k), int(v)) for k, v in rows] != exact:
+                raise AssertionError("surface sum_near_edge is not exact")
+        if name == "decimal_division":
+            top = int(rows[0][0]) * 100000000000
+            if int(rows[0][1]) != (top + 1) // 3:
+                raise AssertionError("surface decimal_division is not exact")
+        if name == "substr_negative" and rows[0][1] != "RIA":
+            raise AssertionError(f"surface substr gave {rows[0][1]!r}")
+        print(f"surface {name}: cuda {wall:.3f} s | cpu {cpu_s:.3f} s | "
+              + (f"both raise {err}" if want else
+                 f"{len(rows)} rows match the cpu run")
+              + f" | scan {counter} {launched}", flush=True)
 
 
 def write_tpch_files(root: str, sf: float) -> str:

@@ -76,6 +76,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 
 from ..connectors.spi import Split
+from ..errors import QueryError
 from ..obs.log import LOG
 from ..obs.metrics import NODES, REGISTRY, TASKS
 from ..obs.trace import TRACER
@@ -510,6 +511,8 @@ class _QueryExecution:
         self.tasks: Dict[Tuple[int, int], _TaskAttempt] = {}
         self.spec: Dict[Tuple[int, int], _TaskAttempt] = {}
         self.spec_done: Set[Tuple[int, int]] = set()
+        #: a failed task's QueryError code (``_probe``): poll raises it
+        self.user_error: Optional[int] = None
         self.attempt_no: Dict[Tuple[int, int], int] = {}
         self.retries_used: Dict[Tuple[int, int], int] = {}
         self.bad_workers: Set[str] = set()
@@ -743,6 +746,9 @@ class _QueryExecution:
                 failed[key] = f"lost task {at.task_id} ({why})"
                 continue
             statuses.append(st)
+            if st.get("state") == "FAILED" and st.get("errorCode"):
+                # a row error of the query itself: no retry repairs it
+                self.user_error = int(st["errorCode"])
             if st.get("state") in ("FAILED", "ABORTED"):
                 failed[key] = (f"task {at.task_id} "
                                f"{st.get('state', '').lower()}: "
@@ -975,6 +981,8 @@ class _QueryExecution:
         self._sched = None
         before = self.retries + self.spec_launched + self.spec_won
         statuses, failed, spec_status = self._probe()
+        if self.user_error:
+            raise QueryError(self.user_error)
         self.monitor.observe(statuses)
         self._resolve_speculation(statuses, failed, spec_status)
         self._recover(failed)

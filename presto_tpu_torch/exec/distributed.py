@@ -990,6 +990,8 @@ class DistributedExecutor(_Executor):
                         param=a.param)
                 for a in node.aggs]
         group = list(node.group_indices)
+        # checked integral sums flag overflow from inside the slot bodies
+        errs = self.error_flags
         from ..ops.aggregation import percentile_drains
         # final-step nodes consume STATE columns whose layout the raw agg
         # input indices don't describe: never re-check them
@@ -1010,13 +1012,14 @@ class DistributedExecutor(_Executor):
                 b = self._repartitioner(group, fused=False)(b)
                 fn = self._smap(
                     lambda x: grouped_aggregate(x, group, aggs,
-                                                mode="single"), 1,
+                                                mode="single",
+                                                errors=errs), 1,
                     stage="agg")
                 yield fn(b)
             else:
                 yield self._gathered_call(
-                    lambda x: global_aggregate(x, aggs, mode="single"), b,
-                    "agg")
+                    lambda x: global_aggregate(x, aggs, mode="single",
+                                               errors=errs), b, "agg")
             return
         if not group:
             yield self._global_agg(node, aggs)
@@ -1031,7 +1034,8 @@ class DistributedExecutor(_Executor):
         partial_fn = self._smap(
             lambda b: grouped_aggregate(b, group, aggs, mode="partial",
                                         key_bounds=kb,
-                                        allow_dense=allow_dense), 1,
+                                        allow_dense=allow_dense,
+                                        errors=errs), 1,
             stage="agg")
         merge_fn = None
 
@@ -1063,7 +1067,8 @@ class DistributedExecutor(_Executor):
                         lambda a, b: grouped_aggregate(
                             concat_batches([a, b]), key_idx, aggs,
                             mode="merge", key_bounds=kb,
-                            allow_dense=allow_dense), 2, stage="agg")
+                            allow_dense=allow_dense, errors=errs), 2,
+                        stage="agg")
                 merged = merge_fn(state, partial)
                 merges += 1
                 # compaction sizing is an optimization: the live-max sync
@@ -1099,13 +1104,14 @@ class DistributedExecutor(_Executor):
             out = self._gathered_call(
                 lambda b: grouped_aggregate(
                     b, key_idx, aggs, mode="final", key_bounds=kb,
-                    allow_dense=allow_dense), state, "agg")
+                    allow_dense=allow_dense, errors=errs), state, "agg")
         else:
             state = self._repartitioner(key_idx, fused=False)(state)
             final_fn = self._smap(
                 lambda b: grouped_aggregate(b, key_idx, aggs, mode="final",
                                             key_bounds=kb,
-                                            allow_dense=allow_dense), 1,
+                                            allow_dense=allow_dense,
+                                            errors=errs), 1,
                 stage="agg")
             out = final_fn(state)
         if node.default_gids and step in ("single", "final") \
@@ -1169,8 +1175,8 @@ class DistributedExecutor(_Executor):
                     n_out=2, replicated_out=(1,), stage="agg",
                     rounds=rounds, collective=True)
             out, viol = fn(*([carry] if has_carry else []), *chunks)
-            if kb is not None:
-                self.error_flags.append(viol)
+            # bounds violations and checked-sum overflow, one scalar
+            self.error_flags.append(viol)
             return out
 
         state: Optional[Batch] = None
@@ -1195,12 +1201,15 @@ class DistributedExecutor(_Executor):
     def _global_agg(self, node: AggregationNode,
                     aggs: List[AggSpec]) -> Batch:
         step = node.step
+        errs = self.error_flags
         partial_fn = self._smap(
-            lambda b: global_aggregate(b, aggs, mode="partial"), 1,
+            lambda b: global_aggregate(b, aggs, mode="partial",
+                                       errors=errs), 1,
             stage="agg")
         merge_fn = self._smap(
             lambda a, b: global_aggregate(
-                concat_batches([a, b]), aggs, mode="merge"), 2, stage="agg")
+                concat_batches([a, b]), aggs, mode="merge", errors=errs),
+            2, stage="agg")
         state: Optional[Batch] = None
         for chunk in self.run(node.child):
             partial = (chunk if step == "final" else partial_fn(chunk))
@@ -1215,7 +1224,8 @@ class DistributedExecutor(_Executor):
             return state          # shard-local states; FINAL gathers
         # gather every shard's state and finalize replicated, on shard 0
         return self._gathered_call(
-            lambda b: global_aggregate(b, aggs, mode="final"), state, "agg")
+            lambda b: global_aggregate(b, aggs, mode="final", errors=errs),
+            state, "agg")
 
     # -- joins -----------------------------------------------------------------
     def _JoinNode(self, node: JoinNode) -> Iterator[Batch]:
@@ -1812,17 +1822,20 @@ class DistributedExecutor(_Executor):
                 for k in node.order_keys]
         parts = list(node.partition_indices)
         schema = _plan_schema(node)
+        errs = self.error_flags
         if parts:
             # colocate partitions via hash exchange, evaluate per shard
             b = self._repartitioner(parts, fused=False)(b)
             fn = self._smap(
-                lambda x: evaluate_window(x, parts, keys, specs), 1)
+                lambda x: evaluate_window(x, parts, keys, specs,
+                                          errors=errs), 1)
             out = fn(b)
         else:
             # one global partition: evaluated over the gathered batch,
             # kept on shard 0
             out = self._gathered_call(
-                lambda x: evaluate_window(x, parts, keys, specs), b, "misc")
+                lambda x: evaluate_window(x, parts, keys, specs,
+                                          errors=errs), b, "misc")
         yield Batch(schema, out.columns, out.row_mask)
 
     def _DistinctNode(self, node: DistinctNode) -> Iterator[Batch]:
@@ -1879,13 +1892,16 @@ def _fused_agg_wave_fn(group, key_idx, aggs, kb, cap_out: int,
     + state merge over the wave's chunks with the carry at the STATIC
     ``cap_out`` capacity the dense key domain proves. A collective body:
     returns ``(states per slot, [violation])`` where the violation is the
-    explicit max over the slots (the reference's ``pmax``), one value."""
+    explicit max over the slots (the reference's ``pmax``), one value:
+    STATS_BOUND_VIOLATION, the checked sums' NUMERIC_VALUE_OUT_OF_RANGE,
+    or 0."""
     kb_t = tuple(kb) if kb else None
 
-    def _partial(chunk: Batch) -> Batch:
+    def _partial(chunk: Batch, errs: list) -> Batch:
         return grouped_aggregate(chunk, group, aggs, mode="partial",
                                  output_capacity=cap_out,
-                                 key_bounds=kb_t, allow_dense=True)
+                                 key_bounds=kb_t, allow_dense=True,
+                                 errors=errs)
 
     def fused_agg_wave(*args):
         carries = args[0] if has_carry else None
@@ -1894,29 +1910,26 @@ def _fused_agg_wave_fn(group, key_idx, aggs, kb, cap_out: int,
         states, viols = [], []
         for s in range(n):
             chunks = [cl[s] for cl in chunk_lists]
+            errs: list = []
             if kb_t is not None:
-                v = torch.zeros((), dtype=torch.int32,
-                                device=chunks[0].device)
                 for c in chunks:
-                    v = torch.maximum(v, key_bounds_violation(
-                        c, group, kb_t))
-                viols.append(v)
+                    errs.append(key_bounds_violation(c, group, kb_t))
             if has_carry:
                 st, lo = carries[s], 0
             else:
-                st, lo = _partial(chunks[0]), 1
+                st, lo = _partial(chunks[0], errs), 1
             for r in range(lo, n_chunks):
                 st = grouped_aggregate(
-                    concat_batches([st, _partial(chunks[r])]), key_idx,
-                    aggs, mode="merge", output_capacity=cap_out,
-                    key_bounds=kb_t, allow_dense=True)
+                    concat_batches([st, _partial(chunks[r], errs)]),
+                    key_idx, aggs, mode="merge", output_capacity=cap_out,
+                    key_bounds=kb_t, allow_dense=True, errors=errs)
             states.append(st)
-        if viols:
-            dev0 = viols[0].device
-            viol = torch.stack([v.to(dev0) for v in viols]).max()
-        else:
-            viol = torch.zeros((), dtype=torch.int32,
-                               device=chunk_lists[0][0].device)
+            v = torch.zeros((), dtype=torch.int32, device=chunks[0].device)
+            for e in errs:
+                v = torch.maximum(v, e)
+            viols.append(v)
+        dev0 = viols[0].device
+        viol = torch.stack([v.to(dev0) for v in viols]).max()
         return states, [viol] * n
 
     return fused_agg_wave

@@ -810,7 +810,8 @@ class _Executor:
                             f.ignore_order, f.frame, f.frame_start,
                             f.frame_end) for f in node.functions]
         out = evaluate_window(b, list(node.partition_indices),
-                              self._sort_keys(node.order_keys), specs)
+                              self._sort_keys(node.order_keys), specs,
+                              errors=self.error_flags)
         yield Batch(_plan_schema(node), out.columns, out.row_mask)
 
     def _MarkDistinctNode(self, node: MarkDistinctNode) -> Iterator[Batch]:
@@ -887,8 +888,10 @@ class _Executor:
                     _plan_schema(node.child),
                     [[] for _ in node.child.fields], num_rows=0,
                     device=self.device)
-            yield (grouped_aggregate(b, group, aggs, mode="single")
-                   if group else global_aggregate(b, aggs, mode="single"))
+            yield (grouped_aggregate(b, group, aggs, mode="single",
+                                     errors=self.error_flags)
+                   if group else global_aggregate(b, aggs, mode="single",
+                                                  errors=self.error_flags))
             return
         if not group:
             yield from self._global_agg(node, aggs, step)
@@ -928,11 +931,13 @@ class _Executor:
             self.pool, name, key_idx, aggs, self.spill_partitions,
             merge_every=self.MERGE_EVERY, key_bounds=kb, allow_dense=allow,
             flag_bounds=lambda b: self._flag_bounds(b, key_idx, aggs, kb,
-                                                    allow))
+                                                    allow),
+            errors=self.error_flags)
         def partial(b: Batch) -> Batch:
             self._flag_bounds(b, group, aggs, kb, allow)
             return grouped_aggregate(b, group, aggs, mode="partial",
-                                     key_bounds=kb, allow_dense=allow)
+                                     key_bounds=kb, allow_dense=allow,
+                                     errors=self.error_flags)
         try:
             if step == "final":
                 partials = self.run(child)
@@ -957,26 +962,25 @@ class _Executor:
             self.error_flags.append(key_bounds_violation(b, cols, kb))
 
     def _global_agg(self, node: AggregationNode, aggs, step):
+        def agg(b: Batch, mode: str) -> Batch:
+            return global_aggregate(b, aggs, mode=mode,
+                                    errors=self.error_flags)
         parts: List[Batch] = []
         for b in self.run(node.child):
-            parts.append(global_aggregate(b, aggs, mode="partial")
-                         if step != "final" else b)
+            parts.append(agg(b, "partial") if step != "final" else b)
             if len(parts) >= 64:
-                parts = [global_aggregate(concat_batches(parts), aggs,
-                                          mode="merge")]
+                parts = [agg(concat_batches(parts), "merge")]
         if not parts:
             # no input still finalizes to one row (count = 0)
             empty = Batch.from_arrays(
                 _plan_schema(node.child), [[] for _ in node.child.fields],
                 num_rows=0, device=self.device)
-            parts = [empty if step == "final"
-                     else global_aggregate(empty, aggs, mode="partial")]
+            parts = [empty if step == "final" else agg(empty, "partial")]
         states = concat_batches(parts) if len(parts) > 1 else parts[0]
         if step == "partial":
-            yield (global_aggregate(states, aggs, mode="merge")
-                   if len(parts) > 1 else states)
+            yield agg(states, "merge") if len(parts) > 1 else states
         else:
-            yield global_aggregate(states, aggs, mode="final")
+            yield agg(states, "final")
 
     # -- joins ----------------------------------------------------------------
     def _JoinNode(self, node: JoinNode) -> Iterator[Batch]:

@@ -428,7 +428,9 @@ class AggSpillBuffer(_SpillBuffer):
 
     ``flag_bounds(states)`` is called on every batch a merge or final
     aggregates: the executor's stats-bounds check (a merge whose larger
-    capacity takes the dense, clamping path owes a violation flag)."""
+    capacity takes the dense, clamping path owes a violation flag).
+    ``errors`` receives the overflow scalars of checked integral sums
+    (``grouped_aggregate``)."""
 
     KIND = "hash-agg"
 
@@ -436,19 +438,22 @@ class AggSpillBuffer(_SpillBuffer):
                  key_idx: Sequence[int], aggs: Sequence[AggSpec],
                  n_partitions: int, merge_every: int = 16,
                  key_bounds=None, allow_dense: bool = True,
-                 flag_bounds: Callable[[Batch], None] = lambda b: None):
+                 flag_bounds: Callable[[Batch], None] = lambda b: None,
+                 errors: Optional[list] = None):
         super().__init__(pool, name, key_idx, n_partitions)
         self.aggs = list(aggs)
         self.key_bounds = tuple(key_bounds) if key_bounds else None
         self.allow_dense = allow_dense
         self.flag_bounds = flag_bounds
+        self.errors = errors
         self.merge_every = merge_every
 
     def _aggregate(self, states: Batch, mode: str) -> Batch:
         self.flag_bounds(states)
         return grouped_aggregate(states, self.key_cols, self.aggs,
                                  mode=mode, key_bounds=self.key_bounds,
-                                 allow_dense=self.allow_dense)
+                                 allow_dense=self.allow_dense,
+                                 errors=self.errors)
 
     def add_partial(self, partial: Batch) -> None:
         with self.ctx.pool.lock:

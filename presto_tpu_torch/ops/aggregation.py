@@ -15,6 +15,11 @@ a grouping either
   card). Double sums on this path use ``index_add_``: prefix differences
   over millions of rows would lose about 1e-10 relative precision.
 
+Integral ``sum`` is checked (``checked_sum_i64``): each reduction sums
+two digit planes of the int64 values, which cannot wrap, and a group
+whose exact sum leaves int64 raises NUMERIC_VALUE_OUT_OF_RANGE through
+the executor's error channel (the ``errors`` list of the entry points).
+
 NULL is a group key value like any other (SQL GROUP BY semantics).
 Two-phase execution mirrors Presto's PARTIAL/FINAL split (reference
 AggregationNode.Step): partial emits state columns, final re-aggregates
@@ -30,6 +35,7 @@ import torch
 
 from .. import types as T
 from ..batch import Batch, Column, Schema, bucket_capacity, gather_rows
+from ..errors import NUMERIC_VALUE_OUT_OF_RANGE
 from ..types import Type
 from . import int128 as I
 from .join import lexsort_permutation
@@ -355,6 +361,8 @@ class _SlotReducers:
     (digit planes, HLL registers)."""
 
     def __init__(self, group_id: torch.Tensor, cap: int):
+        # a checked sum's digit planes are exact below 2^31 rows
+        assert group_id.shape[0] <= CHECKED_SUM_MAX_ROWS, group_id.shape
         self.gid, self.cap = group_id, cap
 
     def count(self, valid):
@@ -386,8 +394,10 @@ class _SlotReducers:
 
 class _SegReducers(_SlotReducers):
     """Sort-path reducers: group ids are sorted runs with per-group start
-    rows (absent groups point one past the end), so int64 sums take the
-    sorted-run segment-sum kernel (exact, wrapping like the reference)."""
+    rows (absent groups point one past the end), so every 1-D int64 sum
+    takes the sorted-run segment-sum kernel: counts, and each digit plane
+    of a checked integral sum (``checked_sum_i64``). The kernel wraps mod
+    2^64; the planes cannot wrap, so the sums are exact and checked."""
 
     def __init__(self, group_id: torch.Tensor, cap: int,
                  starts: torch.Tensor):
@@ -398,6 +408,55 @@ class _SegReducers(_SlotReducers):
         if x.dtype == torch.int64 and x.ndim == 1:
             return segment_sum_sorted_i64(x, self.starts, self.cap)
         return super().sum(x)
+
+
+#: rows one checked sum may reduce: below 2^31 rows neither digit
+#: plane's sum can leave int64
+CHECKED_SUM_MAX_ROWS = (1 << 31) - 1
+
+
+def i64_planes(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two digit planes of int64 values, each a 1-D int64 tensor:
+    ``hi = x >> 32`` (arithmetic, in [-2^31, 2^31)) and ``lo = x &
+    0xFFFFFFFF`` (in [0, 2^32)), so that ``x = hi * 2^32 + lo``."""
+    return x >> 32, x & 0xFFFFFFFF
+
+
+def from_plane_sums(hs: torch.Tensor, ls: torch.Tensor):
+    """``(value, overflow)`` of a sum given its planes' exact sums: the
+    exact sum is ``h * 2^32 + (ls & 0xFFFFFFFF)`` with ``h = hs + (ls >>
+    32)``, so it fits int64 iff ``h`` lies in [-2^31, 2^31). ``value`` is
+    ``hs * 2^32 + ls`` in wrapping int64: the bits of the plain wrapping
+    sum, so a sum that fits is the same as without the check."""
+    h = hs + (ls >> 32)
+    overflow = (h < -(1 << 31)) | (h >= (1 << 31))
+    return hs * (1 << 32) + ls, overflow
+
+
+def checked_sum_i64(x: torch.Tensor, red_sum):
+    """Exact integral sum with an overflow flag per group
+    (LongSumAggregation's ``Math.addExact``, checked per state). ``x``
+    is 1-D int64 with dead rows zero; ``red_sum`` is the reducer's sum,
+    which each plane passes through as its own 1-D int64 tensor (on the
+    sort path, one launch of the segment-sum kernel each). Exact for
+    fewer than 2^31 rows.
+
+    Semantics: a sum raises iff the exact sum of some state (partial,
+    merged or final) leaves int64. A running sum that leaves int64 and
+    comes back within one reduction does not raise, where Presto's
+    row-by-row ``addExact`` would."""
+    assert x.shape[0] <= CHECKED_SUM_MAX_ROWS, x.shape
+    hi, lo = i64_planes(x)
+    return from_plane_sums(red_sum(hi), red_sum(lo))
+
+
+def overflow_code(flags: Sequence[torch.Tensor], device) -> torch.Tensor:
+    """One device int32 scalar: NUMERIC_VALUE_OUT_OF_RANGE when any flag
+    is set, else 0 (no host sync)."""
+    bad = torch.zeros((), dtype=torch.bool, device=device)
+    for f in flags:
+        bad = bad | f.any()
+    return torch.where(bad, NUMERIC_VALUE_OUT_OF_RANGE, 0).to(torch.int32)
 
 
 class _GlobalReducer:
@@ -473,9 +532,19 @@ def _raw_variance(red, data, valid, cnt):
 
 def _segment_aggs(aggs: Sequence[AggSpec], col_data, col_valid,
                   mask: torch.Tensor, red, from_states: bool,
-                  col_dicts=None) -> List[Tuple[torch.Tensor, ...]]:
+                  col_dicts=None, overflow: Optional[list] = None
+                  ) -> List[Tuple[torch.Tensor, ...]]:
     """Per-aggregate reductions: state tuples in each agg's state layout
-    (raw input when ``from_states`` is False, merged states when True)."""
+    (raw input when ``from_states`` is False, merged states when True).
+    Each checked integral sum appends its per-group overflow flags to
+    ``overflow``."""
+    if overflow is None:
+        overflow = []
+
+    def int_sum(x: torch.Tensor) -> torch.Tensor:
+        val, ovf = checked_sum_i64(x, red.sum)
+        overflow.append(ovf)
+        return val
     results = []
     state_cursor = 0
     for agg in aggs:
@@ -514,6 +583,8 @@ def _segment_aggs(aggs: Sequence[AggSpec], col_data, col_valid,
                        else _minmax128(val_in, live, red, agg.fn))
             elif vocab is not None and agg.fn in ("min", "max"):
                 val = _rank_reduce(val_in, live, red, vocab, agg.fn)
+            elif agg.fn == "sum" and val_in.dtype == torch.int64:
+                val = int_sum(_fill(val_in, live, 0))
             elif agg.fn in ("sum", "avg"):
                 val = red.sum(_fill(val_in, live, 0))
             elif agg.fn in ("bool_and", "min"):
@@ -563,7 +634,9 @@ def _segment_aggs(aggs: Sequence[AggSpec], col_data, col_valid,
             continue
         acc_dtype = acc_t.storage_dtype
         x = data.to(acc_dtype)
-        if agg.fn in ("sum", "avg"):
+        if agg.fn == "sum" and acc_dtype == torch.int64:
+            val = int_sum(_fill(x, valid, 0))
+        elif agg.fn in ("sum", "avg"):
             val = red.sum(_fill(x, valid, 0))
         elif agg.fn == "min":
             val = red.min(_fill(x, valid, _max_sentinel(acc_dtype)))
@@ -743,7 +816,7 @@ def _drain_groups(aggs):
 
 
 def _with_drain_aggs(batch: Batch, group_indices, aggs, mode,
-                     output_capacity) -> Batch:
+                     output_capacity, errors=None) -> Batch:
     """grouped_aggregate with approx_percentile columns spliced in."""
     if mode != "single":
         raise NotImplementedError(
@@ -753,7 +826,8 @@ def _with_drain_aggs(batch: Batch, group_indices, aggs, mode,
     # the drains align with the regular aggregates POSITIONALLY (both
     # orders come from _group_key_ops), so the dense path must not run
     base = grouped_aggregate(batch, group_indices, regular, "single",
-                             output_capacity, allow_dense=False)
+                             output_capacity, allow_dense=False,
+                             errors=errors)
     computed = {}
     for shared in _drain_groups(aggs).values():
         for agg, res in zip(shared, _grouped_percentiles(
@@ -788,21 +862,26 @@ def _pad_to(arr: torch.Tensor, K: int, cap: int) -> torch.Tensor:
 def grouped_aggregate(batch: Batch, group_indices: Sequence[int],
                       aggs: Sequence[AggSpec], mode: str = "single",
                       output_capacity: Optional[int] = None,
-                      allow_dense: bool = True, key_bounds=None) -> Batch:
+                      allow_dense: bool = True, key_bounds=None,
+                      errors: Optional[list] = None) -> Batch:
     """GROUP BY aggregation. mode: 'single' | 'partial' | 'final' | 'merge'.
 
     In 'final' and 'merge' modes the input layout is [group key
     columns..., state columns in agg order...] (the output of 'partial').
     'merge' re-combines state rows sharing a key but keeps the state
     layout. ``key_bounds`` (one Optional[(lo, hi)] per key) lets integer
-    keys join the dense composite-code path."""
+    keys join the dense composite-code path. When the aggregates hold a
+    checked integral sum, one device int32 scalar (``overflow_code``:
+    NUMERIC_VALUE_OUT_OF_RANGE or 0) is appended to ``errors``, the
+    executor's error flags."""
     assert mode in ("single", "partial", "final", "merge")
     if has_drain_agg(aggs):
         return _with_drain_aggs(batch, group_indices, aggs, mode,
-                                output_capacity)
+                                output_capacity, errors)
     cap = output_capacity or batch.capacity
     from_states = mode in ("final", "merge")
     n_keys = len(group_indices)
+    overflow: list = []
     # wide states (HLL registers, decimal(38) limb pairs) take the sort
     # path, as in the reference
     wide = _wide_state_aggs(aggs)
@@ -826,7 +905,8 @@ def grouped_aggregate(batch: Batch, group_indices: Sequence[int],
         raw = _segment_aggs(aggs, [c.data for c in in_cols],
                             [c.validity for c in in_cols], mask, red,
                             from_states=from_states,
-                            col_dicts=[c.dictionary for c in in_cols])
+                            col_dicts=[c.dictionary for c in in_cols],
+                            overflow=overflow)
         seg = [tuple(_pad_to(a, K, cap) for a in parts) for parts in raw]
     else:
         s_data, s_valid, s_mask, boundary, group_id, num_groups = \
@@ -849,7 +929,10 @@ def grouped_aggregate(batch: Batch, group_indices: Sequence[int],
         seg = _segment_aggs(aggs, s_data[first:], s_valid[first:], s_mask,
                             red, from_states=from_states,
                             col_dicts=[c.dictionary
-                                       for c in batch.columns[first:]])
+                                       for c in batch.columns[first:]],
+                            overflow=overflow)
+    if overflow and errors is not None:
+        errors.append(overflow_code(overflow, dev))
 
     def value_dict(agg: AggSpec):
         """Dictionary for a string-valued min/max output/state column."""
@@ -887,11 +970,13 @@ def grouped_aggregate(batch: Batch, group_indices: Sequence[int],
     return Batch(Schema(out_fields), out_cols, out_mask)
 
 
-def _global_drains(batch: Batch, aggs: Sequence[AggSpec]) -> Batch:
+def _global_drains(batch: Batch, aggs: Sequence[AggSpec],
+                   errors=None) -> Batch:
     """Single-mode global aggregation with exact percentile columns (the
     drain callers and string inputs)."""
     base = global_aggregate(batch, [a for a in aggs
-                                    if a.fn not in DRAIN_FNS], "single")
+                                    if a.fn not in DRAIN_FNS], "single",
+                            errors)
     computed = {}
     for shared in _drain_groups(aggs).values():
         for agg, res in zip(shared, _global_percentiles(batch, shared)):
@@ -952,13 +1037,15 @@ def _percentile_out(agg: AggSpec, counts: torch.Tensor):
 
 
 def global_aggregate(batch: Batch, aggs: Sequence[AggSpec],
-                     mode: str = "single") -> Batch:
+                     mode: str = "single",
+                     errors: Optional[list] = None) -> Batch:
     """Aggregation without GROUP BY: one output row, even over empty input
     (reference AggregationOperator.java). 'merge' consumes state columns
-    and emits merged state columns."""
+    and emits merged state columns. Checked integral sums append their
+    overflow scalar to ``errors`` as in ``grouped_aggregate``."""
     assert mode in ("single", "partial", "final", "merge")
     if has_drain_agg(aggs) and mode == "single":
-        return _global_drains(batch, aggs)
+        return _global_drains(batch, aggs, errors)
     cap = 128  # minimum bucket; one live row
     dev = batch.device
     mask = batch.row_mask
@@ -976,10 +1063,14 @@ def global_aggregate(batch: Batch, aggs: Sequence[AggSpec],
             cursor += n
     else:
         reg_cols = cols
+    overflow: list = []
     seg = iter(_segment_aggs(regular, [c.data for c in reg_cols],
                              [c.validity for c in reg_cols], mask,
                              _GlobalReducer(), from_states=from_states,
-                             col_dicts=[c.dictionary for c in reg_cols]))
+                             col_dicts=[c.dictionary for c in reg_cols],
+                             overflow=overflow))
+    if overflow and errors is not None:
+        errors.append(overflow_code(overflow, dev))
 
     def pad(value: torch.Tensor, dtype) -> torch.Tensor:
         out = torch.zeros((cap,) + tuple(value.shape), dtype=dtype,

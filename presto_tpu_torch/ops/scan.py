@@ -80,8 +80,11 @@ def _check(values: torch.Tensor, starts: torch.Tensor,
 
 def segment_sum_sorted_i64(values: torch.Tensor, starts: torch.Tensor,
                            num_segments: int) -> torch.Tensor:
-    """Exact int64 per-segment sums over sorted runs (wrapping mod 2^64
-    like the reference's digit-plane sums). ``starts`` must be
+    """Exact int64 per-segment sums over sorted runs, wrapping mod 2^64
+    like the reference's digit-plane sums. The kernel does not check
+    overflow: the reducer above it does (``ops/aggregation.py``'s
+    ``checked_sum_i64`` passes each digit plane of an integral sum
+    through here, and planes cannot wrap). ``starts`` must be
     non-decreasing within [0, n]: the CUDA kernel finds each tile's
     segments by searching it."""
     _check(values, starts, num_segments)

@@ -13,7 +13,10 @@ per-row values come from branch-free cumulative/segment ops:
 - running aggregates = prefix sums over the sorted order at the frame
   end minus the prefix at the partition start (``prefix_sum``: a fixed
   pairwise summation order, so a partition's sum does not depend on the
-  run or the device).
+  run or the device). An integral ``sum`` takes the prefix sums of its
+  two digit planes (``ops/aggregation.i64_planes``) with frame
+  differences per plane, so a frame whose exact sum leaves int64 raises
+  NUMERIC_VALUE_OUT_OF_RANGE through the executor's error channel.
 
 Rows are returned in (partition, order) order — a valid SQL result order;
 the planner's own ORDER BY, if any, sorts afterwards.
@@ -35,6 +38,9 @@ import torch
 from .. import types as T
 from ..batch import Batch, Column, Schema, gather_rows
 from ..types import Type
+from .aggregation import (
+    CHECKED_SUM_MAX_ROWS, from_plane_sums, i64_planes, overflow_code,
+)
 from .join import lexsort_permutation
 from .sort import SortKey, _sortable, rank_codes, unrank_table
 
@@ -266,9 +272,13 @@ def evaluate_window(
     partition_by: Sequence[int],
     order_by: Sequence[SortKey],
     specs: Sequence[WindowSpec],
+    errors: Optional[list] = None,
 ) -> Batch:
     """Append one output column per spec; rows re-ordered by
-    (partition, order, original position)."""
+    (partition, order, original position). When a spec is an integral
+    ``sum``, one device int32 scalar (NUMERIC_VALUE_OUT_OF_RANGE where
+    a live row's frame sum leaves int64, else 0) is appended to
+    ``errors``, the executor's error flags."""
     cap = batch.capacity
     dev = batch.device
     # ---- global sort: dead rows last, then partition keys, then order keys
@@ -324,7 +334,7 @@ def evaluate_window(
     new_cols = [Column(c.type, d, v, c.dictionary)
                 for c, (d, v) in zip(batch.columns, s_cols)]
     ctx = _Ctx(s_cols, batch, mask, idx, pstart, pend, psize, row_in_part,
-               ostart, oend, dense, dense_at_pstart, order_ctx)
+               ostart, oend, dense, dense_at_pstart, order_ctx, [])
     for spec in specs:
         data, valid = _one_window(spec, ctx)
         fields.append((spec.name, spec.output_type))
@@ -337,6 +347,8 @@ def evaluate_window(
         new_cols.append(Column(spec.output_type,
                                data.to(spec.output_type.storage_dtype),
                                valid & mask, dictionary))
+    if ctx.overflow and errors is not None:
+        errors.append(overflow_code(ctx.overflow, dev))
     return Batch(Schema(fields), new_cols, mask)
 
 
@@ -357,6 +369,8 @@ class _Ctx:
     dense: torch.Tensor
     dense_at_pstart: torch.Tensor
     order_ctx: tuple
+    #: per-row overflow flags of the checked integral sums
+    overflow: List[torch.Tensor]
 
 
 def _gather(data, valid, src, cap, ok=None):
@@ -451,17 +465,33 @@ def _one_window(spec: WindowSpec, c: _Ctx):
         x = torch.where(valid_in, x, torch.zeros((), dtype=x.dtype,
                                                  device=x.device))
     # sum / count / avg: prefix-sum differences over the sorted order
-    csum = prefix_sum(x)
-    zero = torch.zeros((), dtype=csum.dtype, device=csum.device)
     if explicit:
-        base = torch.where(fs > 0, csum[(fs - 1).clamp(0, cap - 1)], zero)
-        val = torch.where(fe >= fs, csum[fe.clamp(0, cap - 1)] - base, zero)
+        def frame_sum(v):
+            csum = prefix_sum(v)
+            zero = torch.zeros((), dtype=csum.dtype, device=csum.device)
+            base = torch.where(fs > 0, csum[(fs - 1).clamp(0, cap - 1)],
+                               zero)
+            return torch.where(fe >= fs, csum[fe.clamp(0, cap - 1)] - base,
+                               zero)
         cnt = _frame_count(valid_in, fs, fe)
     else:
-        base = torch.where(pstart > 0, csum[(pstart - 1).clamp(min=0)], zero)
         upto = _agg_frame_end(spec, frame_end, pend)
-        val = csum[upto.clamp(0, cap - 1)] - base
+
+        def frame_sum(v):
+            csum = prefix_sum(v)
+            zero = torch.zeros((), dtype=csum.dtype, device=csum.device)
+            base = torch.where(pstart > 0,
+                               csum[(pstart - 1).clamp(min=0)], zero)
+            return csum[upto.clamp(0, cap - 1)] - base
         cnt = _running_count(valid_in, pstart, upto)
+    if fn == "sum" and x.dtype == torch.int64:
+        # checked: per-plane prefix sums cannot wrap below 2^31 rows
+        assert cap <= CHECKED_SUM_MAX_ROWS, cap
+        hi, lo = i64_planes(x)
+        val, ovf = from_plane_sums(frame_sum(hi), frame_sum(lo))
+        c.overflow.append(ovf & mask)
+    else:
+        val = frame_sum(x)
     if fn in ("count", "count_star"):
         return val, ones
     if fn == "avg":

@@ -58,6 +58,7 @@ from .._devtools.lockcheck import checked_lock
 from ..batch import Batch
 from ..connectors.spi import CatalogManager, Split
 from ..device import resolve_device
+from ..errors import QueryError
 from ..exec import local as local_exec
 from ..exec.backoff import jittered
 from ..exec.failpoints import FAILPOINTS, FailpointError
@@ -707,6 +708,10 @@ class Task:
         self.node_id = node_id
         self.state = "PLANNED"
         self.error: Optional[str] = None
+        #: the QueryError code of a failed task (a row error such as
+        #: NUMERIC_VALUE_OUT_OF_RANGE): the coordinator fails the query
+        #: with it instead of retrying the task
+        self.error_code: Optional[int] = None
         #: wire-carried span context (coordinator trace/parent ids) so
         #: this task's spans stitch into the query trace
         self.trace_ctx = doc.get("trace")
@@ -884,6 +889,8 @@ class Task:
                 self.buffer.fail("task aborted")
             else:
                 self.error = f"{type(e).__name__}: {e}"
+                if isinstance(e, QueryError):
+                    self.error_code = e.code
                 self._set_state("FAILED")
                 self.buffer.fail(self.error)
                 LOG.log("task_failed", query_id=qid,
@@ -901,7 +908,7 @@ class Task:
 
     def status(self, include_spans: bool = False) -> dict:
         doc = {"taskId": self.task_id, "state": self.state,
-               "error": self.error,
+               "error": self.error, "errorCode": self.error_code,
                "elapsedMs": round(self._elapsed_now(), 1),
                "rowsOut": self.rows_out, "bytesOut": self.bytes_out}
         self._register()     # status polls refresh system.runtime.tasks
@@ -1173,7 +1180,7 @@ class WorkerServer:
         map — the persistence half of OutputBuffer failure state)."""
         self.done[task.task_id] = {
             "taskId": task.task_id, "state": task.state,
-            "error": task.error,
+            "error": task.error, "errorCode": task.error_code,
             "elapsedMs": round(task._elapsed_now(), 1),
             "rowsOut": task.rows_out, "bytesOut": task.bytes_out,
         }
