@@ -532,15 +532,12 @@ def _raw_variance(red, data, valid, cnt):
 
 def _segment_aggs(aggs: Sequence[AggSpec], col_data, col_valid,
                   mask: torch.Tensor, red, from_states: bool,
-                  col_dicts=None, overflow: Optional[list] = None
+                  overflow: list, col_dicts=None
                   ) -> List[Tuple[torch.Tensor, ...]]:
     """Per-aggregate reductions: state tuples in each agg's state layout
     (raw input when ``from_states`` is False, merged states when True).
     Each checked integral sum appends its per-group overflow flags to
     ``overflow``."""
-    if overflow is None:
-        overflow = []
-
     def int_sum(x: torch.Tensor) -> torch.Tensor:
         val, ovf = checked_sum_i64(x, red.sum)
         overflow.append(ovf)
