@@ -2265,6 +2265,33 @@ def _slot_launches(device, per_slot):
         DistributedExecutor._in_slot = plain
 
 
+@contextlib.contextmanager
+def _mesh_bytes(acc):
+    """Adds to ``acc`` the bytes of the sharded batches the mesh scans
+    yield (``scanned``: every round of ``DistributedExecutor._assemble``)
+    and the batch data stacked onto the controller device, slot 0's
+    (``stacked``, ``stacked_calls``: ``exec/distributed.controller_copy``),
+    made inside the block."""
+    from presto_tpu_torch.exec import distributed as D
+    from presto_tpu_torch.memory import batch_device_bytes
+    plain = D.DistributedExecutor._assemble
+
+    def assemble(self, parts, schema):
+        out = plain(self, parts, schema)
+        acc["scanned"] += batch_device_bytes(out)
+        return out
+    before = D.copy_counters()
+    D.DistributedExecutor._assemble = assemble
+    try:
+        yield acc
+    finally:
+        D.DistributedExecutor._assemble = plain
+        after = D.copy_counters()
+        acc["stacked"] += after["stacked_bytes"] - before["stacked_bytes"]
+        acc["stacked_calls"] += (after["stacked_calls"]
+                                 - before["stacked_calls"])
+
+
 def _fair_arbitration(runner, props, sf):
     """The fair scheduler arbitrating a long mesh scan (about 370 output
     batches, one quantum each) and a short one started once the long one
@@ -2396,12 +2423,25 @@ def phase_mesh(torch, tpch_cpu_rows=None, tpcds_cpu_rows=None,
             for k, v in _kernel_calls(device).items():
                 mesh_n[k] += v - before.get(k, 0)
 
+    #: the last mesh run's scanned and stacked bytes (_mesh_bytes)
+    copies = {}
+
     def run(runner, sql, props):
         t0 = time.perf_counter()
-        with on_mesh() if props is mesh else contextlib.nullcontext():
+        if props is not mesh:
+            res = runner.execute(sql, properties=props)
+            sync()
+            return res, time.perf_counter() - t0
+        copies.update(scanned=0, stacked=0, stacked_calls=0)
+        with on_mesh(), _mesh_bytes(copies):
             res = runner.execute(sql, properties=props)
             sync()
         return res, time.perf_counter() - t0
+
+    def stacked_line():
+        return (f"{copies['stacked']} B stacked onto {device}:0 in "
+                f"{copies['stacked_calls']} calls, {copies['scanned']} B "
+                f"scanned")
 
     def flight_of(runner):
         fl = runner.last_stats.mesh_flight
@@ -2426,7 +2466,8 @@ def phase_mesh(torch, tpch_cpu_rows=None, tpcds_cpu_rows=None,
             _same_rows(res.rows, want, 1e-9)
             print(f"mesh tpch sf{sf} {name}: {wall:.3f} s{one} | "
                   f"{len(res.rows)} rows match | {a['rounds']} rounds, "
-                  f"dominant {a['dominant_bucket']}", flush=True)
+                  f"dominant {a['dominant_bucket']} | {stacked_line()}",
+                  flush=True)
 
         # -- BASELINE config 3: Q3 with a partitioned exchange ---------------
         big = LocalRunner(tpch_sf=big_sf, rows_per_batch=ROWS_PER_BATCH,
@@ -2439,12 +2480,19 @@ def phase_mesh(torch, tpch_cpu_rows=None, tpcds_cpu_rows=None,
         CACHE.set_limit(MESH_CACHE_BYTES)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
-        walls, attrs = [], []
+        walls, attrs, stacks = [], [], []
         try:
             for _ in range(2):                   # cold, then warm
                 res, wall = run(big, q3, mesh)
                 walls.append(wall)
                 attrs.append(flight_of(big))
+                stacks.append(stacked_line())
+                # the shards stay on their slots: only the root's rows and
+                # the shard-0 finalizes' gathers come onto card 0
+                if copies["stacked"] > 0.01 * copies["scanned"]:
+                    raise AssertionError(f"config 3 stacked more than 1% "
+                                         f"of its scanned bytes: "
+                                         f"{stacked_line()}")
             fl = FLIGHTS.last()
             mesh_peak = (torch.cuda.max_memory_allocated() / 2**30
                          if cuda else 0)
@@ -2468,13 +2516,15 @@ def phase_mesh(torch, tpch_cpu_rows=None, tpcds_cpu_rows=None,
               f"(max_memory_allocated over the mesh runs) | scan cache "
               f"limit {MESH_CACHE_BYTES >> 30} GiB for these runs",
               flush=True)
-        for label, a in (("cold", attrs[0]), ("warm", attrs[1])):
+        for label, a, st in (("cold", attrs[0], stacks[0]),
+                             ("warm", attrs[1], stacks[1])):
             split = {b: round(v, 6) for b, v in a["buckets"].items()}
             print(f"mesh config 3 {label} buckets (s): {json.dumps(split)} "
                   f"| dominant {a['dominant_bucket']} | "
                   f"{a['reconciled_pct']}% of {a['wall_s']} s attributed "
                   f"| critical path shard "
-                  f"{a['critical_path']['slowest_shard']}", flush=True)
+                  f"{a['critical_path']['slowest_shard']} | {st}",
+                  flush=True)
         del big
 
         # -- the TPC-DS battery ----------------------------------------------
@@ -4212,8 +4262,11 @@ def phase_tools(torch, tpch_cpu_rows=None, device="cuda", sf=TOOLS_SF,
     # (b) the same query on the card seen as TOOLS_MESH_SLOTS slots
     old = os.environ.get("PRESTO_TPU_TORCH_MESH_SLOTS")
     os.environ["PRESTO_TPU_TORCH_MESH_SLOTS"] = str(TOOLS_MESH_SLOTS)
+    copies = {"scanned": 0, "stacked": 0, "stacked_calls": 0}
     try:
-        mdoc = profile_query(runner, q3, mesh=TOOLS_MESH_SLOTS, rows=True)
+        with _mesh_bytes(copies):
+            mdoc = profile_query(runner, q3, mesh=TOOLS_MESH_SLOTS,
+                                 rows=True)
     finally:
         if old is None:
             os.environ.pop("PRESTO_TPU_TORCH_MESH_SLOTS", None)
@@ -4228,11 +4281,17 @@ def phase_tools(torch, tpch_cpu_rows=None, device="cuda", sf=TOOLS_SF,
     verdict = mesh_report.validate_attribution(
         mesh_report.profile_pin(mdoc))
     attr = mesh["attribution"]
+    share = attr["buckets"].get("dispatch_overhead", 0.0) / max(
+        attr["wall_s"], 1e-12)
     print(f"tools mesh profile {at}: {len(mesh['stages'])} stages, wall "
           f"{mdoc['wall_s']:.6f} s, attribution "
           f"{json.dumps(attr['buckets'])} dominant "
           f"{attr['dominant_bucket']} reconciled {attr['reconciled_pct']}%"
-          f"; mesh_report {json.dumps(verdict)}", flush=True)
+          f", dispatch_overhead {100 * share:.1f}% of "
+          f"{attr['wall_s']} s; {copies['stacked']} B stacked onto slot "
+          f"0's device in {copies['stacked_calls']} calls over the "
+          f"profile's runs, {copies['scanned']} B scanned; mesh_report "
+          f"{json.dumps(verdict)}", flush=True)
     if not verdict["ok"] or verdict["blocks"] != 1:
         raise AssertionError(f"mesh_report: {verdict}")
     launches = phase_launches()

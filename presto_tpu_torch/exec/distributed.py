@@ -8,19 +8,24 @@ implement the shuffle). One controller drives every slot of a
 ``parallel/mesh.Mesh``:
 
 - a worker's share of a stage is a SHARD of one program run on every
-  slot, not a process. Between operators a batch is one **global batch**
-  on the mesh's first device whose rows are the shards in slot order
-  (shard i is the i-th equal row range), the layout of the JAX
-  package's row-sharded arrays; elementwise stages (filter, project)
-  run over the global batch with no collective;
+  slot, not a process. Between operators a batch is a
+  :class:`ShardedBatch`: one ``Batch`` per slot, each resident on its
+  slot's device, all of one capacity and one vocabulary per column (the
+  JAX package's row-sharded arrays, whose shard i is the i-th equal row
+  range). Elementwise stages (filter, project, limit, group id) run once
+  per slot on the slot's own part, with no collective;
 - ``_smap`` is the per-slot dispatcher that replaces ``shard_map``: it
-  splits each sharded input into its slot shards (moved to the slot's
-  device), runs the body once per slot, and stacks the shard outputs
-  back in slot order. ``replicated_in`` inputs reach every slot whole;
-  a ``replicated_out`` output is ONE value, slot 0's, as in the JAX
-  package (every slot computes it identically; when every input is
-  replicated too, the body runs once). A collective body takes the slot
-  lists and calls ``parallel/exchange.py``;
+  hands each slot its part of every sharded input, runs the body once
+  per slot, and keeps the outputs per slot. ``replicated_in`` inputs
+  reach every slot whole; a ``replicated_out`` output stays as one copy
+  per device (a :class:`_Replicated`), so a later program that takes it
+  whole copies nothing (when every input and output is replicated the
+  body runs once per device). A collective body takes the slot lists
+  and calls ``parallel/exchange.py``;
+- batch data comes onto the controller device (slot 0's) only at the
+  root, where the rows leave for the host, and in the all-gather behind
+  a shard-0 finalize; every such copy passes ``controller_copy``, which
+  counts it (``stacked_bytes`` and its siblings below);
 - exchanges are collectives: FIXED_HASH distribution is the
   quota-compacted all-to-all (``repartition_fused`` /
   ``repartition_by_buckets_compact``), FIXED_BROADCAST the all-gather of
@@ -33,7 +38,7 @@ implement the shuffle). One controller drives every slot of a
 Scan splits are assigned round-robin to shards (reference
 execution/scheduler/UniformNodeSelector.java): shard i streams split i
 through the scan cache on its slot's device, and each round's chunks
-stack into one global batch.
+stay on their slots as one sharded batch.
 
 Where the port differs from the JAX package:
 
@@ -41,8 +46,8 @@ Where the port differs from the JAX package:
   over the slots and rounds; the flight record keeps the reference's
   ``rounds`` count.
 - Reductions GSPMD performed implicitly over a sharded array (the
-  stats-bounds violation scans, the wave's ``pmax``) are explicit: they
-  run over the global batch or take the max over the slots.
+  stats-bounds violation scans, the wave's ``pmax``) are explicit: each
+  slot flags its own part, and the query's error check takes the max.
 - The cross-query program cache (``_PROGRAM_CACHE`` and its
   ``mesh_program_cache_{hit,miss}_total`` counters) has nothing to cache
   in torch and is left out; a shard program is a Python closure.
@@ -79,7 +84,8 @@ from .._devtools.lockcheck import checked_lock
 from ..batch import (
     Batch, Column, Schema, bucket_capacity, concat_batches, map_parts,
 )
-from ..expr.compiler import compile_filter
+from ..expr.compiler import compile_filter, compile_projection
+from ..memory import batch_device_bytes
 from ..obs import flight as _flight
 from ..obs.metrics import REGISTRY
 from ..obs.trace import TRACER
@@ -88,19 +94,21 @@ from ..ops.join import (
     build_match_mask, expand_join, lookup_join, match_count_max,
     semi_join_mask,
 )
-from ..ops.sort import SortKey, sort_batch, top_n
+from ..ops.sort import SortKey, limit as limit_kernel, sort_batch, top_n
 from ..parallel import exchange as X
 from ..parallel.mesh import Mesh, make_mesh, visible_slots
 from ..planner.plan import (
-    AggregationNode, DistinctNode, JoinNode, PlanNode, SemiJoinNode,
-    SortNode, TableScanNode, TopNNode, ValuesNode,
+    AggregationNode, DistinctNode, FilterNode, GroupIdNode, JoinNode,
+    LimitNode, PlanNode, ProjectNode, SemiJoinNode, SortNode,
+    TableScanNode, TopNNode, ValuesNode,
 )
 from ..planner.planner import LogicalPlan, Session, bool_property
 from .failpoints import FAILPOINTS
 from .fused import keys_in_build_vocab
 from .local import (
     QueryResult, _Executor, _default_grouping_batch, _note_join_strategy,
-    _plan_schema, key_bounds_violation,
+    _plan_schema, cross_expand, grouping_set_batch, key_bounds_violation,
+    values_batch,
 )
 
 #: mesh-path auto-selection: one count per query the router placed on
@@ -162,8 +170,10 @@ def _tensors(values) -> Iterator[torch.Tensor]:
             yield v
         elif isinstance(v, Batch):
             yield v.row_mask
-        elif isinstance(v, _Sharded):
+        elif isinstance(v, (_Sharded, ShardedBatch)):
             yield from _tensors(v.parts)
+        elif isinstance(v, _Replicated):
+            yield from _tensors(list(v.by_dev.values()))
         elif isinstance(v, (tuple, list)):
             yield from _tensors(v)
 
@@ -460,7 +470,7 @@ class _Repartitioner:
     def epoch(self) -> int:
         return self.map.epoch
 
-    def _counts(self, batch: Batch) -> np.ndarray:
+    def _counts(self, batch: "ShardedBatch") -> np.ndarray:
         if self._counts_fn is None:
             keys, nb = self.keys, self.map.buckets
             self._counts_fn = self.ex._smap(
@@ -468,11 +478,11 @@ class _Repartitioner:
                 flight_kind=None, stage="exchange")
         _drain_inputs(batch)
         with _sync_record("exchange-quota"):
-            raw = self._counts_fn(batch).cpu().numpy()
+            raw = self.ex._control(self._counts_fn(batch)).cpu().numpy()
         return raw.reshape(self.ex.n, self.map.buckets)
 
     # -- fused control plane --------------------------------------------------
-    def fused_quota(self, batch: Batch) -> int:
+    def fused_quota(self, batch: "ShardedBatch") -> int:
         """Capacity-safe static quota: any per-(src, dst) live count is
         bounded by the source shard's lane count."""
         return bucket_capacity(max(self.ex._shard_cap(batch), 1))
@@ -508,7 +518,8 @@ class _Repartitioner:
         self._last_counts = total
         self.map.observe(total)
 
-    def _fused_ship(self, batch: Batch, record_counts: bool = True) -> Batch:
+    def _fused_ship(self, batch: ShardedBatch,
+                    record_counts: bool = True) -> ShardedBatch:
         fl = _flight.current_flight()
         t0 = time.perf_counter()
         FAILPOINTS.hit("mesh.repartition")
@@ -520,7 +531,7 @@ class _Repartitioner:
             n_out=2, flight_kind=None, stage="exchange", collective=True)
         out, counts = fn(batch)
         if record_counts:
-            self.note_counts(counts)
+            self.note_counts(self.ex._control(counts))
         else:
             # replay rounds still ship; they just don't fold counts twice
             REGISTRY.counter("exchange_repartitions_total").inc()
@@ -531,7 +542,8 @@ class _Repartitioner:
                       nbytes=self.ex._wire_bytes(batch, quota))
         return out
 
-    def _ship(self, batch: Batch, counts: np.ndarray) -> Batch:
+    def _ship(self, batch: ShardedBatch,
+              counts: np.ndarray) -> ShardedBatch:
         fl = _flight.current_flight()
         t0 = time.perf_counter()
         FAILPOINTS.hit("mesh.repartition")
@@ -552,11 +564,12 @@ class _Repartitioner:
                       counts.sum(axis=0, dtype=np.int64))
             rows = int(loads.sum())
             fl.record("repartition", wall=time.perf_counter() - t0,
-                      rows=rows, nbytes=rows * _batch_row_bytes(batch),
+                      rows=rows,
+                      nbytes=rows * _batch_row_bytes(batch.parts[0]),
                       loads=[int(x) for x in loads])
         return out
 
-    def __call__(self, batch: Batch) -> Batch:
+    def __call__(self, batch: "ShardedBatch") -> "ShardedBatch":
         if self.fused:
             return self._fused_ship(batch)
         counts = self._counts(batch)
@@ -564,7 +577,7 @@ class _Repartitioner:
         self.map.observe(counts)
         return self._ship(batch, counts)
 
-    def replay(self, batch: Batch) -> Batch:
+    def replay(self, batch: "ShardedBatch") -> "ShardedBatch":
         """Re-ship a batch this exchange already observed (the join's
         build side after a probe-driven re-split) under the CURRENT
         assignment, without folding its counts in twice."""
@@ -576,14 +589,135 @@ class _Repartitioner:
 
 
 class _Sharded:
-    """Per-slot values of a sharded output that is neither a batch nor a
-    tensor (a prepared build): they stay on their slots and feed the next
-    program's shards as they are."""
+    """Per-slot values of a sharded output that is not a batch (a
+    prepared build, per-slot tensors such as a FULL join's matched-build
+    masks or a round's bucket counts): they stay on their slots and feed
+    the next program's shards as they are."""
 
     __slots__ = ("parts",)
 
     def __init__(self, parts: List[object]):
         self.parts = parts
+
+
+class _Replicated:
+    """A value every slot holds whole, one copy per device (``by_dev``):
+    a broadcast build and what is prepared from it, or a control value.
+    A program that takes it replicated finds its copy on each device."""
+
+    __slots__ = ("by_dev",)
+
+    def __init__(self, by_dev: Dict[torch.device, object]):
+        self.by_dev = by_dev
+
+
+class ShardedBatch:
+    """A mesh batch between operators: ``parts[i]`` is slot i's shard, a
+    ``Batch`` on slot i's device. The parts have one capacity and share
+    one dictionary object per string column, so they read as the equal
+    row ranges of one batch in slot order, as the JAX package's
+    row-sharded arrays do (``shard_parts`` makes one).
+
+    ``capacity`` and ``host_count`` count across the parts (the stats'
+    lanes and rows); ``to_pylist`` gathers the live rows once onto slot
+    0's device, in slot order, and decodes them there: the root's copy."""
+
+    __slots__ = ("schema", "parts")
+
+    def __init__(self, parts: Sequence[Batch]):
+        self.parts = list(parts)
+        self.schema = self.parts[0].schema
+
+    @property
+    def shard_capacity(self) -> int:
+        return self.parts[0].capacity
+
+    @property
+    def capacity(self) -> int:
+        return self.shard_capacity * len(self.parts)
+
+    def counts(self) -> List[int]:
+        """Live rows of each part, in one readback."""
+        dev = self.parts[0].device
+        got = controller_copy([p.count() for p in self.parts], dev,
+                              "control")
+        with TRACER.span("device-sync", what="shard-counts"):
+            return [int(c) for c in torch.stack(got).cpu()]
+
+    def host_count(self) -> int:
+        return sum(self.counts())
+
+    def gather(self) -> Batch:
+        """The live rows of every part in slot order, as one batch on
+        slot 0's device (the controller) of ``bucket_capacity`` of their
+        count: each part is compacted to its live rows on its own device
+        (one readback of the counts), and only those rows are stacked."""
+        counts = self.counts()
+        live = [p.compact(c, check=False) if c < p.capacity else p
+                for p, c in zip(self.parts, counts) if c]
+        if not live:
+            return _dead_batch(self.parts[0], bucket_capacity(1))
+        dev = self.parts[0].device
+        out = _cat_shards(controller_copy(live, dev, "stacked"))
+        return out.pad(bucket_capacity(sum(counts)))
+
+    def to_pylist(self) -> List[Tuple]:
+        """Decode the live rows in slot order: the root's one gather."""
+        return self.gather().to_pylist()
+
+    def __repr__(self) -> str:
+        return (f"ShardedBatch({self.schema!r}, {len(self.parts)} x "
+                f"{self.shard_capacity})")
+
+
+#: copies onto the mesh's controller device (slot 0's): every one passes
+#: ``controller_copy``. Plain integers, bumped under ``_COPY_LOCK``; the
+#: tests and chip_smoke.py read them. ``stacked_*`` counts slot parts
+#: stacked into one batch there (the root's rows, the all-gather behind
+#: a shard-0 finalize); ``control_*`` the control values the host reads
+#: (live counts, bucket counts, error flags). Bytes are the values' own,
+#: whether or not a slot shares the controller's device. Nothing is
+#: copied out of the controller to the slots (``_split`` and ``_rep``
+#: take only per-slot values), and the exchanges (exchange.py's
+#: collectives) move data slot to slot: slot 0 takes its share there as
+#: every slot does.
+stacked_bytes = 0
+stacked_calls = 0
+control_bytes = 0
+control_calls = 0
+_COPY_LOCK = checked_lock("distributed.copy_counters")
+
+
+def _value_bytes(x) -> int:
+    if isinstance(x, Batch):
+        return batch_device_bytes(x)
+    return sum(t.numel() * t.element_size() for t in _tensors([x]))
+
+
+def controller_copy(values: Sequence, dev: torch.device,
+                    what: str) -> List:
+    """``values`` moved to the controller device ``dev``, counted as one
+    ``what`` call: ``"stacked"`` (slot parts of a batch) or ``"control"``
+    (control values the host is about to read)."""
+    global stacked_bytes, stacked_calls, control_bytes, control_calls
+    out = [_to_device(v, dev) for v in values]
+    nbytes = sum(_value_bytes(v) for v in values)
+    with _COPY_LOCK:
+        if what == "stacked":
+            stacked_bytes += nbytes
+            stacked_calls += 1
+        elif what == "control":
+            control_bytes += nbytes
+            control_calls += 1
+        else:
+            raise ValueError(f"unknown controller copy {what!r}")
+    return out
+
+
+def copy_counters() -> Dict[str, int]:
+    """The controller-copy counters as one dict (take deltas)."""
+    return {"stacked_bytes": stacked_bytes, "stacked_calls": stacked_calls,
+            "control_bytes": control_bytes, "control_calls": control_calls}
 
 
 def _to_device(x, dev: torch.device):
@@ -604,28 +738,65 @@ def _to_device(x, dev: torch.device):
     return x
 
 
-def _dead_batch(proto: Batch, cap: int) -> Batch:
-    """A batch of ``cap`` dead lanes shaped like ``proto``."""
-    dev = proto.device
-    cols = [Column(c.type, map_parts(c.data, lambda a: a.new_zeros(
-        (cap,) + tuple(a.shape[1:]))),
+def _dead_batch(proto: Batch, cap: int, dev=None) -> Batch:
+    """A batch of ``cap`` dead lanes shaped like ``proto``, made on
+    ``dev`` (``proto``'s device by default)."""
+    dev = proto.device if dev is None else dev
+    cols = [Column(c.type, map_parts(c.data, lambda a: torch.zeros(
+        (cap,) + tuple(a.shape[1:]), dtype=a.dtype, device=dev)),
         torch.zeros(cap, dtype=torch.bool, device=dev), c.dictionary)
         for c in proto.columns]
     return Batch(proto.schema, cols,
                  torch.zeros(cap, dtype=torch.bool, device=dev))
 
 
+def _or_parts(acc: Optional[_Sharded], m: _Sharded) -> _Sharded:
+    """Per-slot masks OR-ed slot by slot (``acc`` None starts them)."""
+    if acc is None:
+        return m
+    return _Sharded([a | b for a, b in zip(acc.parts, m.parts)])
+
+
+def _cat_shards(parts: List[Batch]) -> Batch:
+    """Row-concatenate shards with one vocabulary on one device."""
+    cols = []
+    for ci, c0 in enumerate(parts[0].columns):
+        cs = [p.columns[ci] for p in parts]
+        if isinstance(c0.data, tuple):
+            data = tuple(torch.cat([c.data[k] for c in cs])
+                         for k in range(len(c0.data)))
+        else:
+            data = torch.cat([c.data for c in cs])
+        cols.append(Column(c0.type, data,
+                           torch.cat([c.validity for c in cs]),
+                           c0.dictionary))
+    return Batch(parts[0].schema, cols,
+                 torch.cat([p.row_mask for p in parts]))
+
+
+def shard_parts(parts: Sequence[Batch]) -> ShardedBatch:
+    """Slot outputs as one sharded batch, each part staying on its
+    device: string columns whose vocabularies differ are re-coded into
+    the merged one on each slot, and every part is padded on its own
+    device to the largest capacity."""
+    parts = X.unify_slot_vocabs(parts)
+    cap = max(p.capacity for p in parts)
+    return ShardedBatch([p.pad(cap) for p in parts])
+
+
 class DistributedExecutor(_Executor):
     """Executes a logical plan with data sharded over a mesh of slots.
 
-    Inherits the streaming structure of the local executor; overrides
-    the exchange-bearing nodes (scan placement, aggregation, join, semi
-    join, sort / top-n / window / distinct / mark-distinct finalization,
-    unnest) with per-slot programs and collectives."""
+    Inherits the streaming structure of the local executor; every node
+    yields ``ShardedBatch`` values. Overrides the scan placement, the
+    elementwise stages (filter, project, limit, group id: once per slot)
+    and the exchange-bearing nodes (aggregation, join, semi join, sort /
+    top-n / window / distinct / mark-distinct finalization, unnest) with
+    per-slot programs and collectives."""
 
-    #: compaction would re-deal a global batch's rows across shards
-    #: (after a hash exchange each row sits on its owning shard);
-    #: shard-local compaction happens in the exchange path
+    #: the local compactor is never used: each node runs per slot (after
+    #: a hash exchange each row sits on its owning shard); shard-local
+    #: compaction happens in the exchange path
     compact_streams = False
 
     def __init__(self, session: Session, rows_per_batch: int, mesh: Mesh,
@@ -663,76 +834,82 @@ class DistributedExecutor(_Executor):
 
     def check_errors(self) -> None:
         # slot bodies on other devices append their flags there
-        self.error_flags = [f.to(self.device) for f in self.error_flags]
+        self.error_flags = controller_copy(self.error_flags, self.device,
+                                           "control")
         super().check_errors()
 
     # -- slot helpers ---------------------------------------------------------
-    def _shard_cap(self, b: Batch) -> int:
+    def _shard_cap(self, b) -> int:
+        if isinstance(b, ShardedBatch):
+            return b.shard_capacity
         return -(-b.capacity // self.n)
 
+    def _devices(self) -> List[Tuple[int, torch.device]]:
+        """Each distinct slot device with its first slot, in slot order."""
+        seen: Dict[torch.device, int] = {}
+        for i, d in enumerate(self.slots):
+            seen.setdefault(d, i)
+        return [(i, d) for d, i in seen.items()]
+
     def _split(self, x) -> List[object]:
-        """Slot shards of a sharded value: shard i is the i-th equal row
-        range, on slot i's device (a capacity that does not divide pads
-        with dead lanes)."""
-        if isinstance(x, _Sharded):
-            return list(x.parts)
-        n = self.n
-        if isinstance(x, Batch):
-            per = self._shard_cap(x)
-            if per * n != x.capacity:
-                x = x.pad(per * n)
-            return [_to_device(X.local_shard(x, i, n), d)
-                    for i, d in enumerate(self.slots)]
-        if isinstance(x, torch.Tensor):
-            per = x.shape[0] // n
-            assert per * n == x.shape[0], "tensor rows must divide"
-            return [_to_device(x[i * per:(i + 1) * per], d)
-                    for i, d in enumerate(self.slots)]
-        raise TypeError(f"cannot shard a {type(x).__name__}")
+        """Slot shards of a sharded value: its parts, as they lie."""
+        if not isinstance(x, (_Sharded, ShardedBatch)):
+            raise TypeError(f"a {type(x).__name__} is not sharded over "
+                            f"the slots")
+        assert len(x.parts) == self.n, "parts must match the slots"
+        return list(x.parts)
 
     def _rep(self, x) -> List[object]:
-        """A replicated value on every slot (one copy per device)."""
-        by_dev: Dict[torch.device, object] = {}
-        out = []
-        for d in self.slots:
-            if d not in by_dev:
-                by_dev[d] = _to_device(x, d)
-            out.append(by_dev[d])
-        return out
+        """A replicated value on every slot: its copy on each slot's
+        device."""
+        if not isinstance(x, _Replicated):
+            raise TypeError(f"a {type(x).__name__} is not replicated over "
+                            f"the slots")
+        return [x.by_dev[d] for d in self.slots]
 
-    def _stack(self, parts: List[object]):
-        """Stack slot outputs back in slot order: batches into one global
-        batch (shards padded to one capacity, vocabularies merged),
-        tensors along dim 0; anything else stays per slot."""
-        p0 = parts[0]
-        if isinstance(p0, Batch):
-            parts = X.unify_slot_vocabs(parts)
-            cap = max(p.capacity for p in parts)
-            parts = [_to_device(p.pad(cap), self.device) for p in parts]
-            return self._cat_shards(parts)
-        if isinstance(p0, torch.Tensor):
-            parts = [_to_device(p, self.device) for p in parts]
-            if p0.ndim == 0:
-                return torch.stack(parts)
-            return torch.cat(parts)
+    def _keep(self, parts: List[object], replicated: bool):
+        """Slot outputs as the value the next program takes: a replicated
+        output one copy per device, batches a ``ShardedBatch``, anything
+        else per slot."""
+        if replicated:
+            return _Replicated({d: parts[i] for i, d in self._devices()})
+        if isinstance(parts[0], Batch):
+            return shard_parts(parts)
         return _Sharded(list(parts))
 
-    @staticmethod
-    def _cat_shards(parts: List[Batch]) -> Batch:
-        """Row-concatenate equal-capacity shards with one vocabulary."""
-        cols = []
-        for ci, c0 in enumerate(parts[0].columns):
-            cs = [p.columns[ci] for p in parts]
-            if isinstance(c0.data, tuple):
-                data = tuple(torch.cat([c.data[k] for c in cs])
-                             for k in range(len(c0.data)))
-            else:
-                data = torch.cat([c.data for c in cs])
-            cols.append(Column(c0.type, data,
-                               torch.cat([c.validity for c in cs]),
-                               c0.dictionary))
-        return Batch(parts[0].schema, cols,
-                     torch.cat([p.row_mask for p in parts]))
+    def _control(self, x: "_Sharded | _Replicated") -> torch.Tensor:
+        """A control value the host is about to read, on the controller
+        device: per-slot tensors in slot order (0-d ones stacked, others
+        concatenated), or a replicated value's copy there."""
+        if isinstance(x, _Replicated):
+            # slot 0 holds the controller device's copy
+            return x.by_dev[self.device]
+        parts = controller_copy(x.parts, self.device, "control")
+        return (torch.stack(parts) if parts[0].ndim == 0
+                else torch.cat(parts))
+
+    def _slot_flags(self, fn, x) -> None:
+        """Append ``fn(part)``, an error flag computed on each slot's own
+        part of ``x``, to the query's error channel."""
+        for i, p in enumerate(self._split(x)):
+            with self._in_slot(i):
+                self.error_flags.append(fn(p))
+
+    def _from_host(self, b: Batch) -> ShardedBatch:
+        """A batch built on the host (VALUES, the default grouping rows,
+        an empty input) dealt to the slots once at its source: shard i
+        is the i-th equal row range, moved to slot i's device."""
+        per = self._shard_cap(b)
+        if per * self.n != b.capacity:
+            b = concat_batches([b], capacity=per * self.n)
+        return ShardedBatch([_to_device(X.local_shard(b, i, self.n), d)
+                             for i, d in enumerate(self.slots)])
+
+    def _empty(self, schema: Schema) -> ShardedBatch:
+        """A sharded batch with no live row, made on each slot."""
+        return ShardedBatch([Batch.from_arrays(
+            schema, [[] for _ in range(len(schema))], num_rows=0,
+            device=d) for d in self.slots])
 
     def _in_slot(self, i: int):
         d = self.slots[i]
@@ -748,16 +925,17 @@ class DistributedExecutor(_Executor):
         """The per-slot dispatcher (the JAX package's ``shard_map``).
 
         Inputs at ``replicated_in`` positions reach every slot whole
-        (``P()``); the others are split into slot shards
-        (``P(axis)``). ``replicated_out`` (True for every output, or a
-        sequence of output positions) marks outputs every slot computes
-        identically: the result is ONE value, slot 0's. Other outputs
-        stack in slot order. A ``collective`` body takes one list of
-        slot values per input and returns one list per output (it calls
+        (``P()``); the others give each slot its part (``P(axis)``).
+        ``replicated_out`` (True for every output, or a sequence of output
+        positions) marks outputs every slot computes identically: they
+        stay one copy per device (``_Replicated``). Other outputs stay per
+        slot: batches as a ``ShardedBatch``, anything else as a
+        ``_Sharded``. A ``collective`` body takes one list of slot values
+        per input and returns one list per output (it calls
         ``parallel/exchange.py``); otherwise the body runs once per slot
-        on that slot's shards, or once in all when every input and
+        on that slot's parts, or once per device when every input and
         output is replicated. Each call is one dispatch
-        (``_FlightDispatch``)."""
+        (``_FlightDispatch``). Nothing is copied onto the controller."""
         rep_in = set(replicated_in)
         if isinstance(replicated_out, bool):
             rep_out = set(range(n_out)) if replicated_out else set()
@@ -768,14 +946,17 @@ class DistributedExecutor(_Executor):
         n = self.n
 
         def entry(*args):
-            if all_rep:
-                with self._in_slot(0):
-                    out = fn(*[_to_device(a, self.slots[0]) for a in args])
-                outs = [out] if n_out == 1 else list(out)
-                res = [_to_device(o, self.device) for o in outs]
-                return res[0] if n_out == 1 else tuple(res)
             slot_args = [self._rep(a) if i in rep_in else self._split(a)
                          for i, a in enumerate(args)]
+            if all_rep:
+                by_dev = {}
+                for s, d in self._devices():
+                    with self._in_slot(s):
+                        out = fn(*[sa[s] for sa in slot_args])
+                    by_dev[d] = [out] if n_out == 1 else list(out)
+                res = [_Replicated({d: o[k] for d, o in by_dev.items()})
+                       for k in range(n_out)]
+                return res[0] if n_out == 1 else tuple(res)
             if collective:
                 out = fn(*slot_args)
                 per_out = [out] if n_out == 1 else list(out)
@@ -787,49 +968,55 @@ class DistributedExecutor(_Executor):
                     per_slot.append([o] if n_out == 1 else list(o))
                 per_out = [[per_slot[s][k] for s in range(n)]
                            for k in range(n_out)]
-            res = [_to_device(per_out[k][0], self.device) if k in rep_out
-                   else self._stack(per_out[k]) for k in range(n_out)]
+            res = [self._keep(per_out[k], k in rep_out)
+                   for k in range(n_out)]
             return res[0] if n_out == 1 else tuple(res)
 
         return _FlightDispatch(entry, flight_kind, stage=stage,
                                rounds=rounds)
 
-    def _first_shard(self, b: Batch) -> Batch:
-        """``b`` laid out as shard 0 of the mesh, every other shard dead:
-        the layout of a replicated finalize whose output the JAX package
-        keeps on shard 0 only (``_keep_first_shard``)."""
-        if self.n == 1:
-            return b
-        return self._cat_shards([b] + [_dead_batch(b, b.capacity)]
-                                * (self.n - 1))
+    def _first_shard(self, b: Batch) -> ShardedBatch:
+        """``b`` (on slot 0's device) as shard 0 of the mesh, every other
+        shard dead and made on its own slot: the layout of a replicated
+        finalize whose output the JAX package keeps on shard 0 only
+        (``_keep_first_shard``)."""
+        return ShardedBatch([b] + [_dead_batch(b, b.capacity, d)
+                                   for d in self.slots[1:]])
 
-    def _gathered_call(self, fn, batch: Batch, stage: str) -> Batch:
+    def _gathered_call(self, fn, batch: ShardedBatch,
+                       stage: str) -> ShardedBatch:
         """Every slot's ``fn`` over the all-gathered batch, kept on shard
-        0. The gathered batch is the global batch itself (its rows are
-        the shards in slot order), and every slot would compute the same
-        value, so ``fn`` runs once on it."""
-        return self._smap(lambda b: self._first_shard(fn(b)), 1,
-                          replicated_in=(0,), replicated_out=True,
-                          stage=stage)(batch)
+        0. The gather stacks the parts' live rows in slot order onto slot
+        0's device (the controller; dead lanes stay behind, at the cost of
+        one count readback), and every slot would compute the same value,
+        so ``fn`` runs once there."""
+        def gathered(b: ShardedBatch) -> ShardedBatch:
+            _drain_inputs(b)
+            with _sync_record("gather-live"):
+                whole = b.gather()
+            with self._in_slot(0):
+                return self._first_shard(fn(whole))
+        return _FlightDispatch(gathered, "dispatch", stage=stage)(batch)
 
-    def _wire_bytes(self, batch: Batch, quota: int) -> int:
+    def _wire_bytes(self, batch: ShardedBatch, quota: int) -> int:
         """Bytes one quota-compacted all-to-all of ``batch`` moves: every
         slot sends ``quota`` lanes to each of the n slots."""
-        return self.n * self.n * quota * _batch_row_bytes(batch)
+        return self.n * self.n * quota * _batch_row_bytes(batch.parts[0])
 
-    def _shard_live_max(self, batch: Batch) -> int:
+    def _shard_live_max(self, batch: ShardedBatch) -> int:
         """Max live rows on any shard (host sync): sizes compactions."""
         per = self._smap(
             lambda b: b.row_mask.sum(dtype=torch.int64).reshape(1), 1,
             flight_kind=None)
         _drain_inputs(batch)
         with _sync_record("shard-live-max"):
-            counts = per(batch).cpu().numpy()
+            counts = self._control(per(batch)).cpu().numpy()
         return int(counts.max()) if counts.size else 0
 
-    def _replicate_device(self, batch: Batch) -> Batch:
+    def _replicate_device(self, batch: ShardedBatch) -> _Replicated:
         """A row-sharded batch replicated to every slot: the all-gather
-        of the FIXED_BROADCAST exchange (device to device, no host)."""
+        of the FIXED_BROADCAST exchange (device to device, no host), one
+        copy per device."""
         return self._smap(lambda bs: X.broadcast_batch(bs), 1,
                           replicated_out=True, stage="exchange",
                           collective=True)(batch)
@@ -846,12 +1033,13 @@ class DistributedExecutor(_Executor):
         return _Repartitioner(self, key_cols, pmap, fused=fused)
 
     # -- scan: split placement ------------------------------------------------
-    def _TableScanNode(self, node: TableScanNode) -> Iterator[Batch]:
+    def _TableScanNode(self, node: TableScanNode
+                       ) -> Iterator[ShardedBatch]:
         """Round-robin split streams across shards THROUGH the device scan
         cache + prefetch pipeline (exec/scancache.py): shard i's stream
         is a ``scan_splits`` pipeline on slot i's device, so hot splits
         replay device-resident across mesh queries. Each round's shard
-        chunks stack into one global batch."""
+        chunks stay on their slots as one sharded batch."""
         from . import scancache
 
         conn = self.session.catalogs.get(node.catalog)
@@ -912,76 +1100,111 @@ class DistributedExecutor(_Executor):
                 if close is not None:
                     close()
 
-    def _assemble_resident(self, parts: List[Optional[Batch]],
-                           cap: int) -> Optional[Batch]:
-        """Stack per-shard chunks into one global batch device to device:
-        pad each chunk to the round's capacity and copy it into its row
-        range. None when shards disagree on a column's dictionary (the
-        vocabulary merge of ``_stage_parts`` is needed)."""
-        live = [p for p in parts if p is not None]
-        for ci, c0 in enumerate(live[0].columns):
-            if any(p.columns[ci].dictionary is not c0.dictionary
-                   and p.columns[ci].dictionary != c0.dictionary
-                   for p in live[1:]):
-                return None
-        proto = live[0]
-        shards = [_to_device(p.pad(cap) if p is not None
-                             else _dead_batch(proto, cap), self.device)
-                  for p in parts]
-        return self._cat_shards(shards)
-
     def _assemble(self, parts: List[Optional[Batch]],
-                  schema: Schema) -> Batch:
-        """Stack per-shard batches into one global batch: device-resident
-        when the shards' vocabularies agree, through the vocabulary merge
-        otherwise."""
+                  schema: Schema) -> ShardedBatch:
+        """One round's shard chunks as a sharded batch, each on its own
+        slot: a chunk is padded to the round's capacity on its device and
+        an exhausted shard gets a dead batch made there. Shards whose
+        string columns carry different dictionaries are re-coded into the
+        merged vocabulary, each on its own slot (the JAX package rounds
+        through the host here), recorded as a ``staging`` flight round
+        with the round's rows, bytes and per-shard loads."""
         cap = max(p.capacity for p in parts if p is not None)
-        resident = self._assemble_resident(parts, cap)
-        if resident is not None:
-            return resident
-        return self._stage_parts(parts, cap)
-
-    def _stage_parts(self, parts: List[Optional[Batch]],
-                     cap: int) -> Batch:
-        """Stack shards whose string columns carry different
-        dictionaries: merge each column's vocabularies and re-code every
-        shard's codes into the merged one (on the device: the JAX
-        package rounds through the host here), then stack. Recorded as a
-        ``staging`` flight round with the round's rows, bytes and
-        per-shard loads."""
+        proto = next(p for p in parts if p is not None)
+        full = [p.pad(cap) if p is not None
+                else _dead_batch(proto, cap, self.slots[i])
+                for i, p in enumerate(parts)]
+        if all(p.columns[ci].dictionary is c0.dictionary
+               or p.columns[ci].dictionary == c0.dictionary
+               for ci, c0 in enumerate(proto.columns) for p in full):
+            return ShardedBatch(X.unify_slot_vocabs(full))
         fl = _flight.current_flight()
         t0 = time.perf_counter()
         with TRACER.span("device-sync", what="scan-stage"):
-            proto = next(p for p in parts if p is not None)
-            full = [p.pad(cap) if p is not None else _dead_batch(proto, cap)
-                    for p in parts]
-            full = [_to_device(p, self.device)
-                    for p in X.unify_slot_vocabs(full)]
-            out = self._cat_shards(full)
-            loads = ([int(p.host_count()) for p in full]
-                     if fl is not None else None)
+            out = ShardedBatch(X.unify_slot_vocabs(full))
+            loads = out.counts() if fl is not None else None
         if fl is not None:
-            nbytes = sum(sum(a.numel() * a.element_size()
-                             for a in (c.data if isinstance(c.data, tuple)
-                                       else (c.data,)))
-                         + c.validity.numel() for c in out.columns) \
-                + out.row_mask.numel()
             fl.record("staging", wall=time.perf_counter() - t0,
-                      rows=sum(loads), nbytes=nbytes, loads=loads)
+                      rows=sum(loads),
+                      nbytes=sum(batch_device_bytes(p) for p in out.parts),
+                      loads=loads)
         return out
 
-    def _ValuesNode(self, node: ValuesNode) -> Iterator[Batch]:
-        for b in super()._ValuesNode(node):
-            yield self._pad_shardable(b)
+    def _ValuesNode(self, node: ValuesNode) -> Iterator[ShardedBatch]:
+        yield self._from_host(values_batch(node, torch.device("cpu")))
 
-    def _pad_shardable(self, b: Batch) -> Batch:
-        per = self._shard_cap(b)
-        if per * self.n != b.capacity:
-            b = concat_batches([b], capacity=per * self.n)
-        return b
+    # -- elementwise stages: once per slot, on the slot's own part -----------
+    def _FilterNode(self, node: FilterNode) -> Iterator[ShardedBatch]:
+        fn = self._smap(self.checked_filter(self._resolve(node.predicate),
+                                            _plan_schema(node.child)), 1,
+                        stage="scan")
+        for b in self.run(node.child):
+            yield fn(b)
+
+    def _ProjectNode(self, node: ProjectNode) -> Iterator[ShardedBatch]:
+        proj = compile_projection([self._resolve(e) for e in node.exprs],
+                                  [f.name for f in node.fields],
+                                  _plan_schema(node.child), errors=True)
+
+        def local(b: Batch) -> Batch:
+            out, err = proj(b)
+            if err is not None:
+                self.error_flags.append(err)
+            return out
+        fn = self._smap(local, 1, stage="scan")
+        for b in self.run(node.child):
+            yield fn(b)
+
+    def _LimitNode(self, node: LimitNode) -> Iterator[ShardedBatch]:
+        """The first ``count`` live rows in slot order: one readback of
+        the parts' live counts per batch sizes each slot's share."""
+        fn = self._smap(limit_kernel, 2, stage="scan")
+        remaining = node.count
+        for b in self.run(node.child):
+            if remaining <= 0:
+                return
+            shares = []
+            for c in b.counts():
+                shares.append(min(c, remaining))
+                remaining -= shares[-1]
+            yield fn(b, _Sharded(shares))
+
+    def _GroupIdNode(self, node: GroupIdNode) -> Iterator[ShardedBatch]:
+        schema = _plan_schema(node)
+        fns = [self._smap(lambda b, _g=g: grouping_set_batch(
+            b, node, _g, schema), 1, stage="scan")
+            for g in range(len(node.grouping_sets))]
+        for b in self.run(node.child):
+            for fn in fns:
+                yield fn(b)
+
+    def _cross_join(self, node: JoinNode, build: Optional[ShardedBatch]
+                    ) -> Iterator[ShardedBatch]:
+        """Cross join against a tiny build (scalar subqueries, VALUES):
+        the build broadcast to every slot, compacted there, and each
+        slot's probe part copied once per build row."""
+        if build is None:
+            return
+        rep = self._smap(lambda b: b.compact(), 1, replicated_in=(0,),
+                         replicated_out=True, stage="join")(
+            self._replicate_device(build))
+        count = self._smap(lambda b: b.count(), 1, replicated_in=(0,),
+                           replicated_out=True, flight_kind=None,
+                           stage="join")
+        _drain_inputs(rep)
+        with _sync_record("cross-build-count"):
+            nb = int(self._control(count(rep)))
+        if nb == 0:
+            return
+        schema = _plan_schema(node)
+        fn = self._smap(lambda p, b: cross_expand(p, b, nb, schema), 2,
+                        replicated_in=(1,), stage="join")
+        for probe in self.run(node.left):
+            yield fn(probe, rep)
 
     # -- aggregation: partial -> hash exchange -> final -----------------------
-    def _AggregationNode(self, node: AggregationNode) -> Iterator[Batch]:
+    def _AggregationNode(self, node: AggregationNode
+                         ) -> Iterator[ShardedBatch]:
         for a in node.aggs:
             if a.distinct:
                 raise NotImplementedError(
@@ -1004,10 +1227,7 @@ class DistributedExecutor(_Executor):
             if b is None:
                 if group:
                     return
-                b = self._pad_shardable(Batch.from_arrays(
-                    _plan_schema(node.child),
-                    [[] for _ in node.child.fields], num_rows=0,
-                    device=self.device))
+                b = self._empty(_plan_schema(node.child))
             if group:
                 b = self._repartitioner(group, fused=False)(b)
                 fn = self._smap(
@@ -1039,9 +1259,9 @@ class DistributedExecutor(_Executor):
             stage="agg")
         merge_fn = None
 
-        state: Optional[Batch] = None
+        state: Optional[ShardedBatch] = None
         fused_state = False
-        src: Iterator[Batch] = iter(self.run(node.child))
+        src: Iterator[ShardedBatch] = iter(self.run(node.child))
         if self.fused_exchange and allow_dense and step != "final":
             # fused control plane: drain chunks through multi-round wave
             # programs; the classic loop below takes whatever the drain
@@ -1055,9 +1275,9 @@ class DistributedExecutor(_Executor):
             if kb is not None and allow_dense and step != "final":
                 # bounds are hard invariants on this tier: an overclaimed
                 # bound fails the query through the error channel (one
-                # explicit reduction over the global batch)
-                self.error_flags.append(
-                    key_bounds_violation(chunk, group, kb))
+                # explicit reduction per slot)
+                self._slot_flags(
+                    lambda b: key_bounds_violation(b, group, kb), chunk)
             partial = (chunk if step == "final" else partial_fn(chunk))
             if state is None:
                 state = partial
@@ -1091,8 +1311,8 @@ class DistributedExecutor(_Executor):
             if node.default_gids and step in ("single", "final"):
                 # grouping sets over empty input: the empty sets' grand
                 # totals
-                yield self._pad_shardable(
-                    _default_grouping_batch(node, self.device))
+                yield self._from_host(
+                    _default_grouping_batch(node, torch.device("cpu")))
             return
         if step == "partial":
             # states stay shard-local: the FINAL node owns the exchange
@@ -1116,19 +1336,21 @@ class DistributedExecutor(_Executor):
             out = final_fn(state)
         if node.default_gids and step in ("single", "final") \
                 and out.host_count() == 0:
-            yield self._pad_shardable(
-                _default_grouping_batch(node, self.device))
+            yield self._from_host(
+                _default_grouping_batch(node, torch.device("cpu")))
             return
         yield out
 
     @staticmethod
-    def _wave_sig(b: Batch):
+    def _wave_sig(b: ShardedBatch):
         """Signature a fused wave holds constant: capacity, schema and
-        every column's dictionary object must match the first chunk's."""
+        every column's dictionary object must match the first chunk's
+        (the parts share one dictionary object per column)."""
         return (b.capacity, b.schema,
-                tuple(id(c.dictionary) for c in b.columns))
+                tuple(id(c.dictionary) for c in b.parts[0].columns))
 
-    def _fused_agg_drain(self, src: Iterator[Batch], group: List[int],
+    def _fused_agg_drain(self, src: Iterator[ShardedBatch],
+                         group: List[int],
                          aggs: List[AggSpec], kb):
         """Drain grouped-aggregation input through fused multi-round wave
         programs: each wave takes up to ``mesh_fused_loop_rounds`` chunks
@@ -1150,7 +1372,9 @@ class DistributedExecutor(_Executor):
         if has_drain_agg(aggs) or _wide_state_aggs(aggs):
             return None, itertools.chain([first], src)
         kb_list = list(kb) if kb else None
-        plan = dense_group_plan(first, group, _FUSED_STATE_SLOTS, kb_list)
+        # host-only metadata (key dictionaries), which every part shares
+        plan = dense_group_plan(first.parts[0], group, _FUSED_STATE_SLOTS,
+                                kb_list)
         if plan is None:
             return None, itertools.chain([first], src)
         cap_out = bucket_capacity(plan.K + 1)
@@ -1158,7 +1382,8 @@ class DistributedExecutor(_Executor):
         sig0 = self._wave_sig(first)
         wave_fns: Dict[Tuple[int, bool, int], object] = {}
 
-        def run_wave(carry: Optional[Batch], chunks: List[Batch]) -> Batch:
+        def run_wave(carry: Optional[ShardedBatch],
+                     chunks: List[ShardedBatch]) -> ShardedBatch:
             # the reference pads a wave to a power of two with dead copies
             # of the last chunk so its loop programs stay few; the port's
             # loop skips the dead rounds but records the same count, so a
@@ -1170,18 +1395,18 @@ class DistributedExecutor(_Executor):
             if fn is None:
                 fn = wave_fns[key] = self._smap(
                     _fused_agg_wave_fn(group, key_idx, aggs, kb, cap_out,
-                                       has_carry, len(chunks)),
+                                       has_carry, len(chunks),
+                                       self._in_slot),
                     len(chunks) + (1 if has_carry else 0),
-                    n_out=2, replicated_out=(1,), stage="agg",
-                    rounds=rounds, collective=True)
-            out, viol = fn(*([carry] if has_carry else []), *chunks)
-            # bounds violations and checked-sum overflow, one scalar
-            self.error_flags.append(viol)
+                    n_out=2, stage="agg", rounds=rounds, collective=True)
+            out, viols = fn(*([carry] if has_carry else []), *chunks)
+            # bounds violations and checked-sum overflow, one scalar a slot
+            self.error_flags.extend(viols.parts)
             return out
 
-        state: Optional[Batch] = None
+        state: Optional[ShardedBatch] = None
         pending = [first]
-        leftover: Optional[Batch] = None
+        leftover: Optional[ShardedBatch] = None
         for chunk in src:
             if self._wave_sig(chunk) != sig0:
                 # signature drifted: hand the rest to the classic plane,
@@ -1199,7 +1424,7 @@ class DistributedExecutor(_Executor):
         return state, iter(())
 
     def _global_agg(self, node: AggregationNode,
-                    aggs: List[AggSpec]) -> Batch:
+                    aggs: List[AggSpec]) -> ShardedBatch:
         step = node.step
         errs = self.error_flags
         partial_fn = self._smap(
@@ -1210,16 +1435,12 @@ class DistributedExecutor(_Executor):
             lambda a, b: global_aggregate(
                 concat_batches([a, b]), aggs, mode="merge", errors=errs),
             2, stage="agg")
-        state: Optional[Batch] = None
+        state: Optional[ShardedBatch] = None
         for chunk in self.run(node.child):
             partial = (chunk if step == "final" else partial_fn(chunk))
             state = partial if state is None else merge_fn(state, partial)
         if state is None:
-            empty = Batch.from_arrays(
-                _plan_schema(node.child),
-                [[] for _ in node.child.fields], num_rows=0,
-                device=self.device)
-            state = partial_fn(self._pad_shardable(empty))
+            state = partial_fn(self._empty(_plan_schema(node.child)))
         if step == "partial":
             return state          # shard-local states; FINAL gathers
         # gather every shard's state and finalize replicated, on shard 0
@@ -1228,7 +1449,7 @@ class DistributedExecutor(_Executor):
             state, "agg")
 
     # -- joins -----------------------------------------------------------------
-    def _JoinNode(self, node: JoinNode) -> Iterator[Batch]:
+    def _JoinNode(self, node: JoinNode) -> Iterator[ShardedBatch]:
         build = self._drain(node.right)
         if node.join_type == "cross":
             yield from self._cross_join(node, build)
@@ -1240,12 +1461,11 @@ class DistributedExecutor(_Executor):
         # reach the query's error channel like the local path's
         residual_err = (compile_filter(residual, out_schema, errors=True)
                         if residual is not None else None)
-        err_dev = self.device
 
         def residual_fn(b: Batch) -> Batch:
             out, err = residual_err(b)
             if err is not None:
-                self.error_flags.append(err.to(err_dev))
+                self.error_flags.append(err)
             return out
 
         residual_outer = (residual_err is not None
@@ -1254,9 +1474,11 @@ class DistributedExecutor(_Executor):
         payload_names = [f"$b{i}" for i in payload]
 
         if build is None:
+            extend = self._smap(lambda p: self._null_extend(p, node), 1,
+                                stage="join")
             for probe in self.run(node.left):
                 if node.join_type in ("left", "full"):
-                    yield self._null_extend(probe, node)
+                    yield extend(probe)
             return
 
         lkeys, rkeys = list(node.left_keys), list(node.right_keys)
@@ -1299,9 +1521,9 @@ class DistributedExecutor(_Executor):
             def prep_local(b: Batch):
                 return prepare_direct_keyed(b, rkeys, los, sizes, cap)
             # the JAX package's GSPMD reduces the sharded violation scan
-            # to one scalar; here it runs over the global build
-            self.error_flags.append(key_bounds_violation(
-                build, tuple(rkeys), tuple(node.key_bounds)))
+            # to one scalar; here each slot scans its part of the build
+            self._slot_flags(lambda b: key_bounds_violation(
+                b, tuple(rkeys), tuple(node.key_bounds)), build)
         else:
             def prep_local(b: Batch):
                 return prepare_build(b, rkeys)
@@ -1410,7 +1632,7 @@ class DistributedExecutor(_Executor):
                 replicated_out=replicated, flight_kind=None, stage="join")
             _drain_inputs(prepared)
             with _sync_record("join-multiplicity"):
-                bound = int(mult_fn(prepared).max())
+                bound = int(self._control(mult_fn(prepared)).max())
             if bound <= self.SKEW_MATCH_LIMIT:
                 # a key's rows move between shards atomically, so a
                 # shard's max multiplicity never exceeds the global max
@@ -1471,7 +1693,7 @@ class DistributedExecutor(_Executor):
                                 n_out=2, flight_kind=None, stage="join",
                                 collective=True)
                 out, counts = fn(probe, build_side, prepared)
-                repart_probe.note_counts(counts)
+                repart_probe.note_counts(self._control(counts))
                 if fl is not None:
                     # exchange + probe are ONE program: the round record
                     # is a repartition record covering the whole dispatch
@@ -1494,8 +1716,8 @@ class DistributedExecutor(_Executor):
                 _drain_inputs(probe, build_side, prepared)
                 with _sync_record("join-match-count"):
                     maxk = bucket_capacity(
-                        max(int(count_fn(probe, build_side,
-                                         prepared).max()), 1),
+                        max(int(self._control(count_fn(
+                            probe, build_side, prepared)).max()), 1),
                         minimum=1)
             fn = join_fns.get(maxk)
             if fn is None:
@@ -1512,14 +1734,12 @@ class DistributedExecutor(_Executor):
             if residual_outer:
                 out, m = fn(probe, build_side, prepared)
                 if track_full:
-                    build_matched = (m if build_matched is None
-                                     else build_matched | m)
+                    build_matched = _or_parts(build_matched, m)
                 yield out
                 continue
             if track_full:
-                m = match_fn(probe, build_side, prepared)
-                build_matched = (m if build_matched is None
-                                 else build_matched | m)
+                build_matched = _or_parts(
+                    build_matched, match_fn(probe, build_side, prepared))
             yield fn(probe, build_side, prepared)
         if repart_probe is not None:
             # any still-pending fused round counts fold in exactly once
@@ -1535,11 +1755,13 @@ class DistributedExecutor(_Executor):
                 return Batch(out_schema, cols, mask)
 
             if build_matched is None:
-                build_matched = torch.zeros_like(build_side.row_mask)
+                build_matched = _Sharded([torch.zeros_like(p.row_mask)
+                                          for p in build_side.parts])
             yield self._smap(local_tail, 2, stage="join")(build_side,
                                                           build_matched)
 
-    def _SemiJoinNode(self, node: SemiJoinNode) -> Iterator[Batch]:
+    def _SemiJoinNode(self, node: SemiJoinNode
+                      ) -> Iterator[ShardedBatch]:
         build = self._drain(node.filtering)
         skeys, fkeys = list(node.source_keys), list(node.filtering_keys)
         neg = node.negated
@@ -1624,7 +1846,7 @@ class DistributedExecutor(_Executor):
                                     flight_kind=None, stage="semi",
                                     collective=True)
                     out, counts = f2(b, build_rep, prep)
-                    repart_src.note_counts(counts)
+                    repart_src.note_counts(self._control(counts))
                     if fl is not None:
                         fl.record("repartition",
                                   wall=time.perf_counter() - t0,
@@ -1655,7 +1877,7 @@ class DistributedExecutor(_Executor):
             stage="semi")
         _drain_inputs(build_rep)
         with _sync_record("semi-multiplicity"):
-            bound = int(mult_fn(build_rep).max())
+            bound = int(self._control(mult_fn(build_rep)).max())
         res_maxk = (bucket_capacity(max(bound, 1), minimum=1)
                     if bound <= self.SKEW_MATCH_LIMIT else None)
 
@@ -1673,7 +1895,8 @@ class DistributedExecutor(_Executor):
                 _drain_inputs(b, build_rep)
                 with _sync_record("semi-match-count"):
                     maxk = bucket_capacity(
-                        max(int(count_fn(b, build_rep).max()), 1),
+                        max(int(self._control(
+                            count_fn(b, build_rep)).max()), 1),
                         minimum=1)
             fn = fns.get(maxk)
             if fn is None:
@@ -1694,7 +1917,7 @@ class DistributedExecutor(_Executor):
             return float("inf")
         return torch.iinfo(dtype).max
 
-    def _SortNode(self, node: SortNode) -> Iterator[Batch]:
+    def _SortNode(self, node: SortNode) -> Iterator[ShardedBatch]:
         b = self._drain(node.child)
         if b is None:
             return
@@ -1767,7 +1990,7 @@ class DistributedExecutor(_Executor):
 
         yield self._smap(program, 1, stage="sort", collective=True)(b)
 
-    def _TopNNode(self, node: TopNNode) -> Iterator[Batch]:
+    def _TopNNode(self, node: TopNNode) -> Iterator[ShardedBatch]:
         """Shard-local top-n accumulation, then ONE gathered merge at the
         end (reference TopNOperator keeps a per-driver heap the same way
         and merges once at output)."""
@@ -1781,7 +2004,7 @@ class DistributedExecutor(_Executor):
             lambda s, c: top_n(concat_batches([s, c]), keys,
                                node.count).compact(cap, check=False), 2,
             stage="sort")
-        state: Optional[Batch] = None
+        state: Optional[ShardedBatch] = None
         for b in self.run(node.child):
             cand = local_topn(b)
             state = cand if state is None else merge_fn(state, cand)
@@ -1791,7 +2014,7 @@ class DistributedExecutor(_Executor):
                 lambda s: sort_batch(top_n(s, keys, node.count), keys),
                 state, "sort")
 
-    def _UnnestNode(self, node) -> Iterator[Batch]:
+    def _UnnestNode(self, node) -> Iterator[ShardedBatch]:
         # shard-local expansion: every shard expands by the same element
         # count, so per-shard capacity stays uniform
         from .local import unnest_expand
@@ -1807,10 +2030,10 @@ class DistributedExecutor(_Executor):
         sfn = self._smap(local_unnest, 1, n_out=2)
         for b in self.run(node.child):
             out, err = sfn(b)
-            self.error_flags.append(err.max())
+            self.error_flags.extend(e.max() for e in err.parts)
             yield out
 
-    def _WindowNode(self, node) -> Iterator[Batch]:
+    def _WindowNode(self, node) -> Iterator[ShardedBatch]:
         from ..ops.window import WindowSpec, evaluate_window
         b = self._drain(node.child)
         if b is None:
@@ -1823,22 +2046,19 @@ class DistributedExecutor(_Executor):
         parts = list(node.partition_indices)
         schema = _plan_schema(node)
         errs = self.error_flags
+        def window(x: Batch) -> Batch:
+            out = evaluate_window(x, parts, keys, specs, errors=errs)
+            return Batch(schema, out.columns, out.row_mask)
         if parts:
             # colocate partitions via hash exchange, evaluate per shard
             b = self._repartitioner(parts, fused=False)(b)
-            fn = self._smap(
-                lambda x: evaluate_window(x, parts, keys, specs,
-                                          errors=errs), 1)
-            out = fn(b)
+            yield self._smap(window, 1)(b)
         else:
             # one global partition: evaluated over the gathered batch,
             # kept on shard 0
-            out = self._gathered_call(
-                lambda x: evaluate_window(x, parts, keys, specs,
-                                          errors=errs), b, "misc")
-        yield Batch(schema, out.columns, out.row_mask)
+            yield self._gathered_call(window, b, "misc")
 
-    def _DistinctNode(self, node: DistinctNode) -> Iterator[Batch]:
+    def _DistinctNode(self, node: DistinctNode) -> Iterator[ShardedBatch]:
         b = self._drain(node.child)
         if b is None:
             return
@@ -1847,7 +2067,7 @@ class DistributedExecutor(_Executor):
         kb = tuple(node.key_bounds) if node.key_bounds else None
         if kb is not None and allow_dense:
             # unconditional hard-invariant check (see _AggregationNode)
-            self.error_flags.append(key_bounds_violation(b, cols, kb))
+            self._slot_flags(lambda x: key_bounds_violation(x, cols, kb), b)
         b = self._repartitioner(cols, fused=False)(b)
         fn = self._smap(
             lambda x: grouped_aggregate(x, cols, [], mode="single",
@@ -1855,7 +2075,7 @@ class DistributedExecutor(_Executor):
                                         allow_dense=allow_dense), 1)
         yield fn(b)
 
-    def _MarkDistinctNode(self, node) -> Iterator[Batch]:
+    def _MarkDistinctNode(self, node) -> Iterator[ShardedBatch]:
         """Colocate rows by the distinct tuple, then flag per shard:
         equal tuples land on one shard, so first occurrence is global."""
         from ..ops.aggregation import mark_distinct_flags
@@ -1871,7 +2091,7 @@ class DistributedExecutor(_Executor):
             return Batch(schema, list(x.columns) + [col], x.row_mask)
         yield self._smap(local_mark, 1)(b)
 
-    def _drain(self, node: PlanNode) -> Optional[Batch]:
+    def _drain(self, node: PlanNode) -> Optional[ShardedBatch]:
         batches = list(self.run(node))
         if not batches:
             return None
@@ -1886,15 +2106,15 @@ class DistributedExecutor(_Executor):
 # -- helpers -----------------------------------------------------------------
 
 def _fused_agg_wave_fn(group, key_idx, aggs, kb, cap_out: int,
-                       has_carry: bool, n_chunks: int):
+                       has_carry: bool, n_chunks: int, in_slot):
     """One-dispatch multi-round aggregation program (MapReduce rounds as
     one program, not host round trips): on every slot, partial aggregate
     + state merge over the wave's chunks with the carry at the STATIC
     ``cap_out`` capacity the dense key domain proves. A collective body:
-    returns ``(states per slot, [violation])`` where the violation is the
-    explicit max over the slots (the reference's ``pmax``), one value:
-    STATS_BOUND_VIOLATION, the checked sums' NUMERIC_VALUE_OUT_OF_RANGE,
-    or 0."""
+    returns ``(states per slot, violations per slot)``, each violation
+    one scalar on its slot's device: STATS_BOUND_VIOLATION, the checked
+    sums' NUMERIC_VALUE_OUT_OF_RANGE, or 0 (the query's error check takes
+    the max over them, the reference's ``pmax``)."""
     kb_t = tuple(kb) if kb else None
 
     def _partial(chunk: Batch, errs: list) -> Batch:
@@ -1903,34 +2123,37 @@ def _fused_agg_wave_fn(group, key_idx, aggs, kb, cap_out: int,
                                  key_bounds=kb_t, allow_dense=True,
                                  errors=errs)
 
+    def slot_wave(carry: Optional[Batch], chunks: List[Batch]):
+        errs: list = []
+        if kb_t is not None:
+            for c in chunks:
+                errs.append(key_bounds_violation(c, group, kb_t))
+        if carry is not None:
+            st, lo = carry, 0
+        else:
+            st, lo = _partial(chunks[0], errs), 1
+        for r in range(lo, n_chunks):
+            st = grouped_aggregate(
+                concat_batches([st, _partial(chunks[r], errs)]),
+                key_idx, aggs, mode="merge", output_capacity=cap_out,
+                key_bounds=kb_t, allow_dense=True, errors=errs)
+        v = torch.zeros((), dtype=torch.int32, device=chunks[0].device)
+        for e in errs:
+            v = torch.maximum(v, e)
+        return st, v
+
     def fused_agg_wave(*args):
         carries = args[0] if has_carry else None
         chunk_lists = args[1:] if has_carry else args
         n = len(chunk_lists[0])
         states, viols = [], []
         for s in range(n):
-            chunks = [cl[s] for cl in chunk_lists]
-            errs: list = []
-            if kb_t is not None:
-                for c in chunks:
-                    errs.append(key_bounds_violation(c, group, kb_t))
-            if has_carry:
-                st, lo = carries[s], 0
-            else:
-                st, lo = _partial(chunks[0], errs), 1
-            for r in range(lo, n_chunks):
-                st = grouped_aggregate(
-                    concat_batches([st, _partial(chunks[r], errs)]),
-                    key_idx, aggs, mode="merge", output_capacity=cap_out,
-                    key_bounds=kb_t, allow_dense=True, errors=errs)
+            with in_slot(s):
+                st, v = slot_wave(carries[s] if has_carry else None,
+                                  [cl[s] for cl in chunk_lists])
             states.append(st)
-            v = torch.zeros((), dtype=torch.int32, device=chunks[0].device)
-            for e in errs:
-                v = torch.maximum(v, e)
             viols.append(v)
-        dev0 = viols[0].device
-        viol = torch.stack([v.to(dev0) for v in viols]).max()
-        return states, [viol] * n
+        return states, viols
 
     return fused_agg_wave
 

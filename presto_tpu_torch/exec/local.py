@@ -364,6 +364,56 @@ def mark_exists_mask(probe: Batch, build: Batch, probe_keys, build_keys,
     return probe.row_mask & (~found if negated else found)
 
 
+def values_batch(node: ValuesNode, device) -> Batch:
+    """A VALUES node's rows as one batch on ``device``."""
+    if node.fields:
+        return Batch.from_pydict(
+            {f.name: (f.type, [r[i] for r in node.rows])
+             for i, f in enumerate(node.fields)}, device=device)
+    # zero-column values (SELECT without FROM): live rows, no columns
+    n = len(node.rows)
+    return Batch(Schema([]), [], torch.arange(
+        bucket_capacity(max(n, 1)), device=device) < n)
+
+
+def grouping_set_batch(b: Batch, node: GroupIdNode, g: int,
+                       schema: Schema) -> Batch:
+    """Grouping set ``g``'s replica of ``b``: absent keys get their
+    validity cleared (NULL), $group_id is the constant ``g``."""
+    s = node.grouping_sets[g]
+    cols = []
+    for i, c in enumerate(b.columns):
+        if i < node.n_keys and i not in s:
+            # zero the data too: the sort path groups on (null rank,
+            # data), so stale data under a cleared validity would still
+            # split groups
+            cols.append(Column(c.type, torch.zeros_like(c.data),
+                               torch.zeros_like(b.row_mask), c.dictionary))
+        else:
+            cols.append(c)
+    cols.append(Column(T.BIGINT, torch.full(
+        (b.capacity,), g, dtype=torch.int64, device=b.device),
+        torch.ones_like(b.row_mask)))
+    return Batch(schema, cols, b.row_mask)
+
+
+def cross_expand(probe: Batch, build: Batch, nb: int,
+                 schema: Schema) -> Batch:
+    """One copy of ``probe`` per live row of the compacted ``build``
+    (its first ``nb`` rows), the build row's columns appended."""
+    cap = probe.capacity
+    reps: List[Batch] = []
+    for k in range(nb):
+        cols = list(probe.columns)
+        for c in build.columns:
+            data = map_parts(c.data, lambda a: a[k:k + 1].expand(
+                (cap,) + tuple(a.shape[1:])).contiguous())
+            valid = c.validity[k:k + 1].expand(cap) & probe.row_mask
+            cols.append(Column(c.type, data, valid, c.dictionary))
+        reps.append(Batch(schema, cols, probe.row_mask))
+    return concat_batches(reps) if len(reps) > 1 else reps[0]
+
+
 def _null_columns(fields, cap: int, device) -> List[Column]:
     """All-NULL columns for ``fields`` (the null-extended side of an outer
     join)."""
@@ -715,18 +765,9 @@ class _Executor:
             static_pushdown=node.pushdown or None)
 
     def _ValuesNode(self, node: ValuesNode) -> Iterator[Batch]:
-        if node.fields:
-            yield Batch.from_pydict(
-                {f.name: (f.type, [r[i] for r in node.rows])
-                 for i, f in enumerate(node.fields)}, device=self.device)
-            return
-        # zero-column values (SELECT without FROM): live rows, no columns
-        n = len(node.rows)
-        yield Batch(Schema([]), [], torch.arange(
-            bucket_capacity(max(n, 1)), device=self.device) < n)
+        yield values_batch(node, self.device)
 
-    #: the mesh executor turns this off: compacting a global batch would
-    #: re-deal its rows across the shards
+    #: the mesh executor turns this off: its nodes run per slot
     compact_streams = True
 
     def _compactor(self):
@@ -784,23 +825,8 @@ class _Executor:
         (reference operator/GroupIdOperator.java)."""
         schema = _plan_schema(node)
         for b in self.run(node.child):
-            dead = torch.zeros_like(b.row_mask)
-            alive = torch.ones_like(b.row_mask)
-            for g, s in enumerate(node.grouping_sets):
-                cols = []
-                for i, c in enumerate(b.columns):
-                    if i < node.n_keys and i not in s:
-                        # zero the data too: the sort path groups on
-                        # (null rank, data), so stale data under a cleared
-                        # validity would still split groups
-                        cols.append(Column(c.type, torch.zeros_like(c.data),
-                                           dead, c.dictionary))
-                    else:
-                        cols.append(c)
-                cols.append(Column(T.BIGINT, torch.full(
-                    (b.capacity,), g, dtype=torch.int64, device=b.device),
-                    alive))
-                yield Batch(schema, cols, b.row_mask)
+            for g in range(len(node.grouping_sets)):
+                yield grouping_set_batch(b, node, g, schema)
 
     def _WindowNode(self, node: WindowNode) -> Iterator[Batch]:
         b = self._drain(node.child)
@@ -1761,17 +1787,7 @@ class _Executor:
             return
         schema = _plan_schema(node)
         for probe in self.run(node.left):
-            cap = probe.capacity
-            reps: List[Batch] = []
-            for k in range(nb):
-                cols = list(probe.columns)
-                for c in build.columns:
-                    data = map_parts(c.data, lambda a: a[k:k + 1].expand(
-                        (cap,) + tuple(a.shape[1:])).contiguous())
-                    valid = c.validity[k:k + 1].expand(cap) & probe.row_mask
-                    cols.append(Column(c.type, data, valid, c.dictionary))
-                reps.append(Batch(schema, cols, probe.row_mask))
-            yield concat_batches(reps) if len(reps) > 1 else reps[0]
+            yield cross_expand(probe, build, nb, schema)
 
     def _SemiJoinNode(self, node: SemiJoinNode) -> Iterator[Batch]:
         build = self._drain(node.filtering)

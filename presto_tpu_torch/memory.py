@@ -36,7 +36,11 @@ _POOL_PEAK = REGISTRY.gauge("memory_pool_peak_bytes")
 
 
 def batch_device_bytes(batch) -> int:
-    """Accounted footprint of a batch: data, validity and row mask."""
+    """Accounted footprint of a batch: data, validity and row mask (a
+    mesh's sharded batch: the sum over its parts)."""
+    parts = getattr(batch, "parts", None)
+    if parts is not None:
+        return sum(batch_device_bytes(p) for p in parts)
     total = batch.row_mask.numel() * batch.row_mask.element_size()
     for c in batch.columns:
         for a in data_parts(c.data):

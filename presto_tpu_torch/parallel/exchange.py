@@ -190,7 +190,8 @@ def _devices(batches: Sequence[Batch]) -> List[torch.device]:
 
 def unify_slot_vocabs(batches: Sequence[Batch]) -> List[Batch]:
     """The slot batches with every string column re-coded into one
-    vocabulary shared by all slots (unchanged when they already agree)."""
+    vocabulary shared by all slots: one dictionary object (codes
+    unchanged when the vocabularies already agree)."""
     batches = list(batches)
     if not batches:
         return batches
@@ -199,7 +200,12 @@ def unify_slot_vocabs(batches: Sequence[Batch]) -> List[Batch]:
         if not c0.type.is_string:
             continue
         vocabs = [b.columns[ci].dictionary for b in batches]
-        if all(v is vocabs[0] or v == vocabs[0] for v in vocabs[1:]):
+        if all(v is vocabs[0] for v in vocabs[1:]):
+            continue
+        if all(v == vocabs[0] for v in vocabs[1:]):
+            for j, b in enumerate(batches):
+                c = b.columns[ci]
+                cols[j][ci] = Column(c.type, c.data, c.validity, vocabs[0])
             continue
         vocab, remaps = unify_dictionaries([b.columns[ci] for b in batches])
         for j, b in enumerate(batches):
