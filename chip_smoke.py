@@ -74,8 +74,12 @@ result line):
    and over ``sequence``; compares each with the port's ``device="cpu"``
    run (integers, decimals, dates and strings exactly, doubles within rel
    1e-9), prints per statement the walls, the rows, the peak device
-   memory and the launches of each kernel, and fails unless both kernels
-   launched in the phase;
+   memory and the launches of each kernel, then the checked-arithmetic
+   statements of ``SURFACE_CHECKED`` and the literal-typing statements
+   of ``SURFACE_LITERALS`` (Presto's INTEGER literals, decimal-integral
+   arithmetic; the types and error names on the card must equal the CPU
+   run's and the expected ones), and fails unless both kernels launched
+   in the phase;
 8. files: BASELINE config 5 and the file catalogs. Writes TPC-H at
    FILES_SF (0.5) with
    the port's own writers into a temporary directory (lineitem's 16
@@ -478,6 +482,61 @@ select o_orderkey, cast(cast(o_orderkey as bigint) * 100000000000
 from orders order by o_orderkey desc limit 5""", None),
     ("substr_negative", """
 select n_nationkey, substr(n_name, -3) from nation order by 1""", None),
+)
+#: the surface phase's literal-typing statements (name, SQL, the error
+#: name the card and the CPU must both raise or None, the type displays
+#: both must give): integer literals typed INTEGER where they fit in 32
+#: bits (Presto's LongLiteral typing), an INTEGER CASE summed on the sort
+#: path (it launches the segment sum), INTEGER arithmetic that must raise,
+#: and decimal arithmetic with integral operands of their own digits
+_DEC7 = "cast(o_totalprice / 10 as decimal(7,2))"
+SURFACE_LITERALS = (
+    ("literal_types", """
+select 1, 2147483647, 2147483648, -2147483648, array[1, 2],
+       sequence(1, 3)""", None,
+     ["integer", "integer", "bigint", "bigint", "array(integer)",
+      "array(bigint)"]),
+    ("sum_integer_case_sort", """
+select o_custkey % 5 k,
+       sum(case when o_orderpriority = '1-URGENT' then 1 else 0 end),
+       avg(case when o_orderstatus = 'F' then 2 else 0 end)
+from orders group by 1 order by 1""", None, ["bigint", "bigint", "double"]),
+    ("integer_plus_literal", """
+select max(cast(o_orderkey as integer) + 2147483600), count(*)
+from orders where o_orderkey <= 47""", None, ["integer", "bigint"]),
+    ("integer_plus_literal_overflow", """
+select max(cast(o_orderkey as integer) + 2147483600) from orders""",
+     "NUMERIC_VALUE_OUT_OF_RANGE", None),
+    ("integer_sum_of_literals_overflow", """
+select sum(2147483647 + o_shippriority + 1) from orders""",
+     "NUMERIC_VALUE_OUT_OF_RANGE", None),
+    ("values_sum_overflow", """
+select sum(k + 2147483600) from (values 1, 47, 48) t(k)""",
+     "NUMERIC_VALUE_OUT_OF_RANGE", None),
+    ("constant_overflow", "select 2147483647 + 1",
+     "NUMERIC_VALUE_OUT_OF_RANGE", None),
+    ("try_constant_overflow", "select try(2147483647 + 1)", None,
+     ["integer"]),
+    ("decimal_times_integer", f"""
+select o_orderkey, {_DEC7} * cast(o_custkey as integer), {_DEC7} * 3
+from orders order by o_orderkey limit 50""", None,
+     ["bigint", "decimal(17,2)", "decimal(17,2)"]),
+    ("decimal_plus_smallint", f"""
+select o_orderkey, {_DEC7} + cast(o_shippriority + 7 as smallint)
+from orders order by o_orderkey limit 50""", None,
+     ["bigint", "decimal(8,2)"]),
+    ("decimal_mod", f"""
+select o_orderkey, {_DEC7} % 2, {_DEC7} % cast(o_custkey as bigint),
+       {_DEC7} % cast(200000000000000000 as bigint)
+from orders order by o_orderkey limit 50""", None,
+     ["bigint", "decimal(7,2)", "decimal(7,2)", "decimal(7,2)"]),
+    ("values_join_integer_key", """
+select n_name, v.w from nation join (values (1, 'x'), (7, 'y'), (24, 'z'))
+  v(k, w) on n_nationkey = v.k order by n_name""", None,
+     ["varchar(25)", "varchar(1)"]),
+    ("values_mixed_width", """
+select x from (values (1), (5000000000)) t(x) order by x""", None,
+     ["bigint"]),
 )
 #: the sort-path grouped sum near the int64 edge: its factor is chosen
 #: from the CPU run so that the largest group lies within one factor of
@@ -1355,6 +1414,7 @@ def phase_surface(torch):
               f"match the cpu run | peak {peak_gb:.2f} GiB | launches "
               f"(cold+warm) scan {counts[0]} probe {counts[1]}", flush=True)
     _surface_checked(gpu, cpu, torch.cuda.synchronize)
+    _surface_literals(gpu, cpu, torch.cuda.synchronize)
     launches = {"segment_sum_sorted_i64": scan.launches,
                 "direct_probe": probe.launches}
     print(f"surface launches: {json.dumps(launches)} | phase wall "
@@ -1415,6 +1475,47 @@ def _surface_checked(gpu, cpu, sync, counter: str = "launches") -> None:
         print(f"surface {name}: cuda {wall:.3f} s | cpu {cpu_s:.3f} s | "
               + (f"both raise {err}" if want else
                  f"{len(rows)} rows match the cpu run")
+              + f" | scan {counter} {launched}", flush=True)
+
+
+def _surface_literals(gpu, cpu, sync, counter: str = "launches") -> None:
+    """SURFACE_LITERALS on the card (``gpu``) against the CPU run: the
+    same error names, or the same rows with the expected types on both;
+    the sort-path sum calls the segment sum (``scan.<counter>`` rises)."""
+    from presto_tpu_torch.errors import QueryError
+    from presto_tpu_torch.ops import scan
+
+    def run(runner, sql):
+        try:
+            res = runner.execute(sql)
+        except QueryError as e:
+            return None, None, e.name
+        return res.rows, [t.display() for t in res.types], None
+
+    for name, sql, want, types in SURFACE_LITERALS:
+        before = getattr(scan, counter)
+        t0 = time.perf_counter()
+        rows, got_types, err = run(gpu, sql)
+        sync()
+        wall = time.perf_counter() - t0
+        launched = getattr(scan, counter) - before
+        cpu_rows, cpu_types, cpu_err = run(cpu, sql)
+        if err != want or cpu_err != want:
+            raise AssertionError(
+                f"surface {name}: cuda raised {err}, cpu raised {cpu_err}, "
+                f"expected {want}")
+        if want is None:
+            if got_types != types or cpu_types != types:
+                raise AssertionError(
+                    f"surface {name}: types {got_types} (cuda), "
+                    f"{cpu_types} (cpu), expected {types}")
+            _same_rows(rows, cpu_rows, 1e-9, name)
+        if name.startswith("sum_") and launched <= 0:
+            raise AssertionError(
+                f"surface {name} did not launch the segment sum")
+        print(f"surface {name}: cuda {wall:.3f} s | "
+              + (f"both raise {err}" if want else
+                 f"{len(rows)} rows of {', '.join(types)} match the cpu run")
               + f" | scan {counter} {launched}", flush=True)
 
 

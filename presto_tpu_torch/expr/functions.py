@@ -508,6 +508,32 @@ def _long_decimal_arith(op: str, a: Val, b: Val, out, valid) -> Val:
                err=err)
 
 
+def _short_decimal_mod(a: Val, b: Val, valid, out) -> Val:
+    """Modulus of short decimals or integrals with a short result
+    (DecimalOperators.modulus): both operands at the wider scale, the
+    remainder signed like the dividend; a zero divisor raises
+    DIVISION_BY_ZERO. Where an operand at that scale could leave int64
+    (a bigint, or an integer at a large scale) the remainder is taken on
+    int128 limbs: it is smaller than both operands, so it fits the
+    result."""
+    ta, tb = T.exact_decimal(a.type), T.exact_decimal(b.type)
+    sc = max(ta.scale, tb.scale)
+    zero = b.data == 0
+    err = flag_err(valid & zero, E.DIVISION_BY_ZERO)
+    if max(t.precision + sc - t.scale for t in (ta, tb)) > 18:
+        xa, _ = _dec_limbs(a, sc)
+        xb, _ = _dec_limbs(b, sc)
+        one = I.from_i64(torch.ones_like(zero, dtype=torch.int64))
+        _, r = I.divmod_abs(I.abs_(xa), I.where(zero, one, I.abs_(xb)))
+        data = I.lo(I.where(I.is_neg(xa), I.neg(r), r))
+    else:
+        da = rescale_decimal(a.data.to(torch.int64), ta.scale, sc)
+        db = rescale_decimal(b.data.to(torch.int64), tb.scale, sc)
+        den = torch.where(zero, 1, db)
+        data = torch.sign(da) * (da.abs() % den.abs())
+    return Val(torch.where(zero, 0, data), valid & ~zero, out, err=err)
+
+
 def _integral_arith(op: str, da: torch.Tensor, db: torch.Tensor,
                     valid: torch.Tensor, out: Type) -> Val:
     """add / sub / mul / div of tinyint..bigint, checked like Presto's
@@ -579,13 +605,7 @@ def _arith(op):
                 # quotient is the limbs' half-up division, narrowed
                 return _long_decimal_arith(op, a, b, out, valid)
             elif op == "mod":
-                sc = max(sa, sb)
-                da2 = rescale_decimal(da, sa, sc)
-                db2 = rescale_decimal(db, sb, sc)
-                den = torch.where(db2 == 0, 1, db2)
-                data = torch.sign(da2) * (da2.abs() % den.abs())
-                err = flag_err(valid & (db2 == 0), E.DIVISION_BY_ZERO)
-                return Val(data, valid & (db2 != 0), out, err=err)
+                return _short_decimal_mod(a, b, valid, out)
             else:
                 da2 = rescale_decimal(da, sa, s_out)
                 db2 = rescale_decimal(db, sb, s_out)
@@ -656,10 +676,8 @@ def _long_dec_compare(a: Val, b: Val, op: str) -> Val:
     """Compare when either side is a long decimal and both are exact
     numerics: rescale to the wider scale, compare limbs. Where the rescale
     would pass 38 digits (an extreme scale gap), compare float64 images."""
-    sa = a.type.scale if isinstance(a.type, T.DecimalType) else 0
-    sb = b.type.scale if isinstance(b.type, T.DecimalType) else 0
-    pa = a.type.precision if isinstance(a.type, T.DecimalType) else 19
-    pb = b.type.precision if isinstance(b.type, T.DecimalType) else 19
+    da, db = T.exact_decimal(a.type), T.exact_decimal(b.type)
+    pa, sa, pb, sb = da.precision, da.scale, db.precision, db.scale
     s = max(sa, sb)
     valid = a.valid & b.valid
     if max(pa + s - sa, pb + s - sb) > 38:
@@ -1521,20 +1539,23 @@ def infer_call_type(name: str, arg_types: List[Type]) -> Type:
         a, b = arg_types
         if isinstance(a, T.DecimalType) or isinstance(b, T.DecimalType):
             # Presto's decimal operator signatures (reference
-            # type/DecimalOperators.java), precision saturating at 38
-            sa = a.scale if isinstance(a, T.DecimalType) else 0
-            pa = a.precision if isinstance(a, T.DecimalType) else 19
-            sb = b.scale if isinstance(b, T.DecimalType) else 0
-            pb = b.precision if isinstance(b, T.DecimalType) else 19
+            # type/DecimalOperators.java), precision saturating at 38;
+            # an integral operand counts as the decimal it coerces to
             if T.is_floating(a) or T.is_floating(b):
                 return T.DOUBLE
+            # (an untyped NULL counts as bigint's decimal(19,0))
+            exact = [t if T.is_integral(t) or isinstance(t, T.DecimalType)
+                     else T.BIGINT for t in (a, b)]
+            da, db = (T.exact_decimal(t) for t in exact)
+            pa, sa, pb, sb = da.precision, da.scale, db.precision, db.scale
+            s = max(sa, sb)
             if name == "multiply":
                 return T.DecimalType(min(38, pa + pb), min(38, sa + sb))
             if name == "divide":
-                s = max(sa, sb)
                 p = min(38, pa + sb + max(0, sb - sa))
                 return T.DecimalType(max(p, s), s)
-            s = max(sa, sb)
+            if name == "modulus":
+                return T.DecimalType(min(pa - sa, pb - sb) + s, s)
             p = min(38, max(pa - sa, pb - sb) + s + 1)
             return T.DecimalType(p, s)
         t = T.common_super_type(a, b)

@@ -1649,6 +1649,19 @@ def _agg_output_type(fn: str, arg: T.Type) -> T.Type:
     return arg
 
 
+def _key_ref(e: ir.Expr) -> ir.Expr:
+    """A join key's column: an input itself, or an integral input widened
+    to a wider integral type (``cast(#k:integer as bigint)``, as when an
+    INTEGER column of VALUES meets a BIGINT key), which joins on the
+    same values: key operands widen to int64 in the join and the hash
+    exchange alike."""
+    if isinstance(e, ir.Cast) and isinstance(e.arg, ir.InputRef) \
+            and T.is_integral(e.arg.type) and T.is_integral(e.type) \
+            and T.common_super_type(e.arg.type, e.type) == e.type:
+        return e.arg
+    return e
+
+
 def _extract_equi_keys(cond: Optional[ir.Expr], n_left: int):
     """Split an ON condition into equi-key pairs + residual.
 
@@ -1669,10 +1682,10 @@ def _extract_equi_keys(cond: Optional[ir.Expr], n_left: int):
     if cond is not None:
         split(cond)
     for c in conjuncts:
-        if (isinstance(c, ir.Call) and c.name == "eq"
-                and isinstance(c.args[0], ir.InputRef)
-                and isinstance(c.args[1], ir.InputRef)):
-            a, b = c.args
+        a = b = None
+        if isinstance(c, ir.Call) and c.name == "eq":
+            a, b = (_key_ref(x) for x in c.args)
+        if isinstance(a, ir.InputRef) and isinstance(b, ir.InputRef):
             if a.index < n_left <= b.index:
                 left_keys.append(a.index)
                 right_keys.append(b.index - n_left)

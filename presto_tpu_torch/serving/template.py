@@ -14,10 +14,10 @@ parameterized SHAPE instead:
   that carries the value AND a binding slot: it plans through the
   normal analyzer and optimizer, except slot literals lower to runtime
   ``ir.Param`` nodes instead of baked constants.
-- eligibility is conservative: BIGINT / DOUBLE / short-DECIMAL / DATE
-  literals appearing as operands of comparison / BETWEEN / IN-list /
-  boolean / arithmetic nodes inside WHERE, HAVING, or join ON
-  predicates. Everything else (LIMIT counts, GROUP BY ordinals,
+- eligibility is conservative: INTEGER / BIGINT / DOUBLE /
+  short-DECIMAL / DATE literals appearing as operands of comparison /
+  BETWEEN / IN-list / boolean / arithmetic nodes inside WHERE, HAVING,
+  or join ON predicates. Everything else (LIMIT counts, GROUP BY ordinals,
   function arguments with static contracts, LIKE patterns, string
   literals whose dictionaries are built with the batch, VALUES rows,
   long decimals) stays baked and is part of the template key.
@@ -73,21 +73,22 @@ _PUNCH_CONTEXTS = (A.LogicalBinary, A.Not, A.Comparison, A.Between,
                    A.InList, A.ArithmeticBinary, A.ArithmeticUnary)
 
 _SLOT_FORMS = {
-    A.LongLiteral: (A.SlotLongLiteral, lambda e: "bigint"),
-    A.DoubleLiteral: (A.SlotDoubleLiteral, lambda e: "double"),
-    A.DateLiteral: (A.SlotDateLiteral, lambda e: "date"),
+    A.LongLiteral: A.SlotLongLiteral,
+    A.DoubleLiteral: A.SlotDoubleLiteral,
+    A.DateLiteral: A.SlotDateLiteral,
 }
 
 
 def _hole(e):
     """(slot_cls, kind) when ``e`` is an eligible literal, else None.
-    Exact-type match: a literal's KIND is part of the template key, so
-    ``x > 5`` and ``x > 5.0`` never share a template."""
-    form = _SLOT_FORMS.get(type(e))
-    if form is not None:
-        return form[0], form[1](e)
+    Exact-type match: a literal's KIND (its SQL type) is part of the
+    template key, so ``x > 5``, ``x > 5.0`` and ``x > 5000000000``
+    (INTEGER, DECIMAL, BIGINT) never share a template."""
+    from ..sql.analyzer import literal_type
+    slot_cls = _SLOT_FORMS.get(type(e))
+    if slot_cls is not None:
+        return slot_cls, literal_type(e).display()
     if type(e) is A.DecimalLiteral:
-        from ..sql.analyzer import literal_type
         t = literal_type(e)
         if t.is_long:        # >18 digits: 2-limb storage, keep baked
             return None

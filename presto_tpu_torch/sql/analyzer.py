@@ -129,9 +129,19 @@ class Scope:
         return len(self.fields)
 
 
+#: magnitude of the widest INTEGER literal
+_INTEGER_LITERAL_MAX = (1 << 31) - 1
+
+
 def literal_type(node: A.Expression) -> T.Type:
     if isinstance(node, A.LongLiteral):
-        return T.BIGINT
+        # ExpressionAnalyzer.visitLongLiteral: INTEGER when the literal
+        # fits in [-2^31, 2^31-1], else BIGINT. SQL writes a literal
+        # unsigned (the grammar's integerLiteral); a sign is the unary
+        # minus the parser folds in, which keeps the unsigned literal's
+        # type, so the magnitude decides: -2147483648 is BIGINT
+        return T.INTEGER if abs(node.value) <= _INTEGER_LITERAL_MAX \
+            else T.BIGINT
     if isinstance(node, A.DecimalLiteral):
         d = node.value.as_tuple()
         scale = max(0, -int(d.exponent))
@@ -158,6 +168,11 @@ def literal_type(node: A.Expression) -> T.Type:
 def coerce(e: ir.Expr, to: T.Type) -> ir.Expr:
     if e.type == to:
         return e
+    if isinstance(e, ir.Param) and T.is_integral(e.type) \
+            and T.is_integral(to) and T.common_super_type(e.type, to) == to:
+        # a template slot widens as the literal it stands for would fold:
+        # the binding is stored in the wider type (expr/params.py)
+        return ir.param(e.slot, e.bound, to)
     if isinstance(e, ir.Literal):
         # fold literal casts at analysis time (constant folding, reference
         # sql/planner/ExpressionInterpreter.java role)
@@ -251,7 +266,7 @@ class ExpressionAnalyzer:
         return ir.lit(node.value, T.BOOLEAN)
 
     def _LongLiteral(self, node):
-        return ir.lit(node.value, T.BIGINT)
+        return ir.lit(node.value, literal_type(node))
 
     def _DecimalLiteral(self, node):
         return ir.lit(node.value, literal_type(node))
@@ -271,7 +286,7 @@ class ExpressionAnalyzer:
     # -- independent for every parameterizable kind (a DecimalLiteral's
     # -- inferred precision/scale is part of the template key).
     def _SlotLongLiteral(self, node):
-        return ir.param(node.slot, node.value, T.BIGINT)
+        return ir.param(node.slot, node.value, literal_type(node))
 
     def _SlotDoubleLiteral(self, node):
         return ir.param(node.slot, node.value, T.DOUBLE)

@@ -186,7 +186,7 @@ class TypedParameter(Expression):
     statements differing only in hole-punched literal values hash to
     the same template. Never planned; exists only to be hashed."""
     index: int
-    kind: str                      # bigint | double | date | decimal(p,s)
+    kind: str                # integer | bigint | double | date | decimal(p,s)
 
 
 # Slot-marked literals: value-carrying literals the template

@@ -864,6 +864,8 @@ class _Parser:
         if self.at_op("-", "+"):
             op = self.next().text
             v = self._unary()
+            # the fold keeps the unsigned literal's magnitude, which
+            # types it (analyzer.literal_type): -2147483648 stays BIGINT
             if op == "-" and isinstance(v, A.LongLiteral):
                 return A.LongLiteral(-v.value)
             if op == "-" and isinstance(v, A.DecimalLiteral):

@@ -543,6 +543,19 @@ def is_string_type(t: Type) -> bool:
 
 _INTEGRAL_RANK = {"tinyint": 0, "smallint": 1, "integer": 2, "bigint": 3}
 
+#: the decimal each integral type coerces to (TypeCoercion's
+#: tinyint -> decimal(3,0) ... bigint -> decimal(19,0))
+_INTEGRAL_DIGITS = {"tinyint": 3, "smallint": 5, "integer": 10, "bigint": 19}
+
+
+def exact_decimal(t: Type) -> "DecimalType":
+    """``t`` as the decimal an exact numeric operand counts as in decimal
+    arithmetic and comparison: a decimal is itself, an integral type the
+    decimal(3|5|10|19, 0) it coerces to."""
+    if isinstance(t, DecimalType):
+        return t
+    return DecimalType(_INTEGRAL_DIGITS[t.name], 0)
+
 
 def common_super_type(a: Type, b: Type) -> Optional[Type]:
     """Least-common supertype for implicit coercion.
@@ -573,8 +586,7 @@ def common_super_type(a: Type, b: Type) -> Optional[Type]:
             int_digits = max(a.precision - a.scale, b.precision - b.scale)
             return DecimalType(min(int_digits + scale, 38), scale)
         if isinstance(a, DecimalType) and is_integral(b):
-            int_digits = {"tinyint": 3, "smallint": 5, "integer": 10, "bigint": 19}[b.name]
-            return common_super_type(a, DecimalType(int_digits, 0))
+            return common_super_type(a, exact_decimal(b))
         if isinstance(b, DecimalType) and is_integral(a):
             return common_super_type(b, a)
     if isinstance(a, ArrayType) and isinstance(b, ArrayType):

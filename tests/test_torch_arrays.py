@@ -112,6 +112,23 @@ SQL = {
 }
 
 
+#: columns built from integer literals: ``array[1,2]`` is array(integer)
+#: in the port (Presto's LongLiteral typing) and array(bigint) in the
+#: reference, and so are its elements, maps and lambda results;
+#: ``sequence`` and ``cardinality`` stay bigint in both
+_INT = ("bigint", "integer")
+_AINT = ("array(bigint)", "array(integer)")
+RETYPED = {
+    "constructors_and_access": {1: _INT, 2: _INT, 3: _INT, 7: _INT, 9: _INT},
+    "reshaping": {0: _AINT, 2: _AINT, 3: _AINT, 5: _AINT},
+    "lambdas": {0: _AINT, 1: _AINT, 5: _INT},
+    "maps": {0: _INT, 1: _INT, 3: _AINT,
+             5: ("map(bigint, varchar(1))", "map(integer, varchar(1))")},
+    "unnest_literal": {0: _INT},
+    "unnest_zip": {0: _INT},
+}
+
+
 @pytest.fixture(scope="module")
 def runners():
     return LocalRunner(tpch_sf=0.01), TLocalRunner(tpch_sf=0.01,
@@ -123,7 +140,7 @@ def test_array_sql_matches_reference(runners, name):
     jr, tr = runners
     got = tr.execute(SQL[name])
     assert got.rows
-    assert_results_match(got, jr.execute(SQL[name]), 0.0)
+    assert_results_match(got, jr.execute(SQL[name]), 0.0, RETYPED.get(name))
 
 
 def test_unnest_limit_keeps_column_order(runners):

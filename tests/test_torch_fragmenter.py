@@ -5,7 +5,8 @@ For the 22 TPC-H queries, q27 and the TPC-DS battery at SF 0.01, the
 port's optimized plan cuts into the same mesh stages (verdict, reason,
 stage kinds, exchanges, keys, operators, fused flags) as presto_tpu's,
 and ``print_distributed_plan`` prints the same text line for line,
-directly and through the runner's EXPLAIN (TYPE DISTRIBUTED). Plans with
+directly and through the runner's EXPLAIN (TYPE DISTRIBUTED), but for
+the integer literals the port types INTEGER (tests/torch_retyped.py). Plans with
 no mesh form give the same refusal reason."""
 import pytest
 
@@ -22,6 +23,7 @@ from presto_tpu_torch.planner.fragmenter import (
 )
 from presto_tpu_torch.planner.printer import print_distributed_plan
 
+from torch_retyped import TPCDS_RETYPED, TPCH_RETYPED, assert_retyped
 from tpcds_queries import Q as DS
 from tpch_queries import Q as H
 from test_torch_tpcds import Q27
@@ -48,7 +50,10 @@ def _stages(mp):
               s.fused) for s in mp.stages])
 
 
-def _check(runners, catalog, sql):
+def _check(runners, catalog, sql, retyped=()):
+    """The same stages and fragments as the reference's, and the same
+    text but for the integer literals the port types INTEGER
+    (``retyped``: tests/torch_retyped.py's pairs)."""
     jr, tr = runners[catalog]
     jplan, tplan = jr.plan(sql), tr.plan(sql)
     for jroot, troot in zip([jplan.root] + list(jplan.init_plans),
@@ -57,18 +62,19 @@ def _check(runners, catalog, sql):
         jf, tf = jfragment(jroot), fragment_plan(troot)
         assert [(f.id, f.partitioning) for f in tf.fragments] == \
             [(f.id, f.partitioning) for f in jf.fragments]
-    assert print_distributed_plan(tplan).split("\n") == \
-        jprint(jplan).split("\n")
+    got, want = print_distributed_plan(tplan), jprint(jplan)
+    assert len(got.split("\n")) == len(want.split("\n"))
+    assert_retyped(got, want, retyped)
 
 
 @pytest.mark.parametrize("name,sql", TPCH, ids=[n for n, _ in TPCH])
 def test_tpch_stages_and_text(runners, name, sql):
-    _check(runners, "tpch", sql)
+    _check(runners, "tpch", sql, TPCH_RETYPED.get(name, ()))
 
 
 @pytest.mark.parametrize("name,sql", TPCDS, ids=[n for n, _ in TPCDS])
 def test_tpcds_stages_and_text(runners, name, sql):
-    _check(runners, "tpcds", sql)
+    _check(runners, "tpcds", sql, TPCDS_RETYPED.get(name, ()))
 
 
 def test_explain_type_distributed_through_the_runner(runners):
@@ -83,6 +89,12 @@ def test_explain_type_distributed_through_the_runner(runners):
         tr.execute("explain (type distributed, format json) " + sql)
 
 
+#: the VALUES columns of integer literals: integer in the port, bigint in
+#: the reference
+OTHER_RETYPED = {"select * from (values (1, 2), (3, 4)) t(a, b)": [
+    ("a:bigint", "a:integer"), ("b:bigint", "b:integer")] * 2}
+
+
 @pytest.mark.parametrize("sql", [
     "select * from (values (1, 2), (3, 4)) t(a, b)",
     "select count(*) from nation",
@@ -90,7 +102,7 @@ def test_explain_type_distributed_through_the_runner(runners):
     "select x from nation cross join unnest(array[n_nationkey]) as u(x)",
 ])
 def test_verdicts_of_other_shapes(runners, sql):
-    _check(runners, "tpch", sql)
+    _check(runners, "tpch", sql, OTHER_RETYPED.get(sql, ()))
 
 
 def test_unfragmentable_plan_gives_the_reason():

@@ -127,10 +127,17 @@ def test_rollup_dense_and_sort_paths_agree(ds_runners):
     assert dense == plain
 
 
+#: set operations over VALUES of integer literals: the column is INTEGER
+#: in the port (Presto's LongLiteral typing), BIGINT in the reference
+SET_OP_RETYPED = {name: {0: ("bigint", "integer")} for name in (
+    "intersect", "except", "except_multi_column", "intersect_null_equality",
+    "intersect_binds_tighter_than_union", "except_left_assoc_with_union")}
+
+
 @pytest.mark.parametrize("name", list(SET_OP_SQL))
 def test_set_operation_matches_reference(h_runners, name):
     jax_runner, torch_runner = h_runners
     want = jax_runner.execute(SET_OP_SQL[name])
     got = torch_runner.execute(SET_OP_SQL[name])
     assert got.rows
-    assert_results_match(got, want, 1e-12)
+    assert_results_match(got, want, 1e-12, SET_OP_RETYPED.get(name))

@@ -244,6 +244,15 @@ SQL = {
 }
 
 
+#: VALUES columns of integer literals: INTEGER in the port (Presto's
+#: LongLiteral typing), BIGINT in the reference
+RETYPED = {
+    "grouped_long_decimal_aggs": {0: ("bigint", "integer")},
+    "window_partition": {1: ("bigint", "integer")},
+    "window_short_decimal_sum": {0: ("bigint", "integer")},
+}
+
+
 @pytest.fixture(scope="module")
 def runners():
     return LocalRunner(tpch_sf=0.01), TLocalRunner(tpch_sf=0.01,
@@ -255,7 +264,8 @@ def test_long_decimal_sql_matches_reference(runners, name):
     jr, tr = runners
     got = tr.execute(SQL[name])
     assert got.rows
-    assert_results_match(got, jr.execute(SQL[name]), 1e-12)
+    assert_results_match(got, jr.execute(SQL[name]), 1e-12,
+                         RETYPED.get(name))
 
 
 def test_decimal_results_are_exact(runners):

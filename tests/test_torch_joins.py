@@ -111,6 +111,20 @@ QUERIES = {
 #: a NULL in a NOT IN list leaves every other row UNKNOWN: no row passes
 EMPTY = {"not_in_null_build_key"}
 
+#: output columns of integer literals (VALUES columns, ``1 + 2``): INTEGER
+#: in the port (Presto's LongLiteral typing), BIGINT in the reference
+_INT = ("bigint", "integer")
+RETYPED = {
+    "full_basic": {0: _INT, 2: _INT},
+    "three_key_join": {0: _INT},
+    "wide_key_join": {0: _INT},
+    "skewed_inner": {0: _INT},
+    "skewed_left": {0: _INT},
+    "not_in_null_build_key": {0: _INT},
+    "not_in_empty_build": {0: _INT},
+    "select_without_from": {0: _INT},
+}
+
 
 @pytest.mark.parametrize("name", list(QUERIES))
 def test_join_shape_matches_reference(runners, name):
@@ -118,7 +132,7 @@ def test_join_shape_matches_reference(runners, name):
     want = jax_runner.execute(QUERIES[name])
     got = torch_runner.execute(QUERIES[name])
     assert bool(got.rows) != (name in EMPTY), name
-    assert_results_match(got, want, 1e-12)
+    assert_results_match(got, want, 1e-12, RETYPED.get(name))
 
 
 def test_scalar_subquery_of_two_rows_raises(runners):

@@ -18,6 +18,7 @@ from presto_tpu_torch._devtools import profile_query as P
 from tools import profile_query as JP
 
 import torch_parity  # noqa: F401  (one torch thread per worker)
+from torch_retyped import RETYPED, assert_retyped
 
 SF = 0.01
 ROWS_PER_BATCH = 1 << 20
@@ -49,7 +50,14 @@ def test_profile_equals_reference(name):
     want = JP.profile_query(_jrunner(catalog), sql)
     got = P.profile_query(
         P.make_runner(catalog, SF, ROWS_PER_BATCH, "cpu"), sql)
-    assert _shape(got) == _shape(want)
+    (ops, keys), (jops, jkeys) = _shape(got), _shape(want)
+    assert keys == jkeys
+    assert [o[:1] + o[2:] for o in ops] == [o[:1] + o[2:] for o in jops]
+    # the labels, but for the integer literals the port types INTEGER
+    # (tests/torch_retyped.py; q55 is that file's TPC-DS q55)
+    assert_retyped("\n".join(o[1] for o in ops),
+                   "\n".join(o[1] for o in jops),
+                   RETYPED[catalog].get(name, ()))
     assert got["sql"] == want["sql"]
     assert got["device"] == {"type": "cpu", "name": None,
                              "power_limit": None}

@@ -141,6 +141,25 @@ PARITY_SQL = [
     "select 1",
 ]
 
+#: columns of integer literals, by statement: INTEGER in the port
+#: (Presto's LongLiteral typing), BIGINT in the reference; column index
+#: -> (the reference's type, the port's)
+PARITY_RETYPED = {
+    PARITY_SQL[3]: {8: ("array(bigint)", "array(integer)"),
+                    9: ("map(varchar(1), bigint)", "map(varchar(1), integer)")},
+    "select 1": {0: ("bigint", "integer")},
+}
+
+
+def _retyped(columns, retyped):
+    """The reference's column list with the types that differ by design
+    replaced by the port's, each asserted first."""
+    out = [dict(c) for c in columns]
+    for i, (ref_type, port_type) in (retyped or {}).items():
+        assert out[i]["type"] == ref_type, (i, out[i])
+        out[i]["type"] = port_type
+    return out
+
 
 def _nested(columns):
     """Indexes of the ARRAY and MAP columns: their values cross as JSON
@@ -156,7 +175,7 @@ def test_statements_equal_reference(pair, sql):
     jcols, jpages, jerr, _ = _statement(jurl, sql)
     tcols, tpages, terr, _ = _statement(turl, sql)
     assert terr is None and jerr is None, (terr, jerr)
-    assert tcols == jcols
+    assert tcols == _retyped(jcols, PARITY_RETYPED.get(sql))
     skip = _nested(tcols)
     assert_json_rows([[v for i, v in enumerate(r) if i not in skip]
                       for p in tpages for r in p],
@@ -177,7 +196,12 @@ def test_array_and_map_values_cross_as_json(pair):
            "cast(null as array(bigint)) n")
     jcols, jpages, _, _ = _statement(jurl, sql)
     tcols, tpages, _, _ = _statement(turl, sql)
-    assert tcols == jcols and _nested(tcols) == {0, 1, 2, 3, 4}
+    # the literals' columns: integer in the port, bigint in the reference
+    assert tcols == _retyped(jcols, {
+        0: ("array(bigint)", "array(integer)"),
+        1: ("map(varchar(1), bigint)", "map(varchar(1), integer)"),
+        2: ("map(bigint, varchar(1))", "map(integer, varchar(1))")})
+    assert _nested(tcols) == {0, 1, 2, 3, 4}
     assert jpages[0][0][:2] == [                   # the reference
         "[np.int64(1), np.int64(2), np.int64(3)]", "{'k': np.int64(7)}"]
     assert tpages[0][0] == [[1, 2, 3], {"k": 7}, {"1": "x", "2": None},
@@ -374,7 +398,8 @@ def test_raw_protocol_shape(server):
     while "data" not in doc:
         assert "nextUri" in doc
         _, _, doc = _request(doc["nextUri"])
-    assert doc["columns"][0]["type"] == "bigint"
+    # the literal 1 is INTEGER (Presto's LongLiteral typing)
+    assert doc["columns"][0]["type"] == "integer"
     assert doc["data"] == [[1]]
 
 

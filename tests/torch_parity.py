@@ -65,12 +65,22 @@ def sorted_rows(batch):
     return sorted([tuple(r) for r in batch.to_pylist()], key=key)
 
 
-def assert_results_match(got, want, rel: float = 1e-12):
+def assert_results_match(got, want, rel: float = 1e-12, retyped=None):
     """Two QueryResults agree: the same column names and type displays,
-    and the same rows in the same order (``assert_rows_match``)."""
+    and the same rows in the same order (``assert_rows_match``).
+
+    ``retyped`` names the columns whose types differ by design: column
+    index -> (the reference's display, the port's display). The port
+    types an integer literal as Presto does (INTEGER where it fits in
+    32 bits) and the reference types every one BIGINT, so a column of
+    literals is ``("bigint", "integer")``. Both displays are asserted;
+    every other column's display must be equal."""
     assert got.names == want.names
-    assert [t.display() for t in got.types] == \
-        [t.display() for t in want.types]
+    want_types = [t.display() for t in want.types]
+    for i, (ref_type, port_type) in (retyped or {}).items():
+        assert want_types[i] == ref_type, (i, want_types[i])
+        want_types[i] = port_type
+    assert [t.display() for t in got.types] == want_types
     assert_rows_match(got.rows, want.rows, rel)
 
 
