@@ -75,11 +75,10 @@ result line):
    run (integers, decimals, dates and strings exactly, doubles within rel
    1e-9), prints per statement the walls, the rows, the peak device
    memory and the launches of each kernel, then the checked-arithmetic
-   statements of ``SURFACE_CHECKED`` and the literal-typing statements
-   of ``SURFACE_LITERALS`` (Presto's INTEGER literals, decimal-integral
-   arithmetic; the types and error names on the card must equal the CPU
-   run's and the expected ones), and fails unless both kernels launched
-   in the phase;
+   and literal-typing statements of ``SURFACE_CHECKED`` (Presto's
+   INTEGER literals, decimal-integral arithmetic; the types and error
+   names on the card must equal the CPU run's and the expected ones),
+   and fails unless both kernels launched in the phase;
 8. files: BASELINE config 5 and the file catalogs. Writes TPC-H at
    FILES_SF (0.5) with
    the port's own writers into a temporary directory (lineitem's 16
@@ -463,34 +462,31 @@ group by u order by u"""),
 select count(*), sum(x), min(x), max(x), sum(o)
 from unnest(sequence(1, 100000)) with ordinality as t(x, o)"""),
 )
-#: the surface phase's checked-arithmetic statements (name, SQL, the
-#: error name the card and the CPU must both raise, or None where their
-#: rows must match): the column-level out-of-range cast (the card's
-#: conversion saturated it, the CPU's wrapped it), a sort-path grouped
-#: sum whose groups leave int64, the exact short-decimal division past
-#: 2^53, and substr with a negative start
+#: the surface phase's checked statements (name, SQL, the error name the
+#: card and the CPU must both raise or None where their rows must match,
+#: the type displays both must give or None): the column-level
+#: out-of-range cast (the card's conversion saturated it, the CPU's
+#: wrapped it), a sort-path grouped sum whose groups leave int64, the
+#: exact short-decimal division past 2^53, substr with a negative start;
+#: then integer literals typed INTEGER where they fit in 32 bits (Presto's
+#: LongLiteral typing), an INTEGER CASE summed on the sort path (it
+#: launches the segment sum), INTEGER arithmetic that must raise, and
+#: decimal arithmetic with integral operands of their own digits
+_DEC7 = "cast(o_totalprice / 10 as decimal(7,2))"
 SURFACE_CHECKED = (
     ("cast_out_of_range", """
 select max(cast(cast(o_orderkey as double) * 1e6 as integer))
-from orders""", "INVALID_CAST_ARGUMENT"),
+from orders""", "INVALID_CAST_ARGUMENT", None),
     ("sum_overflow_sort", """
 select o_orderkey % 7 k, sum(cast(o_orderkey as bigint) * 1000000000000)
-from orders group by 1 order by 1""", "NUMERIC_VALUE_OUT_OF_RANGE"),
+from orders group by 1 order by 1""", "NUMERIC_VALUE_OUT_OF_RANGE", None),
     ("decimal_division", """
 select o_orderkey, cast(cast(o_orderkey as bigint) * 100000000000
                         as decimal(18,0)) / cast(3 as decimal(1,0))
-from orders order by o_orderkey desc limit 5""", None),
+from orders order by o_orderkey desc limit 5""", None, None),
     ("substr_negative", """
-select n_nationkey, substr(n_name, -3) from nation order by 1""", None),
-)
-#: the surface phase's literal-typing statements (name, SQL, the error
-#: name the card and the CPU must both raise or None, the type displays
-#: both must give): integer literals typed INTEGER where they fit in 32
-#: bits (Presto's LongLiteral typing), an INTEGER CASE summed on the sort
-#: path (it launches the segment sum), INTEGER arithmetic that must raise,
-#: and decimal arithmetic with integral operands of their own digits
-_DEC7 = "cast(o_totalprice / 10 as decimal(7,2))"
-SURFACE_LITERALS = (
+select n_nationkey, substr(n_name, -3) from nation order by 1""", None,
+     None),
     ("literal_types", """
 select 1, 2147483647, 2147483648, -2147483648, array[1, 2],
        sequence(1, 3)""", None,
@@ -1414,7 +1410,6 @@ def phase_surface(torch):
               f"match the cpu run | peak {peak_gb:.2f} GiB | launches "
               f"(cold+warm) scan {counts[0]} probe {counts[1]}", flush=True)
     _surface_checked(gpu, cpu, torch.cuda.synchronize)
-    _surface_literals(gpu, cpu, torch.cuda.synchronize)
     launches = {"segment_sum_sorted_i64": scan.launches,
                 "direct_probe": probe.launches}
     print(f"surface launches: {json.dumps(launches)} | phase wall "
@@ -1425,38 +1420,47 @@ def phase_surface(torch):
 
 
 def _error_name(runner, sql: str):
-    """(rows or None, the QueryError's name or None) of one statement."""
+    """(rows, type displays, None), or (None, None, the QueryError's
+    name), of one statement."""
     from presto_tpu_torch.errors import QueryError
     try:
-        return runner.execute(sql).rows, None
+        res = runner.execute(sql)
     except QueryError as e:
-        return None, e.name
+        return None, None, e.name
+    return res.rows, [t.display() for t in res.types], None
 
 
-def _surface_checked(gpu, cpu, sync, counter: str = "launches") -> None:
-    """SURFACE_CHECKED and the near-edge sum on the card (``gpu``)
-    against the CPU run: the same error names, or the same rows; the
+def _surface_checked(gpu, cpu, sync, counter: str = "launches",
+                     statements=SURFACE_CHECKED) -> None:
+    """``statements`` and the near-edge sum on the card (``gpu``)
+    against the CPU run: the same error names, or the same rows and,
+    where a statement lists them, the expected types on both; the
     sort-path sums call the segment sum (``scan.<counter>`` rises:
     launches on the card, plain_calls in a CPU rehearsal)."""
     from presto_tpu_torch.ops import scan
     i64_max = (1 << 63) - 1
     keys = dict(cpu.execute(SURFACE_EDGE_KEYS).rows)
     factor = i64_max // max(int(v) for v in keys.values())
-    edge = ("sum_near_edge", SURFACE_EDGE_SUM.format(factor=factor), None)
-    for name, sql, want in SURFACE_CHECKED + (edge,):
+    edge = ("sum_near_edge", SURFACE_EDGE_SUM.format(factor=factor), None,
+            None)
+    for name, sql, want, types in tuple(statements) + (edge,):
         before = getattr(scan, counter)
         t0 = time.perf_counter()
-        rows, err = _error_name(gpu, sql)
+        rows, got_types, err = _error_name(gpu, sql)
         sync()
         wall = time.perf_counter() - t0
         launched = getattr(scan, counter) - before
         t0 = time.perf_counter()
-        cpu_rows, cpu_err = _error_name(cpu, sql)
+        cpu_rows, cpu_types, cpu_err = _error_name(cpu, sql)
         cpu_s = time.perf_counter() - t0
         if err != want or cpu_err != want:
             raise AssertionError(
                 f"surface {name}: cuda raised {err}, cpu raised {cpu_err}, "
                 f"expected {want}")
+        if types is not None and (got_types != types or cpu_types != types):
+            raise AssertionError(
+                f"surface {name}: types {got_types} (cuda), {cpu_types} "
+                f"(cpu), expected {types}")
         if want is None:
             _same_rows(rows, cpu_rows, 0.0, name)
         if name.startswith("sum_") and launched <= 0:
@@ -1475,47 +1479,7 @@ def _surface_checked(gpu, cpu, sync, counter: str = "launches") -> None:
         print(f"surface {name}: cuda {wall:.3f} s | cpu {cpu_s:.3f} s | "
               + (f"both raise {err}" if want else
                  f"{len(rows)} rows match the cpu run")
-              + f" | scan {counter} {launched}", flush=True)
-
-
-def _surface_literals(gpu, cpu, sync, counter: str = "launches") -> None:
-    """SURFACE_LITERALS on the card (``gpu``) against the CPU run: the
-    same error names, or the same rows with the expected types on both;
-    the sort-path sum calls the segment sum (``scan.<counter>`` rises)."""
-    from presto_tpu_torch.errors import QueryError
-    from presto_tpu_torch.ops import scan
-
-    def run(runner, sql):
-        try:
-            res = runner.execute(sql)
-        except QueryError as e:
-            return None, None, e.name
-        return res.rows, [t.display() for t in res.types], None
-
-    for name, sql, want, types in SURFACE_LITERALS:
-        before = getattr(scan, counter)
-        t0 = time.perf_counter()
-        rows, got_types, err = run(gpu, sql)
-        sync()
-        wall = time.perf_counter() - t0
-        launched = getattr(scan, counter) - before
-        cpu_rows, cpu_types, cpu_err = run(cpu, sql)
-        if err != want or cpu_err != want:
-            raise AssertionError(
-                f"surface {name}: cuda raised {err}, cpu raised {cpu_err}, "
-                f"expected {want}")
-        if want is None:
-            if got_types != types or cpu_types != types:
-                raise AssertionError(
-                    f"surface {name}: types {got_types} (cuda), "
-                    f"{cpu_types} (cpu), expected {types}")
-            _same_rows(rows, cpu_rows, 1e-9, name)
-        if name.startswith("sum_") and launched <= 0:
-            raise AssertionError(
-                f"surface {name} did not launch the segment sum")
-        print(f"surface {name}: cuda {wall:.3f} s | "
-              + (f"both raise {err}" if want else
-                 f"{len(rows)} rows of {', '.join(types)} match the cpu run")
+              + (f" | types {', '.join(types)}" if types else "")
               + f" | scan {counter} {launched}", flush=True)
 
 

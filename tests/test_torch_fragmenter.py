@@ -62,9 +62,8 @@ def _check(runners, catalog, sql, retyped=()):
         jf, tf = jfragment(jroot), fragment_plan(troot)
         assert [(f.id, f.partitioning) for f in tf.fragments] == \
             [(f.id, f.partitioning) for f in jf.fragments]
-    got, want = print_distributed_plan(tplan), jprint(jplan)
-    assert len(got.split("\n")) == len(want.split("\n"))
-    assert_retyped(got, want, retyped)
+    assert_retyped(print_distributed_plan(tplan).split("\n"),
+                   jprint(jplan).split("\n"), retyped)
 
 
 @pytest.mark.parametrize("name,sql", TPCH, ids=[n for n, _ in TPCH])

@@ -533,9 +533,20 @@ def test_cluster_gives_the_single_devices_rows(runners):
             w.stop()
 
 
+#: chip_smoke.py's literal-typing statements of SURFACE_CHECKED
+SMOKE_LITERALS = (
+    "literal_types", "sum_integer_case_sort", "integer_plus_literal",
+    "integer_plus_literal_overflow", "integer_sum_of_literals_overflow",
+    "values_sum_overflow", "constant_overflow", "try_constant_overflow",
+    "decimal_times_integer", "decimal_plus_smallint", "decimal_mod",
+    "values_join_integer_key", "values_mixed_width")
+
+
 def test_surface_phase_literal_statements_rehearsed(runners):
     """chip_smoke.py's literal-typing statements of its surface phase at
-    SF 0.01, with a second CPU runner in the card's place."""
+    SF 0.01, with a second CPU runner in the card's place: the listed
+    types and error names on both, and the sort-path INTEGER sum through
+    the segment sum's wrapper."""
     import importlib.util
     import pathlib
     path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
@@ -544,7 +555,10 @@ def test_surface_phase_literal_statements_rehearsed(runners):
     spec.loader.exec_module(smoke)
     _, port = runners
     other = TLocalRunner(tpch_sf=SF, device="cpu")
-    smoke._surface_literals(other, port, lambda: None, counter="plain_calls")
+    statements = [s for s in smoke.SURFACE_CHECKED if s[0] in SMOKE_LITERALS]
+    assert [s[0] for s in statements] == list(SMOKE_LITERALS)
+    smoke._surface_checked(other, port, lambda: None, counter="plain_calls",
+                           statements=statements)
 
 
 def test_dates_are_untouched(runners):

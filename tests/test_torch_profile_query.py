@@ -55,8 +55,7 @@ def test_profile_equals_reference(name):
     assert [o[:1] + o[2:] for o in ops] == [o[:1] + o[2:] for o in jops]
     # the labels, but for the integer literals the port types INTEGER
     # (tests/torch_retyped.py; q55 is that file's TPC-DS q55)
-    assert_retyped("\n".join(o[1] for o in ops),
-                   "\n".join(o[1] for o in jops),
+    assert_retyped([o[1] for o in ops], [o[1] for o in jops],
                    RETYPED[catalog].get(name, ()))
     assert got["sql"] == want["sql"]
     assert got["device"] == {"type": "cpu", "name": None,

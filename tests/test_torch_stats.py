@@ -43,9 +43,7 @@ def test_explain_text_matches_reference(runners, name):
     want = _text(jr.execute("explain " + _SQL[name]))
     # the same lines, but for the integer literals the port types
     # INTEGER (tests/torch_retyped.py)
-    assert len(got) == len(want)
-    assert_retyped("\n".join(got), "\n".join(want),
-                   TPCH_RETYPED.get(name, ()))
+    assert_retyped(got, want, TPCH_RETYPED.get(name, ()))
     assert got[0].startswith("- Output => [")
 
 
@@ -166,6 +164,4 @@ def test_other_explain_forms_raise(runners, sql, what):
         [("_col0:bigint", "_col0:integer")] * 2
     if what == "FORMAT JSON":
         pairs += [("bigint", "integer")] * 2
-    assert len(got) == len(want)
-    assert_retyped("\n".join(r[0] for r in got),
-                   "\n".join(r[0] for r in want), pairs)
+    assert_retyped([r[0] for r in got], [r[0] for r in want], pairs)

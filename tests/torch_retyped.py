@@ -12,11 +12,14 @@ BIGINT. Three kinds of token differ, and nothing else may:
 - a projected field computed from such literals (Q12's ``case ... then 1
   else 0 end``): ``_aggarg0:bigint`` and ``_aggarg0:integer``.
 
-A test holds the port's plan text against the reference's token for
-token with :func:`assert_retyped`: both texts split into the same number
-of tokens, and the tokens that differ are exactly the pairs listed for
-the statement, each (reference token, port token) as often as listed.
-The tables below list them for the TPC-H queries of
+A test holds the port's plan text against the reference's with
+:func:`assert_retyped`: the listed pairs are put into the reference's
+text, each (reference token, port token) in place of the reference's
+token where the port's text has the port's, as often as listed; every
+pair must be used, and the result must equal the port's text exactly,
+whitespace and line breaks included. With no pairs that is ``got ==
+want``. :func:`retype_doc` does the same for the plan codec's documents.
+The tables below list the pairs for the TPC-H queries of
 ``tests/tpch_queries.py`` and the TPC-DS queries (q27 of
 ``test_torch_tpcds.py`` and ``tests/tpcds_queries.py``); a query that is
 not listed has the reference's text exactly."""
@@ -24,25 +27,75 @@ import collections
 import re
 
 #: one token of a plan's text: a literal, a cast of a typed input, a
-#: word or a typed input or field, or any other single character
+#: word or a typed input or field, a run of whitespace, or any other
+#: single character
 TOKEN = re.compile(r"lit\([^()]*\)|cast\(#\d+:[a-z0-9(),]+ as [a-z0-9(),]+\)"
-                   r"|[A-Za-z_$#0-9]+(?::[a-z]+(?:\(\d+(?:,\d+)?\))?)?|\S")
+                   r"|[A-Za-z_$#0-9]+(?::[a-z]+(?:\(\d+(?:,\d+)?\))?)?|\s+|\S")
 
 
-def token_pairs(got: str, want: str):
-    """{(reference token, port token): count} over the tokens where the
-    port's text ``got`` differs from the reference's ``want``. The two
-    must split into the same number of tokens."""
-    tg, tw = TOKEN.findall(got), TOKEN.findall(want)
-    assert len(tg) == len(tw), (len(tg), len(tw))
-    return collections.Counter((w, g) for g, w in zip(tg, tw) if g != w)
+def _put(want: str, got: str, left: collections.Counter) -> str:
+    """``want`` with a pair of ``left`` put in at each token where
+    ``got`` has the pair's port token in place of its reference token;
+    each pair put in is taken from ``left``."""
+    tw, tg = TOKEN.findall(want), TOKEN.findall(got)
+    out = []
+    for i, w in enumerate(tw):
+        g = tg[i] if i < len(tg) else None
+        if g != w and left[(w, g)] > 0:
+            left[(w, g)] -= 1
+            w = g
+        out.append(w)
+    return "".join(out)
 
 
-def assert_retyped(got: str, want: str, pairs=()) -> None:
-    """The port's text ``got`` equals the reference's ``want`` but for
-    exactly ``pairs``: (reference token, port token), one per place
-    where they differ."""
-    assert token_pairs(got, want) == collections.Counter(pairs)
+def assert_retyped(got, want, pairs=()) -> None:
+    """The port's text ``got`` equals the reference's ``want`` with
+    exactly ``pairs`` put in: (reference token, port token), one per
+    place. ``got`` and ``want`` are each a string, or a list of lines
+    that must match one for one."""
+    left = collections.Counter(pairs)
+    if isinstance(want, str):
+        assert got == _put(want, got, left)
+    else:
+        assert len(got) == len(want)
+        assert list(got) == [_put(w, g, left) for w, g in zip(want, got)]
+    assert not +left, f"pairs not in the text: {dict(+left)}"
+
+
+def _token(doc: dict, t: str) -> str:
+    """How the plan text prints the node ``doc`` typed ``t``."""
+    if doc["$"] == "Literal":
+        return f"lit({doc['value']!r}:{t})"
+    if doc["$"] == "Field":
+        return f"{doc['name']}:{t}"
+    return f"{doc['form']['$form']}(...):{t}"
+
+
+def retype_doc(want, got, made: collections.Counter):
+    """The reference's codec document ``want`` with the type tags that
+    differ by design rewritten to the port's document ``got``: a
+    Literal's, Field's or SpecialForm's ``bigint`` where the port has
+    ``integer``, and a ``Cast`` of an INTEGER input to bigint where the
+    port has the input alone. Each rewrite is counted in ``made`` as its
+    (reference token, port token) pair; nothing else is rewritten."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        if (want.get("$") == "Cast" and want["type"] == {"$t": "bigint"}
+                and got.get("$") == "InputRef" and want["arg"] == got
+                and got["type"] == {"$t": "integer"}):
+            made[(f"cast(#{got['index']}:integer as bigint)",
+                  f"#{got['index']}:integer")] += 1
+            return got
+        if (want.get("$") in ("Literal", "Field", "SpecialForm")
+                and want.keys() == got.keys()
+                and want["type"] == {"$t": "bigint"}
+                and got["type"] == {"$t": "integer"}):
+            made[(_token(want, "bigint"), _token(want, "integer"))] += 1
+            want = dict(want, type=got["type"])
+        return {k: retype_doc(v, got.get(k), made) for k, v in want.items()}
+    if isinstance(want, list) and isinstance(got, list) \
+            and len(want) == len(got):
+        return [retype_doc(w, g, made) for w, g in zip(want, got)]
+    return want
 
 
 def lit_pairs(*values):
