@@ -49,10 +49,10 @@ aggregation's partial step runs on that many driver threads
 inner join of two tables partitioned on its keys runs one partition at a
 time (``_lifespan_partitions``), each partition's scans restricted to
 its splits and its dynamic bounds kept to that partition. With the
-tracer on (``obs/trace.py``) every operator is an ``op:*`` span and each
-host readback the executor makes (error flags, compaction and fused
-liveness counts, build summaries and multiplicities) a ``device-sync``
-span.
+tracer on (``obs/trace.py``) every batch an operator produces is an
+``op:*`` span and each host readback the executor makes (error flags,
+compaction and fused liveness counts, build summaries and
+multiplicities) a ``device-sync`` span.
 """
 from __future__ import annotations
 
@@ -118,6 +118,9 @@ from .spill import (
 
 _DYN_TYPES = (T.BigintType, T.IntegerType, T.SmallintType, T.TinyintType,
               T.DateType)
+
+#: an exhausted operator iterator (``_Executor._traced``)
+_END = object()
 
 #: fused-chain lane accounting: capacities entering the chain (source)
 #: and entering the tail's payload gathers (after the head's masks and
@@ -587,6 +590,9 @@ class _Executor:
         # reach the same subplan, and it must still run once
         self._memo_locks: Dict[PlanNode, threading.Lock] = {}
         self._memo_locks_lock = threading.Lock()
+        #: plan node ids of the operator spans (``_traced``), by identity
+        self._node_ids: Dict[int, int] = {}
+        self._node_seq = itertools.count()
 
     def mark_shared(self, roots: Sequence[PlanNode]) -> None:
         """Find the structurally repeated subplans (Q15's view, read by
@@ -671,11 +677,33 @@ class _Executor:
         if self.stats is not None:
             it = self.stats.wrap(node, it)
         if TRACER.enabled:
-            # operator span: first batch to exhaustion, its children's
-            # time included (the Chrome viewer nests them by time)
-            it = TRACER.wrap_iter(
-                "op:" + type(node).__name__.replace("Node", ""), it)
+            it = self._traced(node, it)
         return it
+
+    def _traced(self, node: PlanNode, it: Iterator[Batch],
+                **attrs) -> Iterator[Batch]:
+        """One ``op:<Name>`` span per ``next()`` of the node's iterator,
+        current while it runs: the children's spans and the device-sync
+        spans under it nest by parentage (its self time is its length
+        less theirs), and it is the innermost operator span open on this
+        thread while the node itself launches work. Spans carry the plan
+        node's id within this query."""
+        name = "op:" + type(node).__name__.replace("Node", "")
+        node_id = self._node_ids.setdefault(id(node), next(self._node_seq))
+
+        def batches():
+            try:
+                while True:
+                    with TRACER.span(name, node_id=node_id, **attrs):
+                        b = next(it, _END)
+                    if b is _END:
+                        return
+                    yield b
+            finally:
+                close = getattr(it, "close", None)
+                if close is not None:
+                    close()
+        return batches()
 
     def _run_memoized(self, node: PlanNode, m) -> Iterator[Batch]:
         """Materialize a shared subplan's output once, within the memory
@@ -688,9 +716,7 @@ class _Executor:
         if self.stats is not None:
             it = self.stats.wrap(node, it)
         if TRACER.enabled:
-            it = TRACER.wrap_iter(
-                "op:" + type(node).__name__.replace("Node", ""), it,
-                memoized=True)
+            it = self._traced(node, it, memoized=True)
         out: List[Batch] = []
         for b in it:
             if not self.pool.try_reserve(batch_device_bytes(b), ctx):

@@ -20,6 +20,9 @@ Device seconds are the quantum's host wall: kernels launch
 asynchronously, so a quantum is billed for the host time it held the
 stream, and no synchronization is added per quantum. A mesh query is
 billed per slot (``devices``): its quantum holds every slot of its mesh.
+With the tracer on (``obs/trace.py``) a task's wait for the device is a
+``sched-wait`` span and each quantum a ``quantum`` span that carries the
+seconds billed (``billed_s``) and the stall credit (``stall_credit_s``).
 
 Quanta are first allotted **per resource group**: stride scheduling over
 the group's ``schedulingWeight``. Each billed quantum advances the
@@ -265,6 +268,9 @@ class DeviceScheduler:
             from ..errors import QueryCancelledError
             raise QueryCancelledError("query aborted")
         t_wait = time.perf_counter()
+        wait = (TRACER.span("sched-wait", task=handle.name,
+                            level=handle.level)
+                if TRACER.enabled else None)
         with self._cv:
             self._waiting.append(handle)
             try:
@@ -278,6 +284,8 @@ class DeviceScheduler:
             self._running = handle
             self._running_thread = threading.get_ident()
             self._running_depth += 1
+        if wait is not None:
+            wait.finish()
         t0 = time.perf_counter()
         _WAIT_SECONDS.observe(t0 - t_wait)
         span = (TRACER.span("quantum", task=handle.name,
@@ -292,8 +300,6 @@ class DeviceScheduler:
             return result
         finally:
             dt = time.perf_counter() - t0
-            if span is not None:
-                span.finish()
             _QUANTA.inc()
             with self._cv:
                 # input-stall credit (note_stall): time this quantum
@@ -325,6 +331,11 @@ class DeviceScheduler:
                     self._running = None
                     self._running_thread = None
                 self._cv.notify_all()
+            if span is not None:
+                # what the quantum was billed, to set beside the device
+                # records launched during it
+                span.annotate(billed_s=billed, stall_credit_s=credit)
+                span.finish()
 
     @contextmanager
     def stalled(self, handle: Optional[TaskHandle]):

@@ -313,10 +313,6 @@ def operator_scope(stats, node):
         _OP.reset(token)
 
 
-def current_operator():
-    return _OP.get()
-
-
 class _Frame:
     __slots__ = ("seg_start", "inclusive", "children")
 
@@ -541,9 +537,12 @@ def find_device_traces(profile_dir: str) -> List[str]:
 def load_trace_events(path: str) -> List[Dict]:
     """The events of one Chrome-trace file. ``torch.profiler`` counts an
     event's ``ts`` in microseconds from the trace's
-    ``baseTimeNanoseconds`` (a wall-clock instant); such events come back
-    shifted by it, onto the epoch microseconds the span tracer's events
-    carry, so a kernel lands inside the host span that launched it."""
+    ``baseTimeNanoseconds`` (an instant on the profiler's clock, which
+    the span tracer stamps with: ``obs/trace.clock_ns``); such events
+    come back shifted by it, onto the epoch microseconds the span
+    tracer's events carry, so a kernel lands inside the host span that
+    launched it."""
+    from .trace import epoch_s
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
         doc = json.load(f)
@@ -553,7 +552,7 @@ def load_trace_events(path: str) -> List[Dict]:
     base = doc.get("baseTimeNanoseconds")
     if not isinstance(base, (int, float)) or not base:
         return events
-    shift_us = base / 1e3
+    shift_us = epoch_s(base) * 1e6
     out = []
     for e in events:
         if isinstance(e.get("ts"), (int, float)):

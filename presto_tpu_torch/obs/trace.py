@@ -15,11 +15,16 @@ The tracer times the host and adds no device synchronization: a
 error-flag reduction, a liveness count, a build summary), so its length
 is how long the host waited for the card there. Disabled (the default)
 the tracer is invisible on hot paths: ``span()`` returns one shared
-no-op object and takes no lock, and ``wrap_iter`` returns the iterator
-itself. Finished spans land in a bounded ring; ``export()`` snapshots
-them and ``chrome_trace()`` renders the Chrome ``chrome://tracing`` /
-Perfetto JSON format (one "X" complete event per span, processes keyed
-by node, threads keyed by query).
+no-op object and takes no lock. Finished spans land in a bounded ring;
+``export()`` snapshots them and ``chrome_trace()`` renders the Chrome
+``chrome://tracing`` / Perfetto JSON format (one "X" complete event per
+span, processes keyed by node, threads keyed by query).
+
+Spans are stamped on the clock of ``torch.profiler``'s records
+(``clock_ns``) and carry the id of the thread they opened on, in the form
+the CUDA runtime's launch records carry it, and the query id of their
+trace: a CUDA record joins the innermost span open on its launching
+thread at its launch instant, and through it an operator and a query.
 
 Enable with ``TRACER.enable()`` or ``PRESTO_TPU_TORCH_TRACE=1``; write a
 query's spans with ``write_chrome_trace(path, TRACER.export())``. A mesh
@@ -45,32 +50,49 @@ import threading
 import time
 import uuid
 from collections import deque
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, List, Optional
 
 #: the active span for the current thread/context (parent of new spans)
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
     "presto_tpu_torch_span", default=None)
 
-#: perf_counter -> epoch anchor: spans are timed with the monotonic
-#: clock but exported on the wall clock so spans from different
-#: processes line up on one Chrome-trace timeline
-_EPOCH_WALL = time.time()
-_EPOCH_PERF = time.perf_counter()
+#: the clock of ``torch.profiler``'s records: its CUDA runtime launch
+#: records are stamped in CLOCK_REALTIME nanoseconds (on the H100 a
+#: launch's record falls between two stamps of this clock taken around
+#: it; ``tests/test_torch_trace_clock.py``). Spans are stamped with it.
+clock_ns = time.time_ns
+
+
+def epoch_s(ns: int) -> float:
+    """Epoch seconds of an instant on ``clock_ns``: the unit spans and
+    profiler events are exported in, so spans from different processes
+    and the card's records line up on one timeline."""
+    return ns / 1e9
 
 
 def _now() -> float:
-    return _EPOCH_WALL + (time.perf_counter() - _EPOCH_PERF)
+    return epoch_s(clock_ns())
+
+
+def thread_key(ident: int) -> int:
+    """A thread id as the CUDA runtime's launch records carry it in
+    ``torch.profiler`` (their ``device_resource_id``): the low 32 bits of
+    ``threading.get_ident()``, signed."""
+    low = ident & 0xFFFFFFFF
+    return low - (1 << 32) if low >= 1 << 31 else low
 
 
 class Span:
     """One finished-or-running interval. Mutable while open; after
-    ``end`` is set it is only read."""
+    ``finish`` it is only read."""
 
-    __slots__ = ("trace_id", "span_id", "parent_id", "name", "start",
-                 "end", "node", "attrs", "_tracer", "_token")
+    __slots__ = ("trace_id", "span_id", "parent_id", "name", "start_ns",
+                 "end_ns", "node", "attrs", "thread", "query_id",
+                 "_tracer", "_token")
 
     def __init__(self, tracer: "Tracer", name: str, trace_id: str,
-                 parent_id: Optional[str], attrs: Dict):
+                 parent_id: Optional[str], attrs: Dict,
+                 query_id: Optional[str] = None):
         self._tracer = tracer
         self.name = name
         self.trace_id = trace_id
@@ -78,8 +100,12 @@ class Span:
         self.span_id = f"{tracer.node}.{next(tracer._seq)}"
         self.node = tracer.node
         self.attrs = attrs
-        self.start = _now()
-        self.end: Optional[float] = None
+        #: the opening thread, as launch records name it
+        self.thread = thread_key(threading.get_ident())
+        #: the trace's query, inherited from the parent
+        self.query_id = attrs.get("query_id", query_id)
+        self.start_ns = clock_ns()
+        self.end_ns: Optional[int] = None
         self._token = None
 
     # -- context-manager protocol --------------------------------------------
@@ -100,17 +126,19 @@ class Span:
         self.attrs.update(attrs)
 
     def finish(self) -> None:
-        if self.end is None:
-            self.end = _now()
+        if self.end_ns is None:
+            self.end_ns = clock_ns()
             self._tracer._record(self)
 
     def to_dict(self) -> Dict:
+        end_ns = self.end_ns if self.end_ns is not None else self.start_ns
         return {
             "name": self.name, "traceId": self.trace_id,
             "spanId": self.span_id, "parentId": self.parent_id,
-            "node": self.node, "start": self.start,
-            "end": self.end if self.end is not None else self.start,
-            "attrs": dict(self.attrs),
+            "node": self.node, "start": epoch_s(self.start_ns),
+            "end": epoch_s(end_ns), "startNs": self.start_ns,
+            "endNs": end_ns, "thread": self.thread,
+            "queryId": self.query_id, "attrs": dict(self.attrs),
         }
 
 
@@ -171,7 +199,8 @@ class Tracer:
             return NOOP_SPAN
         parent = _CURRENT.get()
         if parent is not None:
-            return Span(self, name, parent.trace_id, parent.span_id, attrs)
+            return Span(self, name, parent.trace_id, parent.span_id, attrs,
+                        parent.query_id)
         return Span(self, name, uuid.uuid4().hex[:16], None, attrs)
 
     def task_span(self, ctx: Optional[Dict], name: str, **attrs):
@@ -195,30 +224,6 @@ class Tracer:
         if cur is None:
             return None
         return {"traceId": cur.trace_id, "spanId": cur.span_id}
-
-    def wrap_iter(self, name: str, it: Iterator, **attrs) -> Iterator:
-        """Span covering an iterator's lifetime (first ``next`` to
-        exhaustion) — operator spans over streaming plan nodes. The
-        parent is captured at call time, matching the plan structure
-        rather than whichever operator happens to be draining."""
-        if not self.enabled:
-            return it
-        parent = _CURRENT.get()
-        trace_id = parent.trace_id if parent is not None \
-            else uuid.uuid4().hex[:16]
-        parent_id = parent.span_id if parent is not None else None
-
-        def gen():
-            span = Span(self, name, trace_id, parent_id, attrs)
-            batches = 0
-            try:
-                for item in it:
-                    batches += 1
-                    yield item
-            finally:
-                span.attrs["batches"] = batches
-                span.finish()
-        return gen()
 
     # -- export / merge ------------------------------------------------------
     def export(self, trace_id: Optional[str] = None) -> List[Dict]:
