@@ -8,142 +8,45 @@ correlation id, the launching thread (the low 32 bits of its
 instant, on the clock the engine's spans are stamped with
 (``presto_tpu_torch/obs/trace.clock_ns``). Each span carries the thread
 it opened on and its query, so a record is charged to the innermost span
-open on its launching thread at its launch instant (``attribute``), and
-through that span to an operator and a query.
+open on its launching thread at its launch instant (``trace.attribute``),
+and through that span to an operator and a query. ``trace.Recorder``
+keeps the launch records of every traced slice (``trace.link``).
 
-``LaunchRecorder`` is the traced slice's recorder that also keeps the
-launch records; ``python3 gpubench/attribute.py --workload <cell> --seed
-<n> --seconds <s>`` runs a cell as ``run.py --trace 1`` does with it, adds
-the per-layer metrics that read the launches and ``queries_per_s`` to
-the result line, and prints on standard error the device time a
+``python3 gpubench/attribute.py --workload <cell> --seed <n> --seconds
+<s>`` runs a cell as ``run.py --trace 1`` does, adds the per-layer
+metrics that read the launches and ``queries_per_s`` to the result
+line, and prints on standard error the device time a
 statement by template and by operator, and what share of the busy time
 a span was charged.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import itertools
 import json
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from . import spec, trace
-
-Launch = Tuple[int, int, int]       # thread, launch instant (ns), correlation
-#: a CUDA record with the correlation id of its launch
-Linked = Tuple[str, int, int, int, int]
+from .trace import attribute, link  # noqa: F401  (the charging's entry points)
 
 #: the per-layer metrics that read the launch records
 LAUNCH_METRICS = (("agg_device_ms_per_query", "ms"),
                   ("quantum_billing_gap_pct", "%"))
 
-
-def attribute(records: Sequence[Linked], launches: Sequence[Launch],
-              spans: Sequence[Dict], prefix: str = "") -> List[Optional[Dict]]:
-    """For each record, the innermost span whose name starts with
-    ``prefix`` that was open on the record's launching thread at its
-    launch instant; None where no such span was open or the launch was
-    not recorded. Innermost is the latest to open: a sweep over each
-    thread's launches in time order keeps its spans on a stack by
-    opening time and drops those that closed from the top."""
-    when = {corr: (thread, t) for thread, t, corr in launches}
-    asked: Dict[int, List[Tuple[int, int]]] = {}
-    for i, rec in enumerate(records):
-        hit = when.get(rec[4])
-        if hit is not None:
-            asked.setdefault(hit[0], []).append((hit[1], i))
-    by_thread: Dict[int, List[Dict]] = {}
-    for s in spans:
-        if s.get("thread") is not None and "startNs" in s \
-                and s["name"].startswith(prefix):
-            by_thread.setdefault(s["thread"], []).append(s)
-    out: List[Optional[Dict]] = [None] * len(records)
-    for thread, queries in asked.items():
-        mine = sorted(by_thread.get(thread, ()),
-                      key=lambda s: (s["startNs"], -s["endNs"]))
-        stack: List[Dict] = []
-        j = 0
-        for t, i in sorted(queries):
-            while j < len(mine) and mine[j]["startNs"] <= t:
-                stack.append(mine[j])
-                j += 1
-            # every span above the top's is later to open and closed
-            while stack and stack[-1]["endNs"] < t:
-                stack.pop()
-            out[i] = stack[-1] if stack else None
-    return out
-
-
-@dataclasses.dataclass
-class LaunchSlice(trace.Slice):
-    """A traced slice with each CUDA record's correlation id (aligned
-    with ``records``) and the runtime's launch records."""
-    correlations: List[int] = dataclasses.field(default_factory=list)
-    launches: List[Launch] = dataclasses.field(default_factory=list)
-
-    def __post_init__(self):
-        self._charged: Dict[str, List[Optional[Dict]]] = {}
-
-    def linked(self) -> List[Linked]:
-        return [r + (c,) for r, c in zip(self.records, self.correlations)]
-
-    def charged(self, prefix: str = "") -> List[Optional[Dict]]:
-        """``attribute`` over this slice, aligned with ``records``."""
-        if prefix not in self._charged:
-            self._charged[prefix] = attribute(self.linked(), self.launches,
-                                              self.spans, prefix)
-        return self._charged[prefix]
-
-    def launch_instants(self) -> List[Optional[int]]:
-        """Each record's launch instant, or None."""
-        when = {corr: t for _, t, corr in self.launches}
-        return [when.get(c) for c in self.correlations]
-
-    def bounds_ns(self) -> Tuple[int, int]:
-        """The slice on the profiler's clock."""
-        return (int(self.start_epoch * 1e9) - self.ns_to_epoch,
-                int(self.stop_epoch * 1e9) - self.ns_to_epoch)
-
-
-def link(events, device_type, lo: int, hi: int):
-    """(correlation ids aligned with the CUDA records ``Recorder.stop``
-    keeps of ``events`` for the profiler-clock bounds [lo, hi], launch
-    records of those ids). A launch record is a CUDA runtime or driver
-    call (``cuda*``, ``cu*``): the profiler's own host records of a
-    launch (module loading, activity buffers) share its correlation id
-    but name no thread."""
-    correlations = []
-    for e in events:
-        if e.device_type() != device_type:
-            continue
-        a = int(e.start_ns())
-        if a + int(e.duration_ns()) > lo and a < hi:
-            correlations.append(int(e.correlation_id()))
-    wanted = set(correlations)
-    launches = [(int(e.device_resource_id()), int(e.start_ns()),
-                 int(e.correlation_id())) for e in events
-                if e.device_type() != device_type
-                and e.name().startswith("cu")
-                and int(e.correlation_id()) in wanted]
-    return correlations, launches
+#: every traced slice keeps its launch records (``trace.Recorder.stop``)
+LaunchSlice = trace.Slice
 
 
 class LaunchRecorder(trace.Recorder):
-    """``trace.Recorder`` that also keeps the launch records."""
+    """``trace.Recorder`` that keeps its last slice for ``report``."""
 
     #: the slice of the last ``stop``
-    last: Optional[LaunchSlice] = None
+    last: Optional[trace.Slice] = None
 
-    def stop(self) -> LaunchSlice:
-        sl = super().stop()
-        out = LaunchSlice(**{f.name: getattr(sl, f.name)
-                             for f in dataclasses.fields(trace.Slice)})
-        events = list(self._results.events()) if self._results else []
-        out.correlations, out.launches = link(
-            events, self.torch.autograd.DeviceType.CUDA, *out.bounds_ns())
-        LaunchRecorder.last = out
-        return out
+    def stop(self) -> trace.Slice:
+        LaunchRecorder.last = super().stop()
+        return LaunchRecorder.last
 
 
 def done_in_slice(ctx) -> list:
@@ -154,11 +57,11 @@ def done_in_slice(ctx) -> list:
     return [s for s in ctx.completed() if t0 <= s.done <= t1]
 
 
-def launch_slice(ctx) -> Optional[LaunchSlice]:
+def launch_slice(ctx) -> Optional[trace.Slice]:
     """The context's slice where it holds launch records and spans that
     name their thread (the engine's since they were added), else None."""
     sl = ctx.slice
-    if not isinstance(sl, LaunchSlice) or not sl.launches:
+    if sl is None or not sl.launches:
         return None
     if not any(s.get("thread") is not None for s in sl.spans):
         return None
@@ -171,7 +74,7 @@ def _ns(rec) -> int:
     return rec[3] - rec[2]
 
 
-def report(sl: LaunchSlice, template_of: Callable[[str], Optional[str]]
+def report(sl: trace.Slice, template_of: Callable[[str], Optional[str]]
            ) -> List[str]:
     """Lines for standard error: the share of the busy time charged to a
     span and where the rest was launched; the device time a statement by

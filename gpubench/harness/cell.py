@@ -14,7 +14,7 @@ import math
 import subprocess
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from . import compare, spec, trace as tracing, traffic
 from .loop import ClosedLoop, Statement, run_all
@@ -42,6 +42,8 @@ class Context:
     slice: Optional[tracing.Slice]
     device_name: str
     window_epoch: float                 # epoch seconds at the window's start
+    _out: Optional[Callable[[float], bool]] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     def completed(self) -> List[Statement]:
         """Statements that came back, without error, inside the window."""
@@ -49,9 +51,11 @@ class Context:
                 and s.error is None and s.done <= self.seconds]
 
     def out_at(self, epoch_s: float) -> bool:
-        t = epoch_s - self.window_epoch
-        return any(s.sent <= t and (s.done is None or s.done >= t)
-                   for s in self.statements)
+        """Whether a statement was out (sent and not yet back) then."""
+        if self._out is None:
+            self._out = tracing.cover((s.sent, s.done)
+                                      for s in self.statements)
+        return self._out(epoch_s - self.window_epoch)
 
 
 def _counters() -> Dict[str, float]:
@@ -163,7 +167,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         time.sleep(max(0.0, tracing.SLICE[0] * seconds - loop.now()))
         recorder.start()
         time.sleep(max(0.0, tracing.SLICE[1] * seconds - loop.now()))
+        t = time.perf_counter()
         sliced = recorder.stop()
+        log(f"traced slice stopped and read {time.perf_counter() - t:.3f} s")
     came_back = loop.wait()
     c1 = _counters()
     statements = list(loop.statements)
@@ -201,11 +207,23 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     ctx = Context(float(seconds), setup_s, statements,
                   {k: c1[k] - c0[k] for k in c1}, query_mem, sliced, name,
                   window_epoch)
+    reduced = None
+    if sliced is not None:
+        t = time.perf_counter()
+        busy, gaps = sliced.busy()
+        reduced = tracing.breakdown(sliced, ctx.out_at)
+        log(f"reduction of the traced slice {time.perf_counter() - t:.3f} s "
+            f"over {len(sliced.records)} CUDA records, {len(gaps)} idle "
+            f"gaps, {len(sliced.spans)} spans, {len(sliced.launches)} "
+            f"launch records, {len(statements)} statements; slice "
+            f"{sliced.seconds:.3f} s, busy {busy / 1e9:.3f} s")
     metrics = {}
     for m in cell.metrics:
         if (m.kind == "per_layer") != bool(trace):
             continue
+        t = time.perf_counter()
         value = spec.metric_reader(m.name).read(ctx)
+        log(f"metric {m.name} read in {time.perf_counter() - t:.3f} s")
         if value is not None:
             metrics[m.name] = {"value": value, "unit": m.unit}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
@@ -216,16 +234,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
               "device": {"platform": "gpu" if on_card else "cpu",
                          "kind": name, "count": cell.chips,
                          "memory_peak_bytes": peak}}
-    if sliced is not None:
-        busy, gaps = sliced.busy()
-        log(f"traced slice {sliced.seconds:.3f} s: busy {busy / 1e9:.3f} s, "
-            f"{len(sliced.records)} CUDA records")
+    if reduced is not None:
         result["device"]["busy_s"] = busy / 1e9
         result["device"]["window_s"] = sliced.seconds
-        result["breakdown"] = {
-            "device_ops": tracing.device_ops(sliced.records),
-            "idle_gaps": tracing.idle_gaps(gaps, sliced.ns_to_epoch,
-                                           sliced.spans, ctx.out_at)}
+        result["breakdown"] = reduced
     result["checks"] = checks
     return result
 
