@@ -21,14 +21,21 @@ result line):
    same function (CUDA events, median of several runs after warm-up),
    takes each kernel's device-only time per call (torch.profiler's CUDA
    records, or CUDA events over 20 back-to-back calls where the profiler
-   records none) and works out each kernel's bound;
+   records none) and works out each kernel's bound; the slot sum of the
+   dense GROUP BY (float64, int64 and bool over 1 to 4097 slots, 0 to
+   2^23 lanes, every lane in one slot; float64 within 1e-12 relative,
+   two launches bit for bit) is timed at Q1's shape (2^23 lanes, 13
+   slots, 4 live);
 3. path: with every launch count set to 0, runs TPC-H Q6, Q1 and Q3 at
    SF1 through ``LocalRunner(tpch_sf=1, rows_per_batch=2**23)`` on
    ``cuda`` (cold, then warm; one batch holds all 6 M lineitem rows;
    every cold run here and in the next two phases starts with the scan
    cache cleared, so a warm run replays the query's own splits),
    reads the counts, fails if a kernel of the path never launched (both
-   must launch during Q3), and compares each result with the port's own
+   must launch during Q3) or if a reducer sum of Q1's dense GROUP BY
+   did not launch the slot sum (its launches must equal the sums that
+   ``slot_sum_kernel_total`` counts, with none on ``index_add_``), and
+   compares each result with the port's own
    ``device="cpu"`` run: integers, dates and strings exactly, doubles
    within rel 1e-9 (the GPU's atomic float adds sum in another order);
 4. tpch: with every launch count set to 0 again, runs the other 19
@@ -36,8 +43,9 @@ result line):
    each, same runner settings), compares each with the port's
    ``device="cpu"`` run as above, prints per query the cuda and cpu
    walls, the rows, the host time spent in LIKE and the launches of each
-   kernel, fails if the probe never launched in the phase, then breaks
-   down the slowest query's wall;
+   kernel, fails if the probe or the slot sum (the dense groupings of
+   Q4, Q12 and others) never launched in the phase, then breaks down the
+   slowest query's wall;
 5. tpcds: with every launch count set to 0 again, runs q27 (ROLLUP and
    GROUPING()) and the 22 queries of ``tests/tpcds_queries.py`` (star
    joins, windows, correlated and scalar subqueries) at TPCDS_SF (0.5)
@@ -61,8 +69,9 @@ result line):
    the write path: CREATE TABLE memory.default.t AS a projection of SF1
    lineitem, reads it twice (cold, warm), INSERTs more rows and reads it
    again, which must miss and return the new rows from batches on the
-   card, each read against the same statements on the CPU. Fails if
-   either kernel never launched in the phase;
+   card, each read against the same statements on the CPU. Prints each
+   query's launches of each kernel; fails if Q1 launched no slot sum or
+   a kernel never launched in the phase;
 7. surface: with every launch count set to 0 and the scan cache cleared,
    runs the statements of ``SURFACE_QUERIES`` at SURFACE_SF (0.5) on
    ``cuda``, cold
@@ -813,6 +822,144 @@ def check_scan(torch, gen):
             "n2p23_bound_ms": big[5]}
 
 
+def _slotsum_input(torch, gen, dtype, n, slots, live=None):
+    """(gid, x) on the card: ``n`` lanes over ``live`` of ``slots`` slots
+    (all by default); int64 values near +-2^62 so that sums wrap,
+    float64 values in [0, 1e5), bools true about 70% of the time."""
+    dev = torch.device("cuda")
+    pool = (torch.randperm(slots, generator=gen, device=dev)[:live]
+            if live else torch.arange(slots, device=dev))
+    gid = pool[torch.randint(0, pool.shape[0], (n,), generator=gen,
+                             device=dev)]
+    if dtype == torch.int64:
+        x = torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen,
+                          device=dev, dtype=torch.int64)
+        x[: n // 3] = (1 << 62) + x[: n // 3] % 1000
+    elif dtype == torch.float64:
+        x = torch.rand(n, generator=gen, device=dev, dtype=torch.float64) * 1e5
+    else:
+        x = torch.rand(n, generator=gen, device=dev) < 0.7
+    return gid, x
+
+
+def _q1_slots(torch, gen, n: int = 1 << 23, rows: int = 6_000_000):
+    """Q1's group ids over one 2^23-lane batch of SF1 lineitem: 13 slots
+    (two dictionary keys of 3 and 4 components with NULL, and the dead
+    lanes' slot 12), the 4 live ones in Q1's proportions (A/F, N/F, N/O,
+    R/F about 24.7, 0.7, 49.9 and 24.7% of the rows that pass the ship
+    date), shared by the 1 to 7 lines of an order as in lineitem's order;
+    the lanes past the table's 6 M rows and about 1.5% filtered out go to
+    the dead slot."""
+    dev = torch.device("cuda")
+    orders = rows // 4 + 1
+    sizes = torch.randint(1, 8, (orders,), generator=gen, device=dev)
+    live = torch.tensor([6, 7, 9, 10], device=dev)  # A/F N/F N/O R/F
+    weights = torch.tensor([24.7, 0.7, 49.9, 24.7], device=dev)
+    per_order = live[torch.multinomial(weights, orders, replacement=True,
+                                       generator=gen)]
+    gid = torch.repeat_interleave(per_order, sizes)[:rows]
+    gid = torch.cat([gid, torch.full((n - gid.shape[0],), 12, device=dev)])
+    gid[torch.rand(n, generator=gen, device=dev) < 0.015] = 12
+    return gid.to(torch.int64)
+
+
+def check_slotsum(torch, gen):
+    """The slot-sum kernel against its plain version on the edge cases
+    of tests/test_torch_slotsum.py (int64 bit for bit, float64 within
+    1e-12 relative, bool counts exactly, a second launch bit for bit),
+    then timed at Q1's shape for float64, int64 and bool."""
+    from presto_tpu_torch.ops import slotsum
+    dev = torch.device("cuda")
+    dtypes = {"float64": torch.float64, "int64": torch.int64,
+              "bool": torch.bool}
+
+    def compare(name, gid, x, slots):
+        got = slotsum.slot_sum(gid, x, slots)
+        want = slotsum.slot_sum_plain(gid, x, slots)
+        again = slotsum.slot_sum(gid, x, slots)
+        torch.cuda.synchronize()
+        if x.dtype == torch.float64:
+            gap = float(((got - want).abs()
+                         / want.abs().clamp(min=1e-300)).max())
+            ok = gap <= 1e-12
+        else:
+            gap = 0.0
+            ok = got.dtype == torch.int64 and torch.equal(got, want)
+        if not ok:
+            raise AssertionError(f"slot_sum {name}: differs from the plain "
+                                 f"version (float64 gap {gap:.3e})")
+        if not torch.equal(got, again):
+            raise AssertionError(f"slot_sum {name}: two launches differ")
+        return gap
+
+    worst = 0.0
+    cases = 0
+    for label, dtype in dtypes.items():
+        for slots, live in ((1, None), (13, 4), (32, None), (33, None),
+                            (4097, None), (4097, 4)):
+            for n in (0, 1, 4103, 1 << 23):
+                gid, x = _slotsum_input(torch, gen, dtype, n, slots, live)
+                worst = max(worst, compare(
+                    f"{label} slots={slots} live={live or slots} n={n}",
+                    gid, x, slots))
+                cases += 1
+        for slots in (13, 33, 4097):            # every lane in one slot
+            _, x = _slotsum_input(torch, gen, dtype, (1 << 20) + 3, slots)
+            gid = torch.full((x.shape[0],), slots - 1, dtype=torch.int64,
+                             device=dev)
+            worst = max(worst, compare(f"{label} one slot of {slots}",
+                                       gid, x, slots))
+            cases += 1
+    print(f"slot_sum: {cases} cases match the plain version (float64 gap "
+          f"at most {worst:.3e}), launches bit-equal", flush=True)
+
+    q1_gid = _q1_slots(torch, gen)
+    n = q1_gid.shape[0]
+    timings = {}
+    for label, dtype in dtypes.items():
+        _, x = _slotsum_input(torch, gen, dtype, n, 13)
+        call = lambda: slotsum.slot_sum(q1_gid, x, 13)  # noqa: E731
+        ms = median_ms(call, torch)
+        dev_ms, dev_by = device_ms(call, torch)
+        plain_ms = median_ms(lambda: slotsum.slot_sum_plain(q1_gid, x, 13),
+                             torch)
+        bound_ms = (8 + x.element_size()) * n / HBM_BYTES_PER_S * 1e3
+        timings[label] = (ms, dev_ms, dev_by, plain_ms, bound_ms)
+        print(f"slot_sum Q1 shape {label} (2^23 lanes, 13 slots, 4 live): "
+              f"wrapper {ms:.4f} ms, device {dev_ms:.4f} ms ({dev_by}), "
+              f"plain (index_add_, also the library call) {plain_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({100 * bound_ms / dev_ms:.1f}% "
+              f"of it), launches {slotsum.launches}", flush=True)
+    wide = {}
+    for slots, live in ((33, None), (4097, None), (4097, 4)):
+        gid, x = _slotsum_input(torch, gen, torch.float64, n, slots, live)
+        wide[(slots, live)] = (
+            device_ms(lambda: slotsum.slot_sum(gid, x, slots), torch)[0],
+            median_ms(lambda: slotsum.slot_sum_plain(gid, x, slots), torch))
+        print(f"slot_sum float64 2^23 lanes, {live or slots} live of "
+              f"{slots} slots: device {wide[(slots, live)][0]:.4f} ms, "
+              f"plain {wide[(slots, live)][1]:.4f} ms", flush=True)
+    spread = wide[(4097, None)]
+    ms, dev_ms, dev_by, plain_ms, bound_ms = timings["float64"]
+    return {"name": "slot_sum", "route": "cuda",
+            "source": "presto_tpu_torch/csrc/slotsum.cu",
+            "replaces": "none (index_add_ of the dense GROUP BY)",
+            "max_abs_err": worst, "ms": ms, "kernel_ms": ms,
+            "device_ms": dev_ms, "device_ms_by": dev_by,
+            "plain_ms": plain_ms, "library_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "ok": True,
+            "shape": "n=8388608 slots=13 live=4 float64",
+            "edge_cases": cases,
+            "int64_device_ms": timings["int64"][1],
+            "int64_plain_ms": timings["int64"][3],
+            "int64_bound_ms": timings["int64"][4],
+            "bool_device_ms": timings["bool"][1],
+            "bool_plain_ms": timings["bool"][3],
+            "bool_bound_ms": timings["bool"][4],
+            "slots4097_device_ms": spread[0],
+            "slots4097_plain_ms": spread[1]}
+
+
 def _probe_bits(torch, t):
     if t.dtype == torch.float64:
         return t.view(torch.int64)
@@ -1006,17 +1153,17 @@ def phase_path(torch):
     returns the launches and the CPU rows."""
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.exec.scancache import CACHE
-    from presto_tpu_torch.ops import probe, scan
+    from presto_tpu_torch.ops import slotsum
     queries = _queries()
     # one 2^23-lane batch holds all of SF1's 6 M lineitem rows
     gpu = LocalRunner(tpch_sf=1, rows_per_batch=ROWS_PER_BATCH)
     cpu = LocalRunner(tpch_sf=1, device="cpu", rows_per_batch=ROWS_PER_BATCH)
     results, cpu_rows = {}, {}
-    scan.launches = 0
-    probe.launches = 0
-    q3_launches = None
+    _reset_launches()
+    by_query = {}
     for name in PATH_QUERIES:
-        before = (scan.launches, probe.launches)
+        before = _launch_counts()
+        sums = (slotsum.KERNEL_SUMS.value, slotsum.INDEX_ADD_SUMS.value)
         walls = []
         CACHE.clear()
         for _ in range(2):              # cold, then warm
@@ -1024,17 +1171,24 @@ def phase_path(torch):
             res = gpu.execute(queries[name])
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        if name == "q3":
-            q3_launches = (scan.launches - before[0],
-                           probe.launches - before[1])
+        by_query[name] = _launches_since(before)
+        if name == "q1":
+            # every reducer sum of the dense GROUP BY launches the slot sum
+            routes = (slotsum.KERNEL_SUMS.value - sums[0],
+                      slotsum.INDEX_ADD_SUMS.value - sums[1])
+            launched = by_query["q1"]["slot_sum"]
+            print(f"q1 (cold+warm) reducer sums: slot_sum launches "
+                  f"{launched}, routes kernel {routes[0]:.0f} index_add_ "
+                  f"{routes[1]:.0f}", flush=True)
+            if launched <= 0 or launched != routes[0] or routes[1]:
+                raise AssertionError("q1's reducer sums did not all launch "
+                                     "the slot sum")
         results[name] = (res, walls)
         LOCAL_COLD_WALLS[name] = walls[0]
-    launches = {"segment_sum_sorted_i64": scan.launches,
-                "direct_probe": probe.launches}
+    launches = _launch_counts()
     print(f"path launches: {json.dumps(launches)} q3 (cold+warm): "
-          f"scan {q3_launches[0]} probe {q3_launches[1]}", flush=True)
-    if min(q3_launches) <= 0:
-        raise AssertionError("a kernel of the Q3 path never launched")
+          f"{_launch_text(by_query['q3'])}", flush=True)
+    _require_launches(by_query["q3"], KERNEL_SYMBOLS, "in q3")
     for name, (res, walls) in results.items():
         t0 = time.perf_counter()
         ref = cpu.execute(queries[name])
@@ -1115,7 +1269,6 @@ def phase_tpch(torch):
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.exec.scancache import CACHE
     from presto_tpu_torch.expr import functions
-    from presto_tpu_torch.ops import probe, scan
     queries = {n: sql for n, sql in _queries().items()
                if n not in PATH_QUERIES}
     gpu = LocalRunner(tpch_sf=1, rows_per_batch=ROWS_PER_BATCH)
@@ -1132,11 +1285,10 @@ def phase_tpch(torch):
         return res
     functions._REGISTRY["like"] = timed_like
     walls, cpu_rows = {}, {}
-    scan.launches = 0
-    probe.launches = 0
+    _reset_launches()
     try:
         for name, sql in queries.items():
-            before = (scan.launches, probe.launches)
+            before = _launch_counts()
             like_s[0] = 0.0
             CACHE.clear()               # cold: no split of another query
             torch.cuda.reset_peak_memory_stats()
@@ -1146,7 +1298,7 @@ def phase_tpch(torch):
             walls[name] = time.perf_counter() - t0
             LOCAL_COLD_WALLS[name] = walls[name]
             peak_gb = torch.cuda.max_memory_allocated() / 2**30
-            counts = (scan.launches - before[0], probe.launches - before[1])
+            counts = _launches_since(before)
             t0 = time.perf_counter()
             ref = cpu.execute(sql)
             cpu_s = time.perf_counter() - t0
@@ -1158,14 +1310,15 @@ def phase_tpch(torch):
             print(f"{name}: cuda cold {walls[name]:.3f} s | cpu "
                   f"{cpu_s:.3f} s | {len(res.rows)} rows match the cpu run "
                   f"| like {like_s[0]:.3f} s | peak {peak_gb:.2f} GiB | "
-                  f"launches scan {counts[0]} probe {counts[1]}", flush=True)
+                  f"launches {_launch_text(counts)}", flush=True)
     finally:
         functions._REGISTRY["like"] = like
-    launches = {"segment_sum_sorted_i64": scan.launches,
-                "direct_probe": probe.launches}
+    launches = _launch_counts()
     print(f"tpch launches: {json.dumps(launches)}", flush=True)
-    if launches["direct_probe"] <= 0:
-        raise AssertionError("the probe kernel never launched in the phase")
+    # the probe in the joins, the slot sum in the dense groupings (Q4's
+    # order priority, Q12's ship mode, ...)
+    _require_launches(launches, ("direct_probe", "slot_sum"),
+                      "in the tpch phase")
     slowest = max(walls, key=walls.get)
     print(f"slowest on cuda: {slowest} ({walls[slowest]:.3f} s cold)",
           flush=True)
@@ -1201,7 +1354,6 @@ def phase_tpcds(torch):
     battery's CPU rows."""
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.exec.scancache import CACHE
-    from presto_tpu_torch.ops import probe, scan
     queries = _tpcds_queries()
 
     def runners(sf):
@@ -1213,22 +1365,21 @@ def phase_tpcds(torch):
     def on_card(runner, sql, cold=True):
         if cold:
             CACHE.clear()
-        before = (scan.launches, probe.launches)
+        before = _launch_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = runner.execute(sql)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         return (res, wall, torch.cuda.max_memory_allocated() / 2**30,
-                (scan.launches - before[0], probe.launches - before[1]))
+                _launches_since(before))
 
     def on_cpu(runner, sql):
         t0 = time.perf_counter()
         res = runner.execute(sql)
         return res, time.perf_counter() - t0
 
-    scan.launches = 0
-    probe.launches = 0
+    _reset_launches()
     gpu, cpu = runners(TPCDS_SF)
     walls, battery_rows = {}, {}
     for name, sql in queries.items():
@@ -1241,8 +1392,8 @@ def phase_tpcds(torch):
                   flush=True)
         print(f"tpcds sf{TPCDS_SF} {name}: cuda cold {walls[name]:.3f} s | "
               f"cpu {cpu_s:.3f} s | {len(res.rows)} rows match the cpu run "
-              f"| peak {peak_gb:.2f} GiB | launches scan {counts[0]} probe "
-              f"{counts[1]}", flush=True)
+              f"| peak {peak_gb:.2f} GiB | launches {_launch_text(counts)}",
+              flush=True)
     slowest = max(walls, key=walls.get)
     print(f"tpcds slowest on cuda: {slowest} ({walls[slowest]:.3f} s cold)",
           flush=True)
@@ -1262,11 +1413,9 @@ def phase_tpcds(torch):
         print(f"tpcds sf{TPCDS_BIG_SF} {name}: cpu {cpu_s:.3f} s, "
               f"{len(ref.rows)} rows (the scan phase's reference)",
               flush=True)
-    launches = {"segment_sum_sorted_i64": scan.launches,
-                "direct_probe": probe.launches}
+    launches = _launch_counts()
     print(f"tpcds launches: {json.dumps(launches)}", flush=True)
-    if launches["direct_probe"] <= 0:
-        raise AssertionError("the probe kernel never launched in the phase")
+    _require_launches(launches, ("direct_probe",), "in the tpcds phase")
     return launches, cpu_rows, battery_rows
 
 
@@ -1277,7 +1426,6 @@ def phase_scan(torch, tpch_cpu_rows, tpcds_cpu_rows):
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.exec.scancache import CACHE
     from presto_tpu_torch.obs.metrics import REGISTRY
-    from presto_tpu_torch.ops import probe, scan
     card = torch.device("cuda")
     inserts = REGISTRY.counter("scan_cache_insert_total")
     tpch = _queries()
@@ -1305,8 +1453,7 @@ def phase_scan(torch, tpch_cpu_rows, tpcds_cpu_rows):
               flush=True)
         return res, st, wall
 
-    scan.launches = 0
-    probe.launches = 0
+    _reset_launches()
     CACHE.clear()
     cases = [(gpu_h, "q1", tpch["q1"], tpch_cpu_rows["q1"]),
              (gpu_h, "q3", tpch["q3"], tpch_cpu_rows["q3"]),
@@ -1315,14 +1462,19 @@ def phase_scan(torch, tpch_cpu_rows, tpcds_cpu_rows):
     warm_hits = {}
     for runner, name, sql, ref_rows in cases:
         sf = 1 if runner is gpu_h else TPCDS_BIG_SF
+        before = _launch_counts()
         cold, _, _ = run(runner, sql, f"sf{sf} {name} cold")
         warm, st, _ = run(runner, sql, f"sf{sf} {name} warm")
         warm_hits[name] = st.cache_hits
         busy = _card_busy(torch, lambda: runner.execute(sql))
         _same_rows(cold.rows, ref_rows, 1e-9)
         _same_rows(warm.rows, ref_rows, 1e-9)
+        counts = _launches_since(before)
         print(f"scan sf{sf} {name}: {len(ref_rows)} rows match the cpu run "
-              f"cold and warm; card busy (warm run) {busy}", flush=True)
+              f"cold and warm; card busy (warm run) {busy}; launches (cold, "
+              f"warm, busy run) {_launch_text(counts)}", flush=True)
+        if name == "q1":
+            _require_launches(counts, ("slot_sum",), "in q1")
     if warm_hits["q55"] <= 0:
         raise AssertionError("the warm q55 hit no split of the scan cache")
     CACHE.clear()
@@ -1365,11 +1517,9 @@ def phase_scan(torch, tpch_cpu_rows, tpcds_cpu_rows):
     if len(after) <= len(stored["ctas"]) or any(
             b.device.type != "cuda" for b in after):
         raise AssertionError("the INSERT's batches are not on the card")
-    launches = {"segment_sum_sorted_i64": scan.launches,
-                "direct_probe": probe.launches}
+    launches = _launch_counts()
     print(f"scan launches: {json.dumps(launches)}", flush=True)
-    if min(launches.values()) <= 0:
-        raise AssertionError("a kernel never launched in the scan phase")
+    _require_launches(launches, launches, "in the scan phase")
     return launches
 
 
@@ -1379,16 +1529,14 @@ def phase_surface(torch):
     port's CPU run."""
     from presto_tpu_torch.exec.runner import LocalRunner
     from presto_tpu_torch.exec.scancache import CACHE
-    from presto_tpu_torch.ops import probe, scan
     gpu = LocalRunner(tpch_sf=SURFACE_SF, rows_per_batch=ROWS_PER_BATCH)
     cpu = LocalRunner(tpch_sf=SURFACE_SF, device="cpu",
                       rows_per_batch=ROWS_PER_BATCH)
-    scan.launches = 0
-    probe.launches = 0
+    _reset_launches()
     CACHE.clear()
     t_phase = time.perf_counter()
     for name, sql in SURFACE_QUERIES:
-        before = (scan.launches, probe.launches)
+        before = _launch_counts()
         torch.cuda.reset_peak_memory_stats()
         walls = []
         CACHE.clear()
@@ -1398,7 +1546,7 @@ def phase_surface(torch):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        counts = (scan.launches - before[0], probe.launches - before[1])
+        counts = _launches_since(before)
         t0 = time.perf_counter()
         ref = cpu.execute(sql)
         cpu_s = time.perf_counter() - t0
@@ -1408,14 +1556,12 @@ def phase_surface(torch):
         print(f"surface {name}: cuda cold {walls[0]:.3f} s warm "
               f"{walls[1]:.3f} s | cpu {cpu_s:.3f} s | {len(res.rows)} rows "
               f"match the cpu run | peak {peak_gb:.2f} GiB | launches "
-              f"(cold+warm) scan {counts[0]} probe {counts[1]}", flush=True)
+              f"(cold+warm) {_launch_text(counts)}", flush=True)
     _surface_checked(gpu, cpu, torch.cuda.synchronize)
-    launches = {"segment_sum_sorted_i64": scan.launches,
-                "direct_probe": probe.launches}
+    launches = _launch_counts()
     print(f"surface launches: {json.dumps(launches)} | phase wall "
           f"{time.perf_counter() - t_phase:.3f} s", flush=True)
-    if min(launches.values()) <= 0:
-        raise AssertionError("a kernel never launched in the surface phase")
+    _require_launches(launches, KERNEL_SYMBOLS, "in the surface phase")
     return launches
 
 
@@ -1556,14 +1702,13 @@ def _decode_breakdown(torch, root: str) -> None:
 
 def _file_counters():
     from presto_tpu_torch.formats import decodestats as ds
-    from presto_tpu_torch.ops import probe, scan
     return {"stripes read": ds.ORC_STRIPES_READ,
             "stripes pruned": ds.ORC_STRIPES_PRUNED,
             "orc files pruned": ds.ORC_FILES_PRUNED,
             "row groups read": ds.PARQUET_GROUPS_READ,
             "row groups pruned": ds.PARQUET_GROUPS_PRUNED,
             "host decode s": ds.HOST_SECONDS,
-            "wide host decodes": ds.WIDE_HOST_DECODES}, (scan, probe)
+            "wide host decodes": ds.WIDE_HOST_DECODES}
 
 
 def phase_files(torch):
@@ -1584,7 +1729,7 @@ def phase_files(torch):
     from presto_tpu_torch.formats.decodestats import EXPANSION
     from torch.profiler import ProfilerActivity, profile
     queries = _queries()
-    counters, (scan, probe) = _file_counters()
+    counters = _file_counters()
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="files_")
     try:
@@ -1601,12 +1746,11 @@ def phase_files(torch):
             cm = CatalogManager()
             cm.register(kind, conn(os.path.join(root, kind)))
             runners[kind] = LocalRunner(catalogs=cm, catalog=kind)
-        scan.launches = 0
-        probe.launches = 0
+        _reset_launches()
 
         def run(kind, name, sql, label, properties=None):
             before = {k: c.value for k, c in counters.items()}
-            launched = (scan.launches, probe.launches)
+            launched = _launch_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             res = runners[kind].execute(sql, properties=properties)
@@ -1621,9 +1765,8 @@ def phase_files(torch):
                   f"{delta['host decode s']:.3f} s | peak "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
                   f"widths over 56 on the host "
-                  f"{int(delta['wide host decodes'])} | launches scan "
-                  f"{scan.launches - launched[0]} probe "
-                  f"{probe.launches - launched[1]}", flush=True)
+                  f"{int(delta['wide host decodes'])} | launches "
+                  f"{_launch_text(_launches_since(launched))}", flush=True)
             return res, wall, delta
 
         def expansion_seconds(kind, sql):
@@ -1724,25 +1867,42 @@ def phase_files(torch):
               flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    launches = {"segment_sum_sorted_i64": scan.launches,
-                "direct_probe": probe.launches}
+    launches = _launch_counts()
     print(f"files launches: {json.dumps(launches)} | phase wall "
           f"{time.perf_counter() - t_phase:.3f} s", flush=True)
-    if min(launches.values()) <= 0:
-        raise AssertionError("a kernel never launched in the files phase")
+    _require_launches(launches, KERNEL_SYMBOLS, "in the files phase")
     return launches
 
 
 def _launch_counts():
-    from presto_tpu_torch.ops import probe, scan
+    """Launches of each hand-written kernel on the card."""
+    from presto_tpu_torch.ops import probe, scan, slotsum
     return {"segment_sum_sorted_i64": scan.launches,
-            "direct_probe": probe.launches}
+            "direct_probe": probe.launches, "slot_sum": slotsum.launches}
 
 
 def _reset_launches() -> None:
-    from presto_tpu_torch.ops import probe, scan
-    scan.launches = 0
-    probe.launches = 0
+    from presto_tpu_torch.ops import probe, scan, slotsum
+    scan.launches = probe.launches = slotsum.launches = 0
+
+
+def _launches_since(before):
+    """The launches of each kernel since ``_launch_counts()`` gave
+    ``before``."""
+    return {k: v - before[k] for k, v in _launch_counts().items()}
+
+
+def _launch_text(counts) -> str:
+    return (f"scan {counts['segment_sum_sorted_i64']} probe "
+            f"{counts['direct_probe']} slot_sum {counts['slot_sum']}")
+
+
+def _require_launches(counts, kernels, where: str) -> None:
+    """Fails unless each of ``kernels`` launched (``counts[k] > 0``)."""
+    idle = [k for k in kernels if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"{', '.join(idle)} never launched {where}: "
+                             f"{counts}")
 
 
 def phase_chains(torch, tpch_cpu_rows=None, q27_cpu_rows=None):
@@ -1782,13 +1942,11 @@ def phase_chains(torch, tpch_cpu_rows=None, q27_cpu_rows=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         delta = {k: int(c.value - before[k]) for k, c in counters.items()}
-        now = _launch_counts()
         print(f"chains {label} fused={'on' if fused_on else 'off'} "
               f"{'cold' if cold else 'warm'}: wall {wall:.3f} s | lanes "
               f"source {delta['source_lanes']} tail {delta['tail_lanes']} "
-              f"| readbacks {delta['liveness_readbacks']} | launches probe "
-              f"{now['direct_probe'] - launched['direct_probe']} scan "
-              f"{now['segment_sum_sorted_i64'] - launched['segment_sum_sorted_i64']}"
+              f"| readbacks {delta['liveness_readbacks']} | launches "
+              f"{_launch_text(_launches_since(launched))}"
               f" | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
         return res, delta
@@ -1972,10 +2130,12 @@ from li_p join ord_p on l_orderkey = o_orderkey and li_p.b = ord_p.b
 def _kernel_calls(device: str):
     """Launches of each kernel on the card; on the CPU (a rehearsal of
     the phase) the calls of each kernel's plain version."""
+    counts = _launch_counts()
     if device == "cuda":
-        return _launch_counts()
+        return counts
     from presto_tpu_torch.obs.profiler import KERNELS
-    return {k["name"]: k["plain_calls"] for k in KERNELS.snapshot()}
+    return {k["name"]: k["plain_calls"] for k in KERNELS.snapshot()
+            if k["name"] in counts}
 
 
 def phase_statements(torch, tpch_cpu_rows=None, sf=STATEMENTS_SF,
@@ -2902,8 +3062,7 @@ def phase_serving(torch, tpch_cpu_rows=None, device="cuda", sf=SERVING_SF,
     miss_launches = launches_since(base)
     print(f"serving launches in the plan and template runs: "
           f"{json.dumps(miss_launches)}", flush=True)
-    if min(miss_launches.values()) <= 0:
-        raise AssertionError("a kernel never launched in the miss runs")
+    _require_launches(miss_launches, KERNEL_SYMBOLS, "in the miss runs")
 
     # (c) the result cache
     rprops = {"result_cache": True}
@@ -3101,7 +3260,8 @@ FRONTDOOR_SF = 1
 FRONTDOOR_RUNS = 10
 FRONTDOOR_CLI_SF = 0.1
 FRONTDOOR_WARM = ("q6", "q1", "q3")
-#: the names the CUDA kernels carry in a torch.profiler trace
+#: Q3's two kernels (the phases that run only Q3-shaped work require
+#: these), and the names they carry in a torch.profiler trace
 KERNEL_SYMBOLS = {"segment_sum_sorted_i64": "segment_sum_kernel",
                   "direct_probe": "direct_probe_kernel"}
 #: the serving phase's two weighted groups under a root of this phase's
@@ -3508,7 +3668,7 @@ def _worker_kernel_calls(url, device):
         else "kernel_plain_calls_total"
     samples = _metric_samples(url)
     return {name: int(samples.get((fam, (("key", name),)), 0))
-            for name in ("segment_sum_sorted_i64", "direct_probe")}
+            for name in _launch_counts()}
 
 
 def phase_cluster(torch, tpch_cpu_rows=None, device="cuda", sf=CLUSTER_SF,
@@ -3543,7 +3703,7 @@ def phase_cluster(torch, tpch_cpu_rows=None, device="cuda", sf=CLUSTER_SF,
     TRACER.enable(False)
     queries = _queries()
     names = [n for n in queries if n not in CLUSTER_LEFT_OUT]
-    launches = dict.fromkeys(("segment_sum_sorted_i64", "direct_probe"), 0)
+    launches = dict.fromkeys(_launch_counts(), 0)
 
     def counter(name):
         return REGISTRY.counter(name).value
@@ -3771,9 +3931,7 @@ def phase_cluster(torch, tpch_cpu_rows=None, device="cuda", sf=CLUSTER_SF,
                   f"equal the cpu rows", flush=True)
         sub = {k: v - sub0[k]
                for k, v in _worker_kernel_calls(wurl, device).items()}
-        if min(sub.values()) <= 0:
-            raise AssertionError(f"the subprocess worker's own launches "
-                                 f"{sub}")
+        _require_launches(sub, KERNEL_SYMBOLS, "on the subprocess worker")
         req = urllib.request.Request(
             f"{wurl}/v1/info/state", method="PUT",
             data=json.dumps("SHUTTING_DOWN").encode())
@@ -3948,7 +4106,7 @@ def phase_autoscale(torch, tpch_cpu_rows=None, device="cuda", card="",
     spool_settings = SPOOL.settings()
     gc.collect()
     foreign = sum(1 for m in live_managers())
-    launches = dict.fromkeys(("segment_sum_sorted_i64", "direct_probe"), 0)
+    launches = dict.fromkeys(_launch_counts(), 0)
     per_worker = {}
     srv = None
     try:
@@ -4068,7 +4226,8 @@ def phase_autoscale(torch, tpch_cpu_rows=None, device="cuda", card="",
                 sc.close()
 
         def served(h):
-            return min(_worker_kernel_calls(h.url, device).values()) > 0
+            calls = _worker_kernel_calls(h.url, device)
+            return min(calls[k] for k in KERNEL_SYMBOLS) > 0
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(clients)]
         for t in threads:
@@ -4149,9 +4308,8 @@ def phase_autoscale(torch, tpch_cpu_rows=None, device="cuda", card="",
                   f"launches {json.dumps(calls)}, drained and exited "
                   f"(code {exits[node][0]}) {exits[node][1]:.3f} s after "
                   f"SHUTTING_DOWN", flush=True)
-            if min(calls.values()) <= 0:
-                raise AssertionError(f"worker {node} launched "
-                                     f"{calls}")
+            _require_launches(calls, KERNEL_SYMBOLS,
+                              f"on autoscale worker {node}")
             for k, v in calls.items():
                 launches[k] += v
         print(f"autoscale controller {at}: grew to {grown} and drained "
@@ -4316,7 +4474,9 @@ def phase_tools(torch, tpch_cpu_rows=None, device="cuda", sf=TOOLS_SF,
     _print_profile(doc, at)
     _same_rows(doc["rows"], want, 1e-9, "q3 profile")
     kernels = {k["name"]: k for k in doc["kernels"]}
-    if set(kernels) != set(KERNEL_SYMBOLS):
+    # Q3's own two kernels, and the slot sum where a reducer's slots are
+    # few enough for it
+    if not set(KERNEL_SYMBOLS) <= set(kernels) <= set(_launch_counts()):
         raise AssertionError(f"the profile lists kernels {sorted(kernels)}"
                              f", not {sorted(KERNEL_SYMBOLS)}")
     for k in kernels.values():
@@ -4392,8 +4552,7 @@ def phase_tools(torch, tpch_cpu_rows=None, device="cuda", sf=TOOLS_SF,
     print(f"tools launches {at}: {json.dumps(launches)} | phase wall "
           f"{wall:.3f} s ({wall - cpu_s:.3f} s without the cpu reference "
           f"run)", flush=True)
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched: {launches}")
+    _require_launches(launches, KERNEL_SYMBOLS, "in the tools phase")
     return launches
 
 
@@ -4448,7 +4607,8 @@ def main() -> None:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     try:
-        entries = [check_scan(torch, gen), check_probe(torch, gen)]
+        entries = [check_scan(torch, gen), check_probe(torch, gen),
+                   check_slotsum(torch, gen)]
     except Exception as e:  # noqa: BLE001
         fail("kernels", f"{type(e).__name__}: {e}")
     if only == "--kernels-only":

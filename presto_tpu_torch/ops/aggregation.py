@@ -7,13 +7,17 @@ a grouping either
 
 - takes the DENSE path when every key's domain is host-known
   (dictionary codes, booleans, stats-bounded integers): the mixed-radix
-  composite key code IS the group slot, reduced with ``index_add_`` /
-  ``scatter_reduce_`` over K slots (``dense_group_plan``); or
+  composite key code IS the group slot, reduced over K slots
+  (``dense_group_plan``) by the slot-sum kernel on the card
+  (``ops/slotsum.py``) for K + 1 <= 4097 and by ``index_add_`` above,
+  and by ``scatter_reduce_`` for min and max; or
 - takes the SORT path: rows sort by their keys, segment boundaries give
   dense group ids and run starts, and int64 sums go through the
   sorted-run segment-sum kernel (``ops/scan.py``, a CUDA kernel on the
-  card). Double sums on this path use ``index_add_``: prefix differences
-  over millions of rows would lose about 1e-10 relative precision.
+  card). Double sums on this path take the dense path's rule (the
+  slot-sum kernel up to 4097 slots, ``index_add_`` above): prefix
+  differences over millions of rows would lose about 1e-10 relative
+  precision.
 
 Integral ``sum`` is checked (``checked_sum_i64``): each reduction sums
 two digit planes of the int64 values, which cannot wrap, and a group
@@ -38,6 +42,7 @@ from ..batch import Batch, Column, Schema, bucket_capacity, gather_rows
 from ..errors import NUMERIC_VALUE_OUT_OF_RANGE
 from ..types import Type
 from . import int128 as I
+from . import slotsum
 from .join import lexsort_permutation
 from .scan import segment_sum_sorted_i64
 from .sketch import (
@@ -353,11 +358,15 @@ def _dense_key_columns(batch: Batch, group_indices: Sequence[int],
 
 
 class _SlotReducers:
-    """Group reductions over a group id in [0, cap) via ``index_add_`` /
-    ``scatter_reduce_`` — the dense path's reducers (group id = composite
-    key code; the reference's broadcast-compare and i32 digit-scatter
-    reducers are TPU workarounds), and the sort path's reducers for
-    everything but its int64 sums. Values may carry a trailing width
+    """Group reductions over a group id in [0, cap) — the dense path's
+    reducers (group id = composite key code; the reference's
+    broadcast-compare and i32 digit-scatter reducers are TPU
+    workarounds), and the sort path's reducers for everything but its
+    int64 sums. Sums and counts of 1-D float64, int64 or bool columns
+    over at most ``slotsum.MAX_SLOTS`` slots go through
+    ``slotsum.slot_sum`` (``slotsum.routed``: the kernel on the card,
+    its plain version on the CPU); other sums take ``index_add_``, min
+    and max ``scatter_reduce_``. Values may carry a trailing width
     (digit planes, HLL registers)."""
 
     def __init__(self, group_id: torch.Tensor, cap: int):
@@ -366,9 +375,15 @@ class _SlotReducers:
         self.gid, self.cap = group_id, cap
 
     def count(self, valid):
-        return self.sum(valid.to(torch.int64))
+        """int64 count of the True lanes of ``valid`` per group."""
+        return self.sum(valid)
 
     def sum(self, x):
+        """Per-group sums (a bool ``x`` counts its True lanes)."""
+        if slotsum.routed(x, self.cap):
+            return slotsum.slot_sum(self.gid, x, self.cap)
+        if x.dtype == torch.bool:
+            x = x.to(torch.int64)
         out = torch.zeros((self.cap,) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
         return out.index_add_(0, self.gid, x)
@@ -397,7 +412,8 @@ class _SegReducers(_SlotReducers):
     rows (absent groups point one past the end), so every 1-D int64 sum
     takes the sorted-run segment-sum kernel: counts, and each digit plane
     of a checked integral sum (``checked_sum_i64``). The kernel wraps mod
-    2^64; the planes cannot wrap, so the sums are exact and checked."""
+    2^64; the planes cannot wrap, so the sums are exact and checked.
+    Other sums take the base class's rule."""
 
     def __init__(self, group_id: torch.Tensor, cap: int,
                  starts: torch.Tensor):
@@ -405,8 +421,9 @@ class _SegReducers(_SlotReducers):
         self.starts = starts
 
     def sum(self, x):
-        if x.dtype == torch.int64 and x.ndim == 1:
-            return segment_sum_sorted_i64(x, self.starts, self.cap)
+        if x.dtype in (torch.int64, torch.bool) and x.ndim == 1:
+            return segment_sum_sorted_i64(x.to(torch.int64), self.starts,
+                                          self.cap)
         return super().sum(x)
 
 

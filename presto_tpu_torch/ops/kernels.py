@@ -26,7 +26,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 #: kernel name -> source file in csrc/
-SOURCES = {"scan": "scan.cu", "probe": "probe.cu"}
+SOURCES = {"scan": "scan.cu", "probe": "probe.cu", "slotsum": "slotsum.cu"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}

@@ -151,8 +151,11 @@ def test_smoke_tools_phase_on_the_cpu(capsys):
     spec.loader.exec_module(smoke)
     launches = smoke.phase_tools(torch, device="cpu", sf=0.01,
                                  rows_per_batch=1 << 12)
-    assert set(launches) == {"segment_sum_sorted_i64", "direct_probe"}
-    assert min(launches.values()) > 0
+    # Q3's two kernels launch; its groupings are too many for the slot
+    # sum, which the launches list beside them
+    assert set(launches) == {"segment_sum_sorted_i64", "direct_probe",
+                             "slot_sum"}
+    assert min(launches[k] for k in smoke.KERNEL_SYMBOLS) > 0
     out = capsys.readouterr().out
     assert "tools kernel segment_sum_sorted_i64" in out
     assert "tools kernel direct_probe" in out

@@ -209,9 +209,11 @@ def test_executables_lists_the_kernels(runner):
     rows = {r[0]: r for r in _rows(
         runner, "select name, static_key, invocations, flops, temp_bytes "
                 "from system.runtime.executables")}
-    assert set(rows) == {"segment_sum_sorted_i64", "direct_probe"}
+    assert set(rows) == {"segment_sum_sorted_i64", "direct_probe",
+                         "slot_sum"}
     assert rows["segment_sum_sorted_i64"][1] == \
         "presto_tpu_torch/csrc/scan.cu"
+    assert rows["slot_sum"][1] == "presto_tpu_torch/csrc/slotsum.cu"
     # on the CPU the plain versions run: no launch is counted
     assert rows["segment_sum_sorted_i64"][2] == \
         [k for k in KERNELS.snapshot()
