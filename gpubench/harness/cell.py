@@ -59,10 +59,21 @@ class Context:
 
 
 def _counters() -> Dict[str, float]:
+    """The program's registry now: every counter under its own name, each
+    histogram's count and sum as ``<name>.count`` and ``<name>.sum`` (the
+    registry's snapshot names), and the scan cache's two counters again
+    under the keys that ``scan_cache_hit_pct`` reads."""
     from presto_tpu_torch.obs.metrics import REGISTRY
-    return {"scan_cache_hits": REGISTRY.counter("scan_cache_hit_total").value,
-            "scan_cache_misses":
-                REGISTRY.counter("scan_cache_miss_total").value}
+    out: Dict[str, float] = {}
+    for m in REGISTRY.collect():
+        if m["kind"] == "counter":
+            out[m["name"]] = m["value"]
+        elif m["kind"] == "histogram":
+            out[m["name"] + ".count"] = m["count"]
+            out[m["name"] + ".sum"] = m["sum"]
+    out["scan_cache_hits"] = out.get("scan_cache_hit_total", 0.0)
+    out["scan_cache_misses"] = out.get("scan_cache_miss_total", 0.0)
+    return out
 
 
 def power_limit() -> str:
@@ -205,8 +216,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     log(f"reference and comparison {time.perf_counter() - t:.3f} s over "
         f"{len(statements)} statements")
     ctx = Context(float(seconds), setup_s, statements,
-                  {k: c1[k] - c0[k] for k in c1}, query_mem, sliced, name,
-                  window_epoch)
+                  {k: c1[k] - c0.get(k, 0.0) for k in c1}, query_mem,
+                  sliced, name, window_epoch)
     reduced = None
     if sliced is not None:
         t = time.perf_counter()

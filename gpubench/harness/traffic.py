@@ -7,9 +7,11 @@ that hold each template as many times as its weight, shuffled, so every
 seed sends the same mix and only the order and the parameters change.
 
 Set-up runs the warm instances (``warm``): per template, one statement
-for each value of its covered parameters (those whose value picks a
-scan-cache entry, as Q6's year does), so that every entry the window can
-ask for is resident before it opens.
+for each combination of its covered parameters' values (those whose
+value picks a scan-cache entry, as Q6's year does), so that every entry
+the window can ask for is resident before it opens.
+
+Each template's rule is checked as it is loaded (``params.check``).
 """
 from __future__ import annotations
 
@@ -38,11 +40,19 @@ def rng(seed: int, *purpose) -> random.Random:
     return random.Random(":".join(str(p) for p in (seed, *purpose)))
 
 
+def _template(suite: str, name: str):
+    """(SQL text, parameter rule) of one template, its rule checked."""
+    sql, rule = spec.template(suite, name)
+    params.check(name, rule)
+    return sql, rule
+
+
 def warm(suite: str, traffic: Dict, seed: int) -> List[Instance]:
-    """Set-up's statements: each template once per covered value."""
+    """Set-up's statements: each template once per combination of its
+    covered values."""
     out: List[Instance] = []
     for name in sorted(traffic["templates"]):
-        sql, rule = spec.template(suite, name)
+        sql, rule = _template(suite, name)
         for p in params.draw_pool(rule, rng(seed, "warm", name),
                                   params.cover_size(rule)):
             out.append(Instance(name, p, params.render(sql, p)))
@@ -53,7 +63,7 @@ def sequence(suite: str, traffic: Dict, seed: int,
              client: int) -> Iterator[Instance]:
     """The endless sequence of one client."""
     r = rng(seed, "client", client)
-    templates = {t: spec.template(suite, t) for t in traffic["templates"]}
+    templates = {t: _template(suite, t) for t in traffic["templates"]}
     block = [t for t in sorted(templates)
              for _ in range(int(traffic["templates"][t]))]
     while True:
